@@ -2,16 +2,19 @@
 
 TAPER has no weights: its state is the graph, the compiled workload trie,
 the partition vector and, between the field and the swap, the extroversion
-field.  Each arrives here as plain numpy arrays (read off the reference's
-objects by the caller), so both packages can compute on the same state
-without this package importing the reference.
+field.  The models (DLRM, GCN) have parameter pytrees: nested dicts and
+lists of arrays.  Each arrives here as plain numpy arrays (read off the
+reference's objects by the caller, ``np.asarray`` per leaf), so both
+packages can compute on the same state without this package importing the
+reference.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.tpstry import TrieArrays
 from repro_torch.core.visitor import ExtroversionResult
@@ -64,3 +67,41 @@ def from_reference_arrays(graph: Optional[Mapping] = None,
         out.field = ExtroversionResult(
             **{f: _copy(field[f]) for f in RESULT_FIELDS})
     return out
+
+
+def _tensors(tree, device, path="params"):
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v, device, f"{path}.{k}") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device, f"{path}[{i}]") for i, v in enumerate(tree)]
+    a = np.asarray(tree)
+    if a.dtype != np.float32:
+        raise ValueError(f"{path}: expected float32 parameters, got {a.dtype}")
+    return torch.tensor(a, device=device)
+
+
+def _layers(tree, path):
+    if not isinstance(tree, (list, tuple)) or not all(
+            isinstance(p, Mapping) and set(p) == {"w", "b"} for p in tree):
+        raise ValueError(f"{path}: expected a list of {{'w', 'b'}} layers")
+
+
+def dlrm_params_from_reference(tree: Mapping, device="cpu") -> Dict:
+    """The port's DLRM parameters from the reference's ``models.dlrm.init``
+    pytree (``{"embedding", "bot", "top"}``), copied onto ``device``."""
+    if set(tree) != {"embedding", "bot", "top"}:
+        raise ValueError(f"DLRM parameters have keys {sorted(tree)}, want "
+                         "['bot', 'embedding', 'top']")
+    _layers(tree["bot"], "bot")
+    _layers(tree["top"], "top")
+    return _tensors(tree, device)
+
+
+def gcn_params_from_reference(tree: Mapping, device="cpu") -> Dict:
+    """The port's GCN parameters from the reference's
+    ``models.gnn.gcn.init`` pytree (``{"layers": [{"w", "b"}, ...]}``),
+    copied onto ``device``."""
+    if set(tree) != {"layers"}:
+        raise ValueError(f"GCN parameters have keys {sorted(tree)}, want ['layers']")
+    _layers(tree["layers"], "layers")
+    return _tensors(tree, device)

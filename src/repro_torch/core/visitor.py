@@ -47,7 +47,7 @@ from repro_torch.core.tpstry import TrieArrays
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import LabelledGraph
 from repro_torch.kernels.vm_step.ops import vm_step
-from repro_torch.kernels.vm_step.ref import build_transition
+from repro_torch.kernels.vm_step.ref import transition_columns
 
 _EPS = 1e-30
 
@@ -170,25 +170,26 @@ def _device_inputs(g: LabelledGraph, pre: Dict, cnt, lab_vcount,
     return dev
 
 
-_TRANSITION_CACHE: Dict[Tuple, np.ndarray] = {}
+_TRANSITION_CACHE: Dict[Tuple, Tuple[np.ndarray, np.ndarray]] = {}
 
 
-def _capped_transition(trie: TrieArrays, depth_cap: int) -> np.ndarray:
-    """(L, N, N) trie transition tensor with children beyond ``depth_cap``
-    zeroed (§5.2.2 time heuristic).  Cached per (topology, probabilities);
-    bounded so drifting workload frequencies (a fresh ``cond_p`` per
-    invocation) cannot grow the cache without limit."""
+def _capped_transition(trie: TrieArrays, depth_cap: int):
+    """The trie transition in its column form ``(par, val)``, each
+    ``(L, N)``, with children beyond ``depth_cap`` zeroed (§5.2.2 time
+    heuristic).  Cached per (topology, probabilities); bounded so drifting
+    workload frequencies (a fresh ``cond_p`` per invocation) cannot grow the
+    cache without limit."""
     key = (trie.topology_signature(), int(depth_cap), trie.cond_p.tobytes())
-    T = _TRANSITION_CACHE.get(key)
-    if T is None:
-        T = build_transition(trie.parent, trie.label, trie.cond_p,
-                             trie.n_labels)
+    cols = _TRANSITION_CACHE.get(key)
+    if cols is None:
+        par, val = transition_columns(trie.parent, trie.label, trie.cond_p,
+                                      trie.n_labels)
         if depth_cap < trie.max_depth:
-            T[:, :, trie.depth > depth_cap] = 0.0
+            val[:, trie.depth > depth_cap] = 0.0
         while len(_TRANSITION_CACHE) >= 8:
             _TRANSITION_CACHE.pop(next(iter(_TRANSITION_CACHE)))
-        _TRANSITION_CACHE[key] = T
-    return T
+        cols = _TRANSITION_CACHE[key] = (par, val)
+    return cols
 
 
 def _depth_nodes(trie: TrieArrays, max_depth: int) -> List[List[int]]:
@@ -239,16 +240,16 @@ def _field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray, k: int,
                            torch.as_tensor(trie.p, device=device), n)
     max_depth = min(trie.max_depth, depth_cap)
     if backend == "cuda":
-        # device-resident transition tensor, re-uploaded only when the trie
-        # probabilities (or depth cap) change — not per iteration
+        # device-resident column form of the transition, re-uploaded only
+        # when the trie probabilities (or depth cap) change — not per iteration
         T_key = (trie.topology_signature(), int(depth_cap),
                  trie.cond_p.tobytes(), device)
         t_hit = pre.get("_T_dev")
         if t_hit is None or t_hit[0] != T_key:
-            t_hit = (T_key, torch.as_tensor(
-                _capped_transition(trie, depth_cap), device=device))
+            t_hit = (T_key, tuple(torch.as_tensor(a, device=device)
+                                  for a in _capped_transition(trie, depth_cap)))
             pre["_T_dev"] = t_hit
-        T = t_hit[1]
+        par, val = t_hit[1]
         # local-edge weights in CSR order (local is 0/1, so exact)
         w = dev["csr_inv_cnt"] * local[dev["csr_order"]]
         beta = alpha
@@ -262,8 +263,8 @@ def _field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray, k: int,
         mass = mass + _row_sum(contrib)
         if backend == "cuda":
             # the DP itself advances over local edges only — vm_step kernel
-            beta = vm_step(beta, T, dev["csr_row_ptr"], dev["csr_src"], w,
-                           dev["labels_i32"])
+            beta = vm_step(beta, par, val, dev["csr_row_ptr"], dev["csr_src"],
+                           w, dev["labels_i32"])
             alpha = alpha + beta
         else:
             upd = _segment_sum((contrib * local[:, None])[dev["csr_order"]],

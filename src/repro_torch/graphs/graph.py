@@ -181,12 +181,12 @@ class LabelledGraph:
         (``PackedEdges.order``), so within each destination row the edges
         keep ascending source order — the order in which the reference
         scatter-adds them.  Returns a
-        :class:`repro_torch.kernels.vm_step.ops.VMCSR` (row offsets, source
+        :class:`repro_torch.kernels.segment_spmm.ops.EdgeCSR` (row offsets, source
         ids and the edge-list index of each slot); it depends only on the
         graph, so it is built once per graph."""
         entry = self._vm_pack_cache.get("csr")
         if entry is None:
-            from repro_torch.kernels.vm_step.ops import csr_from_packing
+            from repro_torch.kernels.segment_spmm.ops import csr_from_packing
 
             packed, _, _, dst_global = self.vm_packing()
             entry = csr_from_packing(packed, dst_global, self.n)

@@ -9,7 +9,16 @@ Each kernel package keeps the JAX package's three parts:
   ref.py    — plain PyTorch version of the same function: the CPU path and
               the kernel's yardstick on the card
 
-Kernels:
-  vm_step — TAPER's Visitor-Matrix DP depth step (replaces the TPU kernel
-            ``src/repro/kernels/vm_step/kernel.py::_vm_kernel``)
+Kernels (CUDA C++ for ``sm_90a``; each replaces one TPU kernel):
+  vm_step       — TAPER's Visitor-Matrix DP depth step over the trie
+                  transition's column form (replaces
+                  ``src/repro/kernels/vm_step/kernel.py::_vm_kernel``)
+  embedding_bag — DLRM's multi-hot bag sum/mean (replaces
+                  ``src/repro/kernels/embedding_bag/kernel.py::_bag_kernel``)
+  segment_spmm  — GNN message passing ``out[dst] += w * x[src]`` over a
+                  dst-sorted CSR (replaces
+                  ``src/repro/kernels/segment_spmm/kernel.py::_spmm_kernel``)
+
+Still to port: ``src/repro/kernels/flash_attention/kernel.py::_attn_kernel``
+(the transformer slice).
 """

@@ -28,7 +28,7 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 20
+    assert int(n_modules) >= 40
     assert bad.strip() == "[]", bad
 
 

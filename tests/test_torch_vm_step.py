@@ -21,7 +21,7 @@ from repro_torch.convert import from_reference_arrays
 from repro_torch.core.visitor import extroversion_field
 from repro_torch.kernels.vm_step.ops import (csr_from_packing, pack_vm_inputs,
                                              vm_step)
-from repro_torch.kernels.vm_step.ref import build_transition
+from repro_torch.kernels.vm_step.ref import transition_columns
 
 _rng = np.random.default_rng(20261017)
 SWEEP = [(int(_rng.integers(10, 301)), int(_rng.integers(5, 1201)), L,
@@ -51,11 +51,11 @@ def test_vm_step_sweep_matches_reference(n, e, n_labels, seed):
     labels = rng.integers(0, n_labels, n).astype(np.int32)
     cnt = rng.integers(1, 5, (n, n_labels)).astype(np.int32)
     alpha = rng.random((n, N)).astype(np.float32)
-    T = build_transition(trie.parent, trie.label, trie.cond_p, n_labels)
-    assert np.array_equal(T, r_build_transition(trie.parent, trie.label,
-                                                trie.cond_p, n_labels))
+    T = r_build_transition(trie.parent, trie.label, trie.cond_p, n_labels)
+    par, val = transition_columns(trie.parent, trie.label, trie.cond_p, n_labels)
 
-    out = vm_step(torch.from_numpy(alpha), torch.from_numpy(T),
+    out = vm_step(torch.from_numpy(alpha), torch.from_numpy(par),
+                  torch.from_numpy(val),
                   *_csr_inputs(src, dst, labels, cnt, n)).numpy()
 
     packed, dst_label, inv_cnt = r_pack_vm_inputs(src, dst, labels, cnt, n,
@@ -90,8 +90,10 @@ def test_vm_step_matches_visitor_dp(paper_graph, paper_trie, paper_partition):
     alpha0[:, d1] = fld.alpha[:, d1]
     local = part[g.src] == part[g.dst]
     src, dst = g.src[local], g.dst[local]
-    T = build_transition(trie.parent, trie.label, trie.cond_p, trie.n_labels)
-    out = vm_step(torch.from_numpy(alpha0), torch.from_numpy(T),
+    par, val = transition_columns(trie.parent, trie.label, trie.cond_p,
+                                  trie.n_labels)
+    out = vm_step(torch.from_numpy(alpha0), torch.from_numpy(par),
+                  torch.from_numpy(val),
                   *_csr_inputs(src, dst, g.labels, g.neighbor_label_counts(),
                                g.n, block_n=8, block_e=8)).numpy()
     d2 = trie.depth == 2
@@ -101,19 +103,21 @@ def test_vm_step_matches_visitor_dp(paper_graph, paper_trie, paper_partition):
 
 def _small_args():
     alpha = torch.rand(4, 3)
-    T = torch.rand(2, 3, 3)
+    par = torch.tensor([[0, 0, 1], [0, 0, 0]], dtype=torch.int32)
+    val = torch.tensor([[0.0, 0.5, 0.25], [0.0, 0.0, 0.75]])
     row_ptr = torch.tensor([0, 1, 1, 3, 3], dtype=torch.int32)
     src = torch.tensor([2, 0, 3], dtype=torch.int32)
     w = torch.tensor([0.5, 1.0, 0.0])
     row_label = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
-    return [alpha, T, row_ptr, src, w, row_label]
+    return [alpha, par, val, row_ptr, src, w, row_label]
 
 
 def test_vm_step_plain_on_cpu_counts_no_launch():
     before = vm_step.launches
     args = _small_args()
     out = vm_step(*args)
-    alpha, T = args[0], args[1]
+    alpha, par, val = args[:3]
+    T = torch.zeros(2, 3, 3).scatter_(1, par.long()[:, None, :], val[:, None, :])
     want = torch.zeros(4, 3)
     want[0] = (alpha[2] @ T[0]) * 0.5
     want[2] = (alpha[0] @ T[1]) * 1.0
@@ -123,10 +127,12 @@ def test_vm_step_plain_on_cpu_counts_no_launch():
 
 @pytest.mark.parametrize("bad", [
     (0, torch.rand(4, 3, dtype=torch.float64)),           # dtype
-    (1, torch.rand(2, 3, 4)),                             # T shape
-    (2, torch.tensor([0, 1, 3, 3], dtype=torch.int32)),   # row_ptr length
-    (3, torch.tensor([2, 0, 3], dtype=torch.int64)),      # index dtype
-    (4, torch.rand(6)[::2]),                              # non-contiguous
+    (1, torch.zeros(2, 4, dtype=torch.int32)),            # par width != N
+    (2, torch.zeros(3, 3)),                               # val shape != par's
+    (1, torch.zeros(2, 3, dtype=torch.int64)),            # column-form dtype
+    (3, torch.tensor([0, 1, 3, 3], dtype=torch.int32)),   # row_ptr length
+    (4, torch.tensor([2, 0, 3], dtype=torch.int64)),      # index dtype
+    (5, torch.rand(6)[::2]),                              # non-contiguous
 ])
 def test_vm_step_rejects_bad_arguments(bad):
     args = _small_args()
@@ -148,3 +154,17 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
         build.build_all()
     lib = build._target(build.CSRC / "vm_step.cu")
     assert lib.parent == tmp_path / "build" and lib.name.startswith("libvm_step-")
+
+
+@pytest.mark.parametrize("n_labels,depth,branch", [(3, 3, 2), (12, 3, 3), (26, 2, 26)])
+def test_transition_columns_rebuild_the_trie_transition(n_labels, depth, branch):
+    """The column form the kernel takes holds every nonzero of the JAX
+    package's dense T: scattering it back gives T bitwise."""
+    trie = synthetic_trie(n_labels, depth, branch, n_first=min(3, n_labels), seed=7)
+    T = torch.from_numpy(r_build_transition(trie.parent, trie.label, trie.cond_p,
+                                            n_labels))
+    par, val = map(torch.from_numpy, transition_columns(
+        trie.parent, trie.label, trie.cond_p, n_labels))
+    assert par.dtype == torch.int32 and par.shape == val.shape == T.shape[::2]
+    back = torch.zeros_like(T).scatter_(1, par.long()[:, None, :], val[:, None, :])
+    assert torch.equal(back, T)
