@@ -14,8 +14,10 @@ Phases (any failure exits non-zero and prints no result line):
    label chains of one to four 32-column blocks and the row placement's
    677-node trie, 3 to 26 labels; empty rows, hub rows of 12k in-edges,
    all-cut weights, up to 100k rows), ``embedding_bag`` (d 8/64/128, H 1/8/64,
-   repeated, padded and out-of-range ids) and ``segment_spmm`` (F 8/16/100,
-   empty rows, a hub row of 10k edges, zero weights);
+   repeated, padded and out-of-range ids), ``segment_spmm`` (F 8/16/100,
+   empty rows, a hub row of 10k edges, zero weights) and ``flash_attention``
+   (Sq/Skv 1-300 and 1,024, causal and not, window None/17/64/1,024, GQA
+   1/2/4, D 32/64/128/256, float32 and bfloat16, rows with no valid key);
 3. the paper's worked-example values through ``backend="cuda"``;
 4. fig7 at N=2000 on the card (provgen and musicbrainz, hash start): the
    reference's final ipt exactly, and the kernel field bitwise equal to the
@@ -38,7 +40,17 @@ Phases (any failure exits non-zero and prints no result line):
 8. path 4, GCN inference (``gcn-cora``) on the ``ogb_products`` cell
    (2,449,029 nodes, 61,859,140 edges): three forwards, kernel forward
    against plain forward, and each kernel's time, bound, plain time and
-   library time at the path's shapes.
+   library time at the path's shapes;
+9. path 5, ``qwen3-4b`` serving at full width (bf16, random weights from
+   seed 0): a batch of 4 requests of 4,096 tokens and one request of
+   32,768 tokens, each prefilled through ``forward`` (one
+   ``flash_attention`` launch per layer) and decoded greedily (16 and 8
+   steps) from a copy of its cache; prefill and per-token decode times, the
+   kernel's time per launch, its plain version's and SDPA's at both shapes,
+   the kernel against the plain version on one captured layer's q/k/v at
+   each shape, and the whole-path gate: the full-width model in float32 at
+   2,048 tokens through the kernel against the same forward through the
+   plain version, and one decode step from its cache against the prefill.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a path that launched none of its kernels fails.  The line
@@ -71,9 +83,11 @@ FULL_N = 1_000_000
 FULL_MAX_ITERS = 8
 #: kernel vs plain tolerance (float32; the sums run in different orders)
 RTOL, ATOL = 1e-5, 1e-6
-#: H100 SXM data-sheet peaks (dense): HBM3 bytes/s, float32 (non-tensor) FLOP/s
+#: H100 SXM data-sheet peaks (NVIDIA H100 data sheet, dense, without
+#: sparsity): HBM3 bytes/s, float32 (non-tensor) FLOP/s, bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 #: embedding_bag and segment_spmm against their plain versions (the
 #: tolerances of tests/test_torch_embedding_bag.py and
 #: tests/test_torch_segment_spmm.py); model forwards kernel vs plain
@@ -90,11 +104,29 @@ DLRM_REQUESTS = {"serve_p99": 20, "serve_bulk": 3}
 SPAN_K = 64
 SPAN_REFERENCE = (21.61865234375, 16.607177734375)
 GCN_FORWARDS = 3
+#: flash_attention against its plain version (tests/test_kernels.py's
+#: tolerances per dtype)
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+#: ... and at the qwen3 path's shapes, where an output is ~0.01-0.04 (scores
+#: ~N(0, 1) under QK-norm; a row averages thousands of v rows), at or below
+#: bf16's 2e-2: the bf16 outputs within one bf16 step (2^-7 of the value)
+#: plus 1e-3 of the output's RMS, and the same q, k, v in float32 at
+#: ATTN_TOL["float32"]
+ATTN_PATH_RTOL, ATTN_PATH_ATOL_RMS = 2.0 ** -7, 1e-3
+#: qwen3-4b serving: request sets (batch, prompt tokens, greedy decode
+#: steps).  A: train_4k's length; B: prefill_32k's length at batch 1 (the
+#: cell's batch of 32 would need 155 GB of KV caches)
+QWEN_SETS = {"4x4096": (4, 4096, 16), "1x32768": (1, 32768, 8)}
+#: the full-width float32 whole-path gate: tokens, and the tolerance of the
+#: logits through the kernel against those through the plain version
+LM_GATE_TOKENS = 2048
+LM_RTOL, LM_ATOL = 1e-4, 1e-4
 #: the kernels' wrappers, by the name of their launch counter
 KERNELS = {
     "vm_step": ("repro_torch.kernels.vm_step.ops", "vm_step"),
     "embedding_bag": ("repro_torch.kernels.embedding_bag.ops", "embedding_bag"),
     "segment_spmm": ("repro_torch.kernels.segment_spmm.ops", "segment_spmm_csr"),
+    "flash_attention": ("repro_torch.kernels.flash_attention.ops", "flash_attention"),
 }
 
 
@@ -134,9 +166,9 @@ def read_counts(path, needs):
     return counts
 
 
-def _bound(bytes_moved, flops):
+def _bound(bytes_moved, flops, peak_flops=PEAK_F32_FLOPS):
     """(bound in ms, "bytes" or "operations") on the data-sheet peaks."""
-    t_b, t_f = bytes_moved / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    t_b, t_f = bytes_moved / PEAK_BYTES_S, flops / peak_flops
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -391,6 +423,74 @@ def spmm_sweep(torch) -> float:
     return worst
 
 
+def _keys_per_row(sq, skv, causal, window):
+    """How many keys each query row attends to (top-left causal, one-sided
+    window)."""
+    import numpy as np
+
+    r = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv, r + 1) if causal else np.full(sq, skv)
+    lo = np.maximum(0, r - window + 1) if window is not None else np.zeros(sq, np.int64)
+    return np.maximum(0, hi - lo)
+
+
+def _attn_cases():
+    """Seeded (b, sq, skv, kv, g, d, causal, window, dtype) cases."""
+    import numpy as np
+
+    fixed = [
+        (1, 1, 1, 1, 1, 32, True, None, "float32"),
+        (2, 1, 300, 2, 4, 64, False, None, "bfloat16"),          # one query row
+        (1, 300, 1, 1, 2, 128, False, 17, "float32"),            # one key
+        (1, 300, 100, 2, 2, 64, True, None, "float32"),          # rows past the last key
+        (2, 129, 129, 2, 4, 128, True, 1024, "bfloat16"),
+        (1, 257, 257, 1, 4, 256, True, 64, "float32"),
+        (1, 100, 200, 1, 1, 256, False, 64, "bfloat16"),
+        (1, 150, 100, 2, 2, 32, False, 17, "float32"),           # rows 116.. see no key
+        (1, 1024, 1024, 2, 4, 128, True, None, "float32"),
+        (2, 1024, 1024, 8, 4, 128, True, None, "bfloat16"),
+        (1, 1024, 1024, 2, 2, 256, True, 1024, "bfloat16"),
+        (1, 1024, 1024, 1, 1, 64, False, None, "float32"),
+    ]
+    rng = np.random.default_rng(500)
+    drawn = [(int(rng.integers(1, 4)), int(rng.integers(1, 301)), int(rng.integers(1, 301)),
+              int(rng.choice([1, 2])), int(rng.choice([1, 2, 4])), d,
+              bool(rng.integers(0, 2)), [None, 17, 64, 1024][int(rng.integers(0, 4))], dt)
+             for d in (32, 64, 128, 256) for dt in ("float32", "bfloat16") for _ in range(2)]
+    return fixed + drawn
+
+
+def attention_sweep(torch) -> float:
+    """``flash_attention`` against its plain version on seeded shapes."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    worst = 0.0
+    for i, (b, sq, skv, kv, g, d, causal, window, dt) in enumerate(_attn_cases()):
+        rng = np.random.default_rng(600 + i)
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+                   .to(device="cuda", dtype=dtype)
+                   for shape in ((b, sq, kv * g, d), (b, skv, kv, d), (b, skv, kv, d)))
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = flash_attention_reference(q, k, v, causal, window)
+        err = float((out.float() - ref.float()).abs().max())
+        rtol, atol = ATTN_TOL[dt]
+        ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
+        dead = torch.as_tensor(_keys_per_row(sq, skv, causal, window) == 0)
+        log(f"[kernel] flash_attention B={b} Sq={sq} Skv={skv} H={kv * g} KV={kv} D={d} "
+            f"causal={causal} window={window} {dt}: max_abs_err={err:.3e} "
+            f"rows without a key {int(dead.sum())} allclose(rtol={rtol}, atol={atol})={ok}")
+        check(ok, f"flash_attention kernel disagrees with its plain version on case {i}")
+        check(bool(torch.isfinite(out).all()), f"non-finite flash_attention output, case {i}")
+        check(bool((out[:, dead.to(out.device)] == 0).all()),
+              f"flash_attention: rows without a key are not 0 on case {i}")
+        worst = max(worst, err)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 3: paper values
 # ---------------------------------------------------------------------------
@@ -479,11 +579,11 @@ class _KernelTimer:
         self.torch, self.fn, self.events, self.last_args = torch, fn, [], None
         self.shapes, self.args_by_shape = [], {}
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         ev0 = self.torch.cuda.Event(enable_timing=True)
         ev1 = self.torch.cuda.Event(enable_timing=True)
         ev0.record()
-        out = self.fn(*args)
+        out = self.fn(*args, **kwargs)
         ev1.record()
         self.events.append((ev0, ev1))
         self.last_args = args
@@ -1002,6 +1102,277 @@ def gcn_inference(torch, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: qwen3-4b serving at full width
+# ---------------------------------------------------------------------------
+
+
+def _sdpa_ms(torch, q, k, v, out_k):
+    """Time of ``F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)`` on q, k, v (moved to its (B, heads, S, D) layout
+    first, outside the timing) and its largest difference from the kernel's
+    output.  Only the fused back ends may run: the math one would hold a
+    137 GB score tensor at 32k tokens."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        ms = _time_ms(torch, call, 5)
+        diff = float((call().transpose(1, 2).float() - out_k.float()).abs().max())
+    return ms, diff
+
+
+def _attn_at_path_shape(torch, args, reps):
+    """Kernel, plain version and SDPA on one captured layer's q, k, v; the
+    kernel against the plain version; the bound of the work."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    q, k, v = args
+    B, S, H, D = q.shape
+    out_k = flash_attention(q, k, v)
+    out_p = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    err = float((out_k.float() - out_p.float()).abs().max())
+    rms = float(out_p.float().square().mean().sqrt())
+    rtol, atol = ATTN_TOL["bfloat16"]
+    ok = bool(torch.allclose(out_k.float(), out_p.float(), rtol=rtol, atol=atol))
+    ok_rms = bool(torch.allclose(out_k.float(), out_p.float(), rtol=ATTN_PATH_RTOL,
+                                 atol=ATTN_PATH_ATOL_RMS * rms))
+    del out_p
+    q32, k32, v32 = (t.float() for t in args)
+    o32_k = flash_attention(q32, k32, v32)
+    o32_p = flash_attention_reference(q32, k32, v32)
+    err32 = float((o32_k - o32_p).abs().max())
+    rtol32, atol32 = ATTN_TOL["float32"]
+    ok32 = bool(torch.allclose(o32_k, o32_p, rtol=rtol32, atol=atol32))
+    del q32, k32, v32, o32_k, o32_p
+    ms = _time_ms(torch, lambda: flash_attention(q, k, v), reps)
+    plain_ms = _time_ms(torch, lambda: flash_attention_reference(q, k, v), 2)
+    library_ms, lib_diff = _sdpa_ms(torch, q, k, v, out_k)
+    pairs = int(_keys_per_row(S, S, True, None).sum())
+    flops = 4 * D * pairs * B * H
+    bytes_moved = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms, bound_by = _bound(bytes_moved, flops, PEAK_BF16_FLOPS)
+    log(f"[qwen3] flash_attention at B={B} S={S} H={H} KV={k.shape[2]} D={D} "
+        f"{str(q.dtype).split('.')[-1]} (one layer's q/k/v): kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms (max diff to the kernel {lib_diff:.3e}), "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({bytes_moved} B, {flops} FLOP at "
+        f"the bf16 tensor-core peak); kernel vs plain: output RMS {rms:.4e}, "
+        f"max_abs_err={err:.3e}, allclose(rtol={rtol}, atol={atol})={ok}, "
+        f"allclose(rtol=2^-7, atol={ATTN_PATH_ATOL_RMS} x RMS)={ok_rms}; the same "
+        f"q/k/v in float32 max_abs_err={err32:.3e} allclose(rtol={rtol32}, "
+        f"atol={atol32})={ok32}")
+    check(ok and ok_rms, f"flash_attention disagrees with its plain version at "
+                         f"B={B} S={S} (bf16)")
+    check(ok32, f"flash_attention disagrees with its plain version at B={B} S={S} "
+                f"(float32)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, err=err)
+
+
+def _profile_step(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: its wall time there
+    (host clock, synchronised), the device's busy time (the union of the
+    intervals of its kernels, copies and fills), the count of those device
+    operations, and of the top-level aten ops the host issued.  The busy
+    time is None when the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:                              # union of the intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    host_ops = sum(1 for e in events if e.device_type == DeviceType.CPU
+                   and e.cpu_parent is None and e.name.startswith("aten::"))
+    return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3 if spans else None,
+                device_ops=len(spans), host_ops=host_ops)
+
+
+def qwen3_serving(torch, device):
+    import dataclasses
+
+    import repro_torch.models.transformer as tf
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-4b")
+    L, V = cfg.n_layers, cfg.vocab
+    t0 = time.perf_counter()
+    params = tf.init(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[qwen3] {cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.n_heads} query / "
+        f"{cfg.n_kv_heads} KV heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab {V}, "
+        f"{cfg.dtype}: {n_params} parameters ({n_params * 2 / 1e9:.2f} GB), "
+        f"initialised on the card in {time.perf_counter() - t0:.2f} s; requests "
+        f"{', '.join(f'{B} x {S} tokens + {n} decode steps' for B, S, n in QWEN_SETS.values())}"
+        f"; cut: prefill_32k's batch of 32 served as 1 (32 KV caches are 155 GB)")
+    requests = {name: torch.as_tensor(next(TokenPipeline(V, B, S, seed=0))["tokens"],
+                                      device=device)
+                for name, (B, S, _) in QWEN_SETS.items()}
+
+    timer = _KernelTimer(torch, flash_attention)
+    tf.flash_attention = timer
+    served = {}
+    try:
+        reset_counts()                              # the path starts here
+        for name, (B, S, steps) in QWEN_SETS.items():
+            torch.cuda.reset_peak_memory_stats()
+            first = len(timer.events)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _, pre = tf.forward(params, requests[name], cfg, return_cache=True)
+            nxt = logits[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            check(logits.shape == (B, S, V) and _all_finite(torch, logits),
+                  f"qwen3 {name}: prefill logits of shape {tuple(logits.shape)} or "
+                  f"non-finite")
+            del logits
+            cache = tf.init_cache(cfg, B, S + steps + 1, device=device)
+            cache["k"][:, :, :S] = pre["k"]
+            cache["v"][:, :, :S] = pre["v"]
+            cache["pos"] = pre["pos"]
+            del pre
+            generated, step_s = [nxt], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                logits, cache = tf.decode_step(params, cache, nxt, cfg)
+                nxt = logits[:, -1:].argmax(-1)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                check(logits.shape == (B, 1, V) and bool(torch.isfinite(logits).all()),
+                      f"qwen3 {name}: decode logits of shape {tuple(logits.shape)} or "
+                      f"non-finite")
+                generated.append(nxt)
+            toks = torch.cat(generated, dim=1)
+            check(bool(((toks >= 0) & (toks < V)).all()), f"qwen3 {name}: token ids")
+            # one more step, traced: the device's busy share of a decode step
+            prof = _profile_step(torch, lambda: tf.decode_step(params, cache, nxt, cfg))
+            served[name] = dict(prefill_s=t_prefill, step_s=step_s, prof=prof,
+                                launches=len(timer.events) - first,
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                first_tokens=toks[0, :8].tolist())
+            del cache, logits
+        counts = read_counts("qwen3", ["flash_attention"])  # ... and ends here
+    finally:
+        tf.flash_attention = flash_attention
+    torch.cuda.synchronize()
+    per_launch = timer.ms_by_shape()
+    for name, (B, S, steps) in QWEN_SETS.items():
+        st = served[name]
+        ms = per_launch[((B, S, cfg.n_heads, cfg.d_head), (B, S, cfg.n_kv_heads, cfg.d_head),
+                         (B, S, cfg.n_kv_heads, cfg.d_head))]
+        dec = sorted(st["step_s"])
+        log(f"[qwen3] {name}: prefill {st['prefill_s']:.3f} s ({B * S / st['prefill_s']:.0f} "
+            f"tokens/s; flash_attention {sum(ms):.1f} ms over {st['launches']} launches, "
+            f"{min(ms):.3f}-{max(ms):.3f} ms each); decode {steps} greedy steps, per step "
+            f"(batch {B}) s {[round(x, 4) for x in st['step_s']]}, median "
+            f"{dec[len(dec) // 2] * 1e3:.2f} ms; peak memory {st['peak_gb']:.2f} GB; "
+            f"first tokens of request 0 {st['first_tokens']}")
+        pr = st["prof"]
+        busy = ("not traced (the trace holds no device event)" if pr["busy_ms"] is None
+                else f"{pr['busy_ms']:.3f} ms, {100 * pr['busy_ms'] / pr['wall_ms']:.2f}% "
+                     f"of the traced step and {100 * pr['busy_ms'] / (dec[len(dec) // 2] * 1e3):.2f}% "
+                     f"of the median untraced step")
+        log(f"[qwen3] {name}: one decode step under torch.profiler: {pr['wall_ms']:.2f} ms, "
+            f"{pr['host_ops']} top-level aten ops ({pr['wall_ms'] * 1e3 / max(pr['host_ops'], 1):.1f} "
+            f"us each), {pr['device_ops']} device operations; device busy {busy}")
+        check(st["launches"] == L, f"qwen3 {name}: {st['launches']} flash_attention "
+                                   f"launches in one prefill, want {L}")
+    check(counts["flash_attention"] == L * len(QWEN_SETS),
+          "one flash_attention launch per layer per prefill")
+    check(all(counts[n] == 0 for n in counts if n != "flash_attention"),
+          "qwen3 serving launched another kernel")
+
+    records = {}
+    for name, (B, S, _) in QWEN_SETS.items():
+        key = [k for k in timer.args_by_shape if k[0] == (B, S, cfg.n_heads, cfg.d_head)][0]
+        reps = 3 if S > 8192 else 10
+        records[name] = dict(launches=served[name]["launches"],
+                             **_attn_at_path_shape(torch, timer.args_by_shape[key], reps))
+    del timer, params, requests
+    torch.cuda.empty_cache()
+
+    # whole-path gate: the full-width model in float32 through the kernel
+    # against the same forward through the plain version
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tf.init(cfg32, seed=0, device=device)
+    toks = torch.as_tensor(next(TokenPipeline(V, 1, LM_GATE_TOKENS + 1, seed=1))["tokens"],
+                           device=device)
+    prompt = toks[:, :LM_GATE_TOKENS]
+    logits_k, _, pre = tf.forward(params, prompt, cfg32, return_cache=True)
+    tf.flash_attention = lambda q, k, v, causal=True, window=None: (  # noqa: E731
+        flash_attention_reference(q, k, v, causal, window))
+    try:
+        logits_p, _ = tf.forward(params, prompt, cfg32)
+    finally:
+        tf.flash_attention = flash_attention
+    torch.cuda.synchronize()
+    err = float((logits_k - logits_p).abs().max())
+    ok = bool(torch.allclose(logits_k, logits_p, rtol=LM_RTOL, atol=LM_ATOL))
+    log(f"[qwen3] whole-path gate, {cfg.name} float32 at full width, B=1 S={LM_GATE_TOKENS}: "
+        f"logits through the kernel vs through the plain version max_abs_err={err:.3e} "
+        f"(max |logit| {float(logits_p.abs().max()):.3f}) allclose(rtol={LM_RTOL}, "
+        f"atol={LM_ATOL})={ok}")
+    check(ok, "qwen3 float32 forward through the kernel disagrees with the plain forward")
+    del logits_p
+    # one decode step from the prefill's cache against the prefill of one more token
+    cache = tf.init_cache(cfg32, 1, LM_GATE_TOKENS + 1, device=device)
+    cache["k"][:, :, :LM_GATE_TOKENS] = pre["k"]
+    cache["v"][:, :, :LM_GATE_TOKENS] = pre["v"]
+    cache["pos"] = pre["pos"]
+    del pre, logits_k
+    step, _ = tf.decode_step(params, cache, toks[:, LM_GATE_TOKENS:], cfg32)
+    full, _ = tf.forward(params, toks, cfg32)
+    torch.cuda.synchronize()
+    err_d = float((step[:, 0] - full[:, -1]).abs().max())
+    ok = bool(torch.allclose(step[:, 0], full[:, -1], rtol=LM_RTOL, atol=LM_ATOL))
+    log(f"[qwen3] decode step {LM_GATE_TOKENS} from the prefill cache vs the prefill of "
+        f"{LM_GATE_TOKENS + 1} tokens (float32): max_abs_err={err_d:.3e} "
+        f"allclose(rtol={LM_RTOL}, atol={LM_ATOL})={ok}")
+    check(ok, "qwen3 decode from the prefill cache disagrees with the prefill")
+    del params, cache, step, full
+    torch.cuda.empty_cache()
+    return records
+
+
+def _all_finite(torch, t):
+    """All of ``t`` finite, checked 1,024 positions at a time (the check of
+    a whole 10 GB logits tensor at once takes 25 GB of temporaries)."""
+    return all(bool(torch.isfinite(part).all()) for part in t.split(1024, dim=1))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1021,13 +1392,14 @@ def main() -> int:
     log(f"[device] {dev_line}; torch {torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
     errs = {"vm_step": kernel_sweep(torch), "embedding_bag": bag_sweep(torch),
-            "segment_spmm": spmm_sweep(torch)}
+            "segment_spmm": spmm_sweep(torch), "flash_attention": attention_sweep(torch)}
     paper_values(device)
     fig7(torch, device)
     full = full_size(torch, device)
     serve = dlrm_serving(torch, device)
     place = row_placement(torch, device)
     gnn = gcn_inference(torch, device)
+    lm = qwen3_serving(torch, device)
     record = {"kernels": [
         # one kernel on two paths, each at its own shapes: the provgen-1M
         # invocation (23-node trie) and the row placement (677-node trie)
@@ -1063,6 +1435,18 @@ def main() -> int:
          "ms": gnn["ms"], "plain_ms": gnn["plain_ms"],
          "bound_ms": gnn["bound_ms"], "bound_by": gnn["bound_by"],
          "library_ms": gnn["library_ms"]},
+    ] + [
+        # one kernel at the path's two prefill shapes: 1 x 32,768 and 4 x 4,096
+        {"name": name, "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": r["launches"],
+         "max_abs_err": max(errs["flash_attention"], r["err"]),
+         "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
+        for name, r in (("flash_attention", lm["1x32768"]),
+                        ("flash_attention/4k", lm["4x4096"]))
     ]}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(dev_line)

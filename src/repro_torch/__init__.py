@@ -4,5 +4,6 @@ Mirrors the JAX package one file for one file (``repro/core/visitor.py`` ↔
 ``repro_torch/core/visitor.py``); host-side logic stays numpy, device
 arrays are torch tensors, and the kernels are hand-written CUDA for Hopper
 (``kernels/csrc/``): the Visitor-Matrix DP step of a TAPER invocation,
-DLRM's embedding bag and GCN's message-passing SpMM.
+DLRM's embedding bag, GCN's message-passing SpMM and the LM's prefill
+attention.
 """

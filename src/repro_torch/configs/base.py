@@ -1,17 +1,16 @@
 """Architecture and shape configuration dataclasses (the port's share).
 
-The port carries the GNN and DLRM families, the ones its model slice runs;
-each configuration is a frozen dataclass with the exact dimensions of the
-JAX package's ``configs/base.py``, plus a ``reduced()`` variant for CPU
-tests.  Shape cells (``serve_p99``, ``ogb_products``, ...) are
-``ShapeSpec`` entries.  The language-model configurations come with the
-transformer slice.
+The port carries the LM, GNN and DLRM families; each configuration is a
+frozen dataclass with the exact dimensions of the JAX package's
+``configs/base.py``, plus a ``reduced()`` variant for CPU tests.  Shape
+cells (``prefill_32k``, ``serve_p99``, ``ogb_products``, ...) are
+``ShapeSpec`` entries.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -24,7 +23,7 @@ class ShapeSpec:
     """One input-shape cell for an architecture."""
 
     name: str
-    kind: str                 # "train" | "serve" | "retrieval" | ...
+    kind: str                 # "train" | "prefill" | "decode" | "serve" | ...
     dims: Tuple[Tuple[str, int], ...] = ()
 
     def dim(self, key: str) -> int:
@@ -43,6 +42,13 @@ class ShapeSpec:
 def _dims(**kwargs) -> Tuple[Tuple[str, int], ...]:
     return tuple(kwargs.items())
 
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", _dims(seq_len=4096, global_batch=256)),
+    ShapeSpec("prefill_32k", "prefill", _dims(seq_len=32768, global_batch=32)),
+    ShapeSpec("decode_32k", "decode", _dims(seq_len=32768, global_batch=128)),
+    ShapeSpec("long_500k", "decode", _dims(seq_len=524288, global_batch=1)),
+)
 
 GNN_SHAPES = (
     ShapeSpec("full_graph_sm", "train",
@@ -67,6 +73,106 @@ DLRM_SHAPES = (
 # ---------------------------------------------------------------------------
 # Architectures
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert_ff: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    router_z_coef: float = 1e-3
+    aux_coef: float = 1e-2
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    moe: Optional[MoEConfig] = None
+    qk_norm: bool = False
+    attn_bias: bool = False                 # qwen2.5-style QKV bias
+    sliding_window: Optional[int] = None    # local-attention window
+    global_every: int = 0                   # gemma3: every Nth layer is global
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    family: str = "lm"
+    # long_500k applies only to archs with a sub-quadratic local-attention path
+    supports_long_context: bool = False
+    attention_chunk: int = 1024             # blocked-softmax KV chunk (decode)
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def n_params(self) -> int:
+        """Total parameter count (embeddings included)."""
+        d, h, kv, dh, ff, V, L = (self.d_model, self.n_heads, self.n_kv_heads,
+                                  self.d_head, self.d_ff, self.vocab, self.n_layers)
+        attn = d * h * dh + 2 * d * kv * dh + h * dh * d
+        if self.attn_bias:
+            attn += (h + 2 * kv) * dh
+        if self.moe:
+            ffp = self.moe.n_experts * 3 * d * self.moe.d_expert_ff
+            ffp += self.moe.n_shared * 3 * d * self.moe.d_expert_ff
+            ffp += d * self.moe.n_experts  # router
+        else:
+            ffp = 3 * d * ff
+        norms = 2 * d * L + d
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + ffp) + norms + emb
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: only routed experts)."""
+        if not self.moe:
+            return self.n_params()
+        d, L = self.d_model, self.n_layers
+        dense = self.n_params() - L * (
+            self.moe.n_experts * 3 * d * self.moe.d_expert_ff
+        )
+        active_ff = L * (self.moe.top_k * 3 * d * self.moe.d_expert_ff)
+        return dense + active_ff
+
+    def reduced(self) -> "LMConfig":
+        """Tiny same-family config for CPU smoke tests, equal to the JAX
+        package's.  Its d_head 16 is below the ``flash_attention`` kernel's
+        head sizes (32, 64, 128, 256), so the port's ``forward`` rejects it:
+        the port runs :meth:`reduced_for_port`."""
+        kw = dataclasses.asdict(self)
+        moe = None
+        if self.moe:
+            moe = MoEConfig(
+                n_experts=min(self.moe.n_experts, 8),
+                top_k=min(self.moe.top_k, 2),
+                d_expert_ff=32,
+                n_shared=min(self.moe.n_shared, 1),
+            )
+        kw.update(
+            n_layers=2, d_model=64,
+            n_heads=4, n_kv_heads=max(1, 4 // max(self.q_per_kv, 1)),
+            d_head=16, d_ff=128, vocab=256,
+            sliding_window=16 if self.sliding_window else None,
+            dtype="float32",
+            attention_chunk=32,
+        )
+        kw["moe"] = moe
+        return LMConfig(**kw)
+
+    def reduced_for_port(self) -> "LMConfig":
+        """:meth:`reduced` with d_head 32, the ``flash_attention`` kernel's
+        smallest head size: the tiny config the port's ``forward`` runs."""
+        return dataclasses.replace(self.reduced(), d_head=32)
+
+    shapes = property(lambda self: LM_SHAPES)
 
 
 @dataclass(frozen=True)

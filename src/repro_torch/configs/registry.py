@@ -6,6 +6,9 @@ from importlib import import_module
 from typing import List
 
 _ARCH_MODULES = {
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "qwen2.5-14b": "repro_torch.configs.qwen25_14b",
+    "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
 }
@@ -22,4 +25,9 @@ def get_config(arch: str):
 
 
 def shapes_for(arch: str):
-    return list(get_config(arch).shapes)
+    cfg = get_config(arch)
+    shapes = list(cfg.shapes)
+    if cfg.family == "lm" and not cfg.supports_long_context:
+        # long_500k needs a sub-quadratic attention path
+        shapes = [s for s in shapes if s.name != "long_500k"]
+    return shapes

@@ -2,8 +2,8 @@
 
 TAPER has no weights: its state is the graph, the compiled workload trie,
 the partition vector and, between the field and the swap, the extroversion
-field.  The models (DLRM, GCN) have parameter pytrees: nested dicts and
-lists of arrays.  Each arrives here as plain numpy arrays (read off the
+field.  The models (DLRM, GCN, the dense LM transformer) have parameter
+pytrees: nested dicts and lists of arrays.  Each arrives here as plain numpy arrays (read off the
 reference's objects by the caller, ``np.asarray`` per leaf), so both
 packages can compute on the same state without this package importing the
 reference.
@@ -11,13 +11,14 @@ reference.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Set
 
 import numpy as np
 import torch
 
 from repro_torch.core.tpstry import TrieArrays
 from repro_torch.core.visitor import ExtroversionResult
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import LabelledGraph
 
 TRIE_FIELDS = ("parent", "label", "depth", "p", "cond_p", "child_index",
@@ -105,3 +106,30 @@ def gcn_params_from_reference(tree: Mapping, device="cpu") -> Dict:
         raise ValueError(f"GCN parameters have keys {sorted(tree)}, want ['layers']")
     _layers(tree["layers"], "layers")
     return _tensors(tree, device)
+
+
+def _keys(tree, path: str, want: Set[str]) -> None:
+    if not isinstance(tree, Mapping) or set(tree) != want:
+        have = sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__
+        raise ValueError(f"{path} has keys {have}, want {sorted(want)}")
+
+
+def lm_params_from_reference(tree: Mapping, cfg, device: DeviceLike = None) -> Dict:
+    """The port's dense-LM parameters from the reference's
+    ``models.transformer.init`` pytree for the ``LMConfig`` ``cfg``, copied
+    onto ``device`` (default ``"cuda"``, through ``resolve_device``).
+
+    Checks the key tree: ``embed``, ``layers.{attn, ffn, ln1, ln2}``,
+    ``final_norm.scale``, and ``lm_head`` unless the embeddings are tied;
+    ``attn`` holds ``wq, wk, wv, wo``, with ``bq, bk, bv`` when ``cfg`` has
+    QKV bias and ``q_norm, k_norm`` when it has QK-norm; ``ffn`` is dense
+    (``gate, up, down``).  Arrays must be float32."""
+    _keys(tree, "params", {"embed", "layers", "final_norm"}
+          | (set() if cfg.tie_embeddings else {"lm_head"}))
+    _keys(tree["layers"], "layers", {"attn", "ffn", "ln1", "ln2"})
+    _keys(tree["final_norm"], "final_norm", {"scale"})
+    _keys(tree["layers"]["ffn"], "layers.ffn", {"gate", "up", "down"})
+    _keys(tree["layers"]["attn"], "layers.attn", {"wq", "wk", "wv", "wo"}
+          | ({"bq", "bk", "bv"} if cfg.attn_bias else set())
+          | ({"q_norm", "k_norm"} if cfg.qk_norm else set()))
+    return _tensors(tree, resolve_device(device))

@@ -18,7 +18,9 @@ Kernels (CUDA C++ for ``sm_90a``; each replaces one TPU kernel):
   segment_spmm  — GNN message passing ``out[dst] += w * x[src]`` over a
                   dst-sorted CSR (replaces
                   ``src/repro/kernels/segment_spmm/kernel.py::_spmm_kernel``)
+  flash_attention — the LM's prefill attention: blocked online softmax,
+                  top-left causal and one-sided window masks, GQA (replaces
+                  ``src/repro/kernels/flash_attention/kernel.py::_attn_kernel``)
 
-Still to port: ``src/repro/kernels/flash_attention/kernel.py::_attn_kernel``
-(the transformer slice).
+Every TPU kernel of the JAX package has its counterpart here.
 """

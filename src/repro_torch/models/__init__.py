@@ -1,1 +1,2 @@
-"""Model substrate of the port: DLRM and the GNN family (GCN so far)."""
+"""Model substrate of the port: DLRM, the GNN family (GCN so far) and the
+dense LM transformer (``layers``, ``transformer``)."""

@@ -1,0 +1,127 @@
+"""Shared transformer layers (pure functions over parameter dicts).
+
+The JAX package's ``models/layers.py`` on tensors: RMS norms, rotary
+embeddings, the chunked online-softmax attention and SwiGLU.  Prefill
+attention runs as the hand-written ``flash_attention`` kernel
+(``models/transformer.py``); ``attention`` here is the chunked twin of the
+JAX package's, with ``q_offset``, ``kv_len`` and ``window_dynamic``, and
+serves decode.  ``dense_init``, ``dense_apply`` and ``cross_entropy`` come
+with the MoE and training slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+def rms_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(dt)
+
+
+def rms_norm_nd(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm with an explicit scale array (e.g. per-head QK-norm)."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, d_head); positions: broadcastable to (..., seq)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)           # (d/2,)
+    angles = positions[..., :, None].float() * freqs                 # (..., seq, d/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# blocked-softmax attention (the decode path; prefill runs the
+# flash_attention kernel)
+# ---------------------------------------------------------------------------
+
+
+NEG_INF = -1e30
+
+
+def attention(
+    q: torch.Tensor,            # (B, S_q, H, D)
+    k: torch.Tensor,            # (B, S_kv, KV, D)
+    v: torch.Tensor,            # (B, S_kv, KV, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    chunk: int = 1024,
+    kv_len: Optional[torch.Tensor] = None,   # (B,) valid KV length (decode)
+    window_dynamic: Optional[int] = None,    # scalar overriding window
+) -> torch.Tensor:
+    """Grouped-query attention with online softmax over KV chunks, in the
+    JAX package's arithmetic and order: products and softmax in float32,
+    keys padded to whole chunks, each chunk's mask built in its step, masked
+    scores -1e30 (so, as there, a row with no valid key averages V over the
+    padded chunks rather than giving 0; decode never makes such a row).
+    Scores take O(S_q * chunk) memory per step."""
+    B, Sq, H, D = q.shape
+    _, Skv, KV, _ = k.shape
+    G = H // KV
+    dev = q.device
+    qg = q.reshape(B, Sq, KV, G, D).float()
+    scale = 1.0 / math.sqrt(D)
+    n_chunks = max(1, math.ceil(Skv / chunk))
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+
+    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, KV, G, D), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        kc, vc = k[:, sl].float(), v[:, sl].float()
+        if kc.shape[1] < chunk:                 # the padded tail, as in JAX
+            tail = (0, 0, 0, 0, 0, chunk - kc.shape[1])
+            kc, vc = F.pad(kc, tail), F.pad(vc, tail)
+        kv_pos = c * chunk + torch.arange(chunk, device=dev)
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kc) * scale
+        if causal:
+            mask = kv_pos[None, :] <= q_pos[:, None]
+        else:
+            mask = torch.ones((Sq, chunk), dtype=torch.bool, device=dev)
+        w = window if window_dynamic is None else window_dynamic
+        if w is not None:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - w)
+        if kv_len is not None:
+            validb = kv_pos[None, :] < kv_len[:, None]          # (B, chunk)
+            maskb = mask[None, :, :] & validb[:, None, :]       # (B, Sq, chunk)
+        else:
+            maskb = (mask & (kv_pos < Skv)[None, :])[None]
+        s = torch.where(maskb[:, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up

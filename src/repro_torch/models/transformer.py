@@ -1,0 +1,250 @@
+"""Decoder-only LM transformer (dense), on tensors: prefill and decode.
+
+The JAX package's ``models/transformer.py`` for the dense configurations:
+GQA, QK-norm (qwen3, gemma3), QKV bias (qwen2.5) and sliding-window with
+periodic global layers (gemma3).  Parameters are a plain dict of tensors in
+the JAX package's layout, layers stacked along a leading L axis; the layer
+loop is a Python loop over the stack (JAX's ``lax.scan``).  Sharding
+constraints have no counterpart (they are no-ops without a mesh).
+
+Prefill attention runs as the hand-written ``flash_attention`` CUDA kernel
+(one launch per layer), with ``window`` the configuration's sliding window
+on local layers and none on global ones, as the JAX layer's
+``window_dynamic = where(is_glob, 1 << 30, sliding_window)``.  Decode
+attends over the KV cache with ``layers.attention`` (``q_offset=pos``,
+``kv_len=pos + 1``), as the JAX package does.  Products are
+``torch.matmul``, as the JAX package leaves them to XLA.
+
+Entry points:
+  init(cfg, seed, device)              -> params
+  forward(params, tokens, cfg, ...)    -> (logits, aux) or (logits, aux, cache)
+  init_cache(cfg, batch, max_len, ...) -> KV cache {"k", "v", "pos"}
+  decode_step(params, cache, tokens, cfg) -> (logits, cache)
+
+The mixture-of-experts FFN (``moe.py``) and training (``loss_fn``,
+``make_train_step``) come with later slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List
+
+import torch
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import (apply_rope, attention, rms_norm,
+                                       rms_norm_nd, swiglu)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _dtype(cfg: LMConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the mixture-of-experts FFN is not ported yet (the MoE "
+            "slice); the port runs the dense configurations")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = None) -> Dict:
+    """Random parameters from ``seed``, drawn on ``device`` (default CUDA)
+    with the JAX package's shapes and scales (normal / sqrt(fan_in); norm
+    scales 1, biases 0).  The draws differ from JAX's for the same seed."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+    d, H, KV, Dh, F, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.d_head, cfg.d_ff, cfg.vocab, cfg.n_layers)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s_d = 1.0 / math.sqrt(d)
+
+    def nrm(shape, scale):
+        t = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        return t.mul_(scale).to(dt)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=dt, device=dev)
+
+    attn = {
+        "wq": nrm((L, d, H * Dh), s_d),
+        "wk": nrm((L, d, KV * Dh), s_d),
+        "wv": nrm((L, d, KV * Dh), s_d),
+        "wo": nrm((L, H * Dh, d), 1.0 / math.sqrt(H * Dh)),
+    }
+    if cfg.attn_bias:
+        attn.update(bq=const((L, H * Dh), 0.0), bk=const((L, KV * Dh), 0.0),
+                    bv=const((L, KV * Dh), 0.0))
+    if cfg.qk_norm:
+        attn.update(q_norm=const((L, Dh), 1.0), k_norm=const((L, Dh), 1.0))
+    ffn = {
+        "gate": nrm((L, d, F), s_d),
+        "up": nrm((L, d, F), s_d),
+        "down": nrm((L, F, d), 1.0 / math.sqrt(F)),
+    }
+    params = {
+        "embed": nrm((V, d), 1.0),
+        "layers": {"attn": attn, "ffn": ffn, "ln1": const((L, d), 1.0),
+                   "ln2": const((L, d), 1.0)},
+        "final_norm": {"scale": const((d,), 1.0)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = nrm((d, V), s_d)
+    return params
+
+
+def is_global_layer(cfg: LMConfig) -> List[bool]:
+    """Per layer: True where the layer uses global (non-windowed) attention."""
+    if cfg.sliding_window is None:
+        return [True] * cfg.n_layers
+    if cfg.global_every <= 0:
+        return [False] * cfg.n_layers
+    return [i % cfg.global_every == cfg.global_every - 1 for i in range(cfg.n_layers)]
+
+
+def _layer_params(params: Dict, i: int) -> Dict:
+    lay = params["layers"]
+    return {"attn": {k: t[i] for k, t in lay["attn"].items()},
+            "ffn": {k: t[i] for k, t in lay["ffn"].items()},
+            "ln1": lay["ln1"][i], "ln2": lay["ln2"][i]}
+
+
+def _qkv(cfg: LMConfig, h: torch.Tensor, ap: Dict):
+    """q (B, S, H, Dh), k and v (B, S, KV, Dh) before rotary embedding."""
+    B, S, _ = h.shape
+    q = h @ ap["wq"].to(h.dtype)
+    k = h @ ap["wk"].to(h.dtype)
+    v = h @ ap["wv"].to(h.dtype)
+    if cfg.attn_bias:
+        q = q + ap["bq"].to(h.dtype)
+        k = k + ap["bk"].to(h.dtype)
+        v = v + ap["bv"].to(h.dtype)
+    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        q = rms_norm_nd(ap["q_norm"], q, cfg.norm_eps)
+        k = rms_norm_nd(ap["k_norm"], k, cfg.norm_eps)
+    return q, k, v
+
+
+def _ffn(cfg: LMConfig, x: torch.Tensor, lp: Dict) -> torch.Tensor:
+    h2 = rms_norm({"scale": lp["ln2"]}, x, cfg.norm_eps)
+    fp = lp["ffn"]
+    return swiglu(h2 @ fp["gate"].to(h2.dtype),
+                  h2 @ fp["up"].to(h2.dtype)) @ fp["down"].to(h2.dtype)
+
+
+def _head(params: Dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head.to(x.dtype)
+
+
+def _embed(params: Dict, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    x = params["embed"].to(_dtype(cfg))[tokens.long()]
+    if cfg.tie_embeddings:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _layer(cfg: LMConfig, x: torch.Tensor, lp: Dict, is_glob: bool):
+    """One layer over the whole sequence; returns (x, k, v), k after its
+    rotary embedding (the cache's content)."""
+    B, S, _ = x.shape
+    h = rms_norm({"scale": lp["ln1"]}, x, cfg.norm_eps)
+    q, k, v = _qkv(cfg, h, lp["attn"])
+    pos = torch.arange(S, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    window = None if is_glob else cfg.sliding_window
+    o = flash_attention(q, k, v, causal=True, window=window)
+    x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"].to(x.dtype)
+    x = x + _ffn(cfg, x, lp)
+    return x, k, v
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig,
+            return_cache: bool = False):
+    """Logits (B, S, vocab) for tokens (B, S); with ``return_cache`` also
+    the KV cache {"k", "v": (L, B, S, KV, Dh), "pos": S}.  ``aux`` is the
+    JAX package's auxiliary-loss dict, empty for a dense model."""
+    _dense_only(cfg)
+    B, S = tokens.shape
+    x = _embed(params, tokens, cfg)
+    cache = None
+    if return_cache:
+        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
+        cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
+                 "v": torch.empty(shape, dtype=x.dtype, device=x.device), "pos": S}
+    for i, glob in enumerate(is_global_layer(cfg)):
+        x, k, v = _layer(cfg, x, _layer_params(params, i), glob)
+        if cache is not None:
+            cache["k"][i], cache["v"][i] = k, v
+    logits = _head(params, x, cfg)
+    return (logits, {}, cache) if return_cache else (logits, {})
+
+
+# ---------------------------------------------------------------------------
+# decode (one token against a KV cache)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Dict:
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev), "pos": 0}
+
+
+def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, cfg: LMConfig):
+    """One decode step: tokens (B, 1) -> (logits (B, 1, vocab), cache).
+
+    Writes the new keys and values into ``cache["k"]``/``cache["v"]`` in
+    place at ``cache["pos"]`` (the JAX package returns updated copies) and
+    returns the cache with ``pos + 1``.  Raises when the cache is full,
+    where JAX's ``dynamic_update_slice`` would clamp the write onto the
+    last slot."""
+    _dense_only(cfg)
+    pos = int(cache["pos"])
+    max_len = cache["k"].shape[2]
+    if not 0 <= pos < max_len:
+        raise ValueError(f"decode_step: position {pos} outside the cache's "
+                         f"{max_len} slots")
+    B = tokens.shape[0]
+    x = _embed(params, tokens, cfg)                  # (B, 1, d)
+    positions = torch.full((1,), pos, device=x.device)
+    for i, glob in enumerate(is_global_layer(cfg)):
+        lp = _layer_params(params, i)
+        h = rms_norm({"scale": lp["ln1"]}, x, cfg.norm_eps)
+        q, k, v = _qkv(cfg, h, lp["attn"])
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+        window_dyn = None
+        if cfg.sliding_window is not None:
+            window_dyn = (1 << 30) if glob else cfg.sliding_window
+        o = attention(q, k_cache, v_cache, causal=True, q_offset=pos,
+                      window_dynamic=window_dyn, chunk=cfg.attention_chunk,
+                      kv_len=torch.full((B,), pos + 1, device=x.device))
+        x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"].to(x.dtype)
+        x = x + _ffn(cfg, x, lp)
+    logits = _head(params, x, cfg)
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

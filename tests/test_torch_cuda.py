@@ -181,3 +181,72 @@ def test_dlrm_and_gcn_forward_on_the_card(card):
                                   for p in gp["layers"]]},
                       batch_to_device(gb, card), gcfg)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+# (b, sq, skv, kv, g, d, causal, window): ragged lengths, one-row and one-key
+# sequences, causal rows past the last key, GQA 1/2/4, every head size, and
+# (the last case) rows from 116 on that see no key
+ATTN_CASES = [
+    (1, 1, 1, 1, 1, 32, True, None),
+    (2, 1, 300, 2, 4, 64, False, None),
+    (1, 300, 1, 1, 2, 128, False, 17),
+    (1, 300, 100, 2, 2, 64, True, None),
+    (2, 129, 129, 2, 4, 128, True, 1024),
+    (1, 257, 257, 1, 4, 256, True, 64),
+    (1, 1024, 1024, 2, 4, 128, True, None),
+    (1, 150, 100, 2, 2, 32, False, 17),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(card, dtype):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=2e-5, atol=2e-5)
+    for i, (b, sq, skv, kv, g, d, causal, window) in enumerate(ATTN_CASES):
+        rng = np.random.default_rng(i)
+        q, k, v = (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+                   .to(device=card, dtype=dtype)
+                   for shape in ((b, sq, kv * g, d), (b, skv, kv, d), (b, skv, kv, d)))
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        ref = flash_attention_reference(q, k, v, causal, window)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert bool((out[:, 116:] == 0).all()) and bool((out[:, :116] != 0).any())
+
+
+def test_transformer_forward_and_decode_on_the_card(card):
+    """Reduced qwen3-4b and gemma3-4b (d_head 32), float32: the forward
+    through the kernel and three decode steps on the card against the CPU
+    (plain version)."""
+    import dataclasses
+
+    import repro_torch.models.transformer as tf
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    for arch in ("qwen3-4b", "gemma3-4b"):
+        cfg = dataclasses.replace(get_config(arch).reduced_for_port(), global_every=2)
+        params = tf.init(cfg, seed=0, device="cpu")
+        to_card = lambda t: ({k: to_card(v) for k, v in t.items()}  # noqa: E731
+                             if isinstance(t, dict) else t.to(card))
+        on_card = to_card(params)
+        tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 70)))
+        before = flash_attention.launches
+        got, _, cache = tf.forward(on_card, tokens.to(card), cfg, return_cache=True)
+        assert flash_attention.launches == before + cfg.n_layers
+        want, _, want_cache = tf.forward(params, tokens, cfg, return_cache=True)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+        for c, cc in ((cache, card), (want_cache, "cpu")):
+            full = tf.init_cache(cfg, 2, 73, device=cc)
+            full["k"][:, :, :70], full["v"][:, :, :70], full["pos"] = c["k"], c["v"], 70
+            c.update(full)
+        nxt = want[:, -1:].argmax(-1)
+        for _ in range(3):
+            got, cache = tf.decode_step(on_card, cache, nxt.to(card), cfg)
+            want, want_cache = tf.decode_step(params, want_cache, nxt, cfg)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+            nxt = want.argmax(-1)

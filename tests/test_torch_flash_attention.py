@@ -1,0 +1,182 @@
+"""The port's ``flash_attention`` against the JAX reference: the reference's
+Pallas kernel (interpret mode on the CPU, as tests/test_kernels.py runs it)
+and its oracle ``attention_reference``, on the same numpy-seeded inputs.
+On the CPU the wrapper takes the plain torch version; the CUDA kernel
+itself is checked on the card (tests/test_torch_cuda.py).  Tolerances are
+those of tests/test_kernels.py: 2e-5 in float32, 2e-2 in bfloat16."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+hypothesis = pytest.importorskip("hypothesis")
+from hypothesis import HealthCheck, given, settings, strategies as st
+
+from repro.kernels.flash_attention.ops import flash_attention as r_flash_attention
+from repro.kernels.flash_attention.ref import attention_reference
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+SET = settings(max_examples=10, deadline=None, derandomize=True,
+               suppress_health_check=list(HealthCheck))
+JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+
+
+def _inputs(seed, b, sq, skv, H, kv, d):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, sq, H, d)), rng.normal(size=(b, skv, kv, d)),
+            rng.normal(size=(b, skv, kv, d)))
+
+
+def _port(arrays, dtype, causal, window):
+    q, k, v = (torch.tensor(a, dtype=torch.float32).to(TORCH_DTYPES[dtype]) for a in arrays)
+    return flash_attention(q, k, v, causal=causal, window=window).float().numpy()
+
+
+def _reference(arrays, dtype, causal, window, g, block=64):
+    """(Pallas kernel, oracle) outputs as float32 numpy."""
+    q, k, v = (jnp.asarray(a, JAX_DTYPES[dtype]) for a in arrays)
+    pallas = r_flash_attention(q, k, v, causal=causal, window=window,
+                               block_q=block, block_k=block)
+    oracle = attention_reference(q, jnp.repeat(k, g, 2), jnp.repeat(v, g, 2),
+                                 causal=causal, window=window)
+    return np.asarray(pallas, np.float32), np.asarray(oracle, np.float32)
+
+
+@given(
+    b=st.integers(1, 3),
+    sq=st.integers(1, 300),
+    skv=st.integers(1, 300),
+    h=st.sampled_from([1, 2, 4]),
+    g=st.sampled_from([1, 2]),
+    d=st.sampled_from([32, 64]),
+    causal=st.booleans(),
+    window=st.sampled_from([None, 17, 64]),
+    dtype=st.sampled_from(["float32", "bfloat16"]),
+)
+@SET
+def test_flash_attention_sweep(b, sq, skv, h, g, d, causal, window, dtype):
+    """tests/test_kernels.py's sweep (its causal rows keep sq <= skv)."""
+    if causal and sq > skv:
+        sq = skv
+    arrays = _inputs(abs(hash((b, sq, skv, h, g, d))) % 2**31, b, sq, skv, h * g, h, d)
+    out = _port(arrays, dtype, causal, window)
+    pallas, oracle = _reference(arrays, dtype, causal, window, g)
+    np.testing.assert_allclose(out, pallas, **_tol(dtype))
+    np.testing.assert_allclose(out, oracle, **_tol(dtype))
+
+
+# seeded shapes the sweep does not draw: head sizes 128 and 256, 4 query
+# heads per KV head, a 1024-token window, one-row and one-key sequences, and
+# causal rows past the last key (top-left alignment)
+_rng = np.random.default_rng(20261017)
+CASES = [
+    # (b, sq, skv, kv, g, d, causal, window, dtype)
+    (1, 1, 1, 1, 1, 32, True, None, "float32"),
+    (2, 1, 300, 2, 4, 64, False, None, "bfloat16"),
+    (1, 300, 1, 1, 2, 128, False, 17, "float32"),
+    (1, 300, 100, 2, 2, 64, True, None, "float32"),
+    (2, 129, 129, 2, 4, 128, True, 1024, "bfloat16"),
+    (1, 257, 257, 1, 4, 256, True, 64, "float32"),
+    (1, 100, 200, 1, 1, 256, False, 64, "bfloat16"),
+] + [
+    (int(_rng.integers(1, 3)), int(_rng.integers(1, 301)), int(_rng.integers(1, 301)),
+     int(_rng.choice([1, 2])), int(_rng.choice([1, 2, 4])), d, bool(_rng.integers(0, 2)),
+     [None, 17, 64, 1024][int(_rng.integers(0, 4))], dtype)
+    for d in (32, 64, 128, 256) for dtype in ("float32", "bfloat16")
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,kv,g,d,causal,window,dtype", CASES)
+def test_flash_attention_cases_match_reference(b, sq, skv, kv, g, d, causal, window, dtype):
+    arrays = _inputs(sq * 1000 + skv + d, b, sq, skv, kv * g, kv, d)
+    out = _port(arrays, dtype, causal, window)
+    pallas, oracle = _reference(arrays, dtype, causal, window, g)
+    np.testing.assert_allclose(out, pallas, **_tol(dtype))
+    np.testing.assert_allclose(out, oracle, **_tol(dtype))
+
+
+@pytest.mark.parametrize("bq,bk", [(128, 128), (256, 64), (64, 256)])
+def test_flash_attention_long_and_blocks(bq, bk):
+    """tests/test_kernels.py's 1024-token causal case with the Pallas
+    kernel's three block shapes."""
+    rng = np.random.default_rng(0)
+    arrays = [rng.normal(size=(1, 1024, 2, 64)).astype(np.float32) for _ in range(3)]
+    out = _port(arrays, "float32", True, None)
+    q, k, v = (jnp.asarray(a) for a in arrays)
+    ref = attention_reference(q, k, v, causal=True)
+    pallas = r_flash_attention(q, k, v, causal=True, block_q=bq, block_k=bk)
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out, np.asarray(pallas), rtol=2e-5, atol=2e-5)
+
+
+def test_fully_masked_rows_are_zero():
+    """Non-causal, window 17, Sq > Skv + 17: rows from Skv + 16 on see no
+    key and give exactly 0, as the Pallas kernel's do."""
+    arrays = _inputs(5, 1, 150, 100, 4, 2, 32)
+    out = _port(arrays, "float32", False, 17)
+    pallas, oracle = _reference(arrays, "float32", False, 17, 2)
+    assert np.all(out[:, 116:] == 0) and np.all(pallas[:, 116:] == 0)
+    assert np.all(np.abs(out[:, :116]).sum(-1) > 0)
+    np.testing.assert_allclose(out, pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out, oracle, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_plain_version_does_not_depend_on_its_chunk(chunk):
+    q, k, v = (torch.tensor(a, dtype=torch.float32)
+               for a in _inputs(9, 2, 90, 70, 4, 2, 32))
+    want = flash_attention_reference(q, k, v, True, 30)
+    got = flash_attention_reference(q, k, v, True, 30, chunk=chunk)
+    torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
+
+
+def test_cpu_call_counts_no_launch():
+    before = flash_attention.launches
+    q, k, v = (torch.tensor(a, dtype=torch.float32) for a in _inputs(3, 1, 8, 8, 2, 1, 32))
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches == before
+    assert torch.equal(out, flash_attention_reference(q, k, v))
+
+
+def _qkv(shape_q=(1, 8, 4, 32), shape_kv=(1, 8, 2, 32), dtype=torch.float32):
+    return torch.zeros(shape_q, dtype=dtype), torch.zeros(shape_kv, dtype=dtype), \
+        torch.zeros(shape_kv, dtype=dtype)
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: _qkv(dtype=torch.float64), "float32 or all"),
+    (lambda: (*_qkv()[:2], torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)), "float32 or all"),
+    (lambda: _qkv((1, 8, 4, 48), (1, 8, 2, 48)), "head size"),
+    (lambda: _qkv((1, 8, 3, 32), (1, 8, 2, 32)), "multiple"),
+    (lambda: _qkv((1, 8, 32), (1, 8, 2, 32)), "must be"),
+    (lambda: (_qkv()[0], torch.zeros(1, 8, 2, 32), torch.zeros(1, 9, 2, 32)), "must be"),
+    (lambda: _qkv((2, 8, 4, 32), (1, 8, 2, 32)), "do not match"),
+    (lambda: _qkv((1, 0, 4, 32), (1, 8, 2, 32)), "sizes"),
+    (lambda: (torch.zeros(1, 4, 8, 32).transpose(1, 2), *_qkv()[1:]), "contiguous"),
+])
+def test_flash_attention_rejects_bad_arguments(make, match):
+    with pytest.raises(ValueError, match=match):
+        flash_attention(*make())
+
+
+@pytest.mark.parametrize("window", [2.5, True, "17"])
+def test_flash_attention_rejects_a_bad_window(window):
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(*_qkv(), window=window)
+
+
+def test_flash_attention_has_no_plain_fallback_off_the_cpu():
+    """A tensor on a device that is neither the CPU nor CUDA raises: the
+    plain version serves CPU tensors only."""
+    q, k, v = (t.to("meta") for t in _qkv())
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention(q, k, v)
