@@ -8,7 +8,10 @@ Run from the root of a checkout, on the machine with the card:
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit; build the CUDA kernels from the sources
-   in the checkout (``nvcc``, ``sm_90a``, one process per source);
+   in the checkout (``nvcc``, ``sm_90a``, one process per source); count
+   the tensor-core instructions (``HGMMA``, ``HMMA``) in the built
+   attention libraries with ``cuobjdump -sass``: the bf16 kernel must have
+   ``HGMMA``, the float32 kernel none of either;
 2. each kernel against its plain PyTorch version on the card, over seeded
    shapes: ``vm_step`` (the transitions of workload tries: PQ, MQ, seeded
    label chains of one to four 32-column blocks and the row placement's
@@ -16,8 +19,9 @@ Phases (any failure exits non-zero and prints no result line):
    all-cut weights, up to 100k rows), ``embedding_bag`` (d 8/64/128, H 1/8/64,
    repeated, padded and out-of-range ids), ``segment_spmm`` (F 8/16/100,
    empty rows, a hub row of 10k edges, zero weights) and ``flash_attention``
-   (Sq/Skv 1-300 and 1,024, causal and not, window None/17/64/1,024, GQA
-   1/2/4, D 32/64/128/256, float32 and bfloat16, rows with no valid key);
+   (Sq/Skv 1-1,111, causal and not, window None/1/17/64/129/200/1,024,
+   GQA 1/2/4, D 32/64/128/256, float32 and bfloat16, rows with no valid
+   key; bf16 goes to the tensor-core kernel, float32 to the CUDA-core one);
 3. the paper's worked-example values through ``backend="cuda"``;
 4. fig7 at N=2000 on the card (provgen and musicbrainz, hash start): the
    reference's final ipt exactly, and the kernel field bitwise equal to the
@@ -49,8 +53,9 @@ Phases (any failure exits non-zero and prints no result line):
    kernel's time per launch, its plain version's and SDPA's at both shapes,
    the kernel against the plain version on one captured layer's q/k/v at
    each shape, and the whole-path gate: the full-width model in float32 at
-   2,048 tokens through the kernel against the same forward through the
-   plain version, and one decode step from its cache against the prefill.
+   2,048 tokens through the float32 kernel (its 36 launches counted) against
+   the same forward through the plain version, and one decode step from its
+   cache against the prefill.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; a path that launched none of its kernels fails.  The line
@@ -197,7 +202,31 @@ def build_kernels():
         for line in text.splitlines():
             if "ptxas info" in line and ("registers" in line or "Compiling" in line):
                 log(f"[build] {name}: {line.strip()}")
-    return dt
+            elif "spill" in line or "C7512" in line:
+                log(f"[build] {name}: {line.strip()[:200]}")
+    return libs
+
+
+def tensor_core_instructions(libs):
+    """``{library: (HGMMA count, HMMA count)}`` of the two attention
+    kernels' libraries, from ``cuobjdump -sass``; fails unless the bf16
+    kernel has HGMMA and the float32 kernel has neither."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name in ("flash_attention_bf16", "flash_attention_f32"):
+        sass = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts[name] = (len(re.findall(r"\bHGMMA\b", sass)), len(re.findall(r"\bHMMA\b", sass)))
+        log(f"[build] {name}: {counts[name][0]} HGMMA and {counts[name][1]} HMMA "
+            f"instructions in the SASS")
+    check(counts["flash_attention_bf16"][0] > 0,
+          "the bf16 attention kernel has no HGMMA (tensor-core) instruction")
+    check(counts["flash_attention_f32"] == (0, 0),
+          "the float32 attention kernel has tensor-core instructions")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -451,6 +480,12 @@ def _attn_cases():
         (2, 1024, 1024, 8, 4, 128, True, None, "bfloat16"),
         (1, 1024, 1024, 2, 2, 256, True, 1024, "bfloat16"),
         (1, 1024, 1024, 1, 1, 64, False, None, "float32"),
+        # the tensor-core kernel: lengths off its 128-row tiles, Sq != Skv
+        (1, 333, 517, 2, 2, 128, True, 200, "bfloat16"),
+        (3, 77, 190, 1, 2, 32, False, 64, "bfloat16"),
+        (1, 700, 650, 1, 1, 64, True, 129, "bfloat16"),
+        (2, 1000, 1111, 2, 4, 256, False, 300, "bfloat16"),
+        (1, 1100, 1100, 2, 4, 128, False, 1, "bfloat16"),
     ]
     rng = np.random.default_rng(500)
     drawn = [(int(rng.integers(1, 4)), int(rng.integers(1, 301)), int(rng.integers(1, 301)),
@@ -460,13 +495,14 @@ def _attn_cases():
     return fixed + drawn
 
 
-def attention_sweep(torch) -> float:
-    """``flash_attention`` against its plain version on seeded shapes."""
+def attention_sweep(torch) -> dict:
+    """``flash_attention`` against its plain version on seeded shapes;
+    returns the largest error per dtype."""
     import numpy as np
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
-    worst = 0.0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
     for i, (b, sq, skv, kv, g, d, causal, window, dt) in enumerate(_attn_cases()):
         rng = np.random.default_rng(600 + i)
         dtype = getattr(torch, dt)
@@ -487,7 +523,7 @@ def attention_sweep(torch) -> float:
         check(bool(torch.isfinite(out).all()), f"non-finite flash_attention output, case {i}")
         check(bool((out[:, dead.to(out.device)] == 0).all()),
               f"flash_attention: rows without a key are not 0 on case {i}")
-        worst = max(worst, err)
+        worst[dt] = max(worst[dt], err)
     return worst
 
 
@@ -1112,14 +1148,19 @@ def _sdpa_ms(torch, q, k, v, out_k):
     enable_gqa=True)`` on q, k, v (moved to its (B, heads, S, D) layout
     first, outside the timing) and its largest difference from the kernel's
     output.  Only the fused back ends may run: the math one would hold a
-    137 GB score tensor at 32k tokens."""
+    137 GB score tensor at 32k tokens.  In float32 only the memory-efficient
+    back end runs, and it takes no GQA: k and v are repeated to the query
+    heads first, outside the timing."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     F = torch.nn.functional
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    gqa = q.dtype != torch.float32
+    if not gqa:
+        kt, vt = (t.repeat_interleave(q.shape[2] // k.shape[2], dim=1) for t in (kt, vt))
 
     def call():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=gqa)
 
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                       SDPBackend.EFFICIENT_ATTENTION]):
@@ -1128,9 +1169,12 @@ def _sdpa_ms(torch, q, k, v, out_k):
     return ms, diff
 
 
-def _attn_at_path_shape(torch, args, reps):
+def _attn_at_path_shape(torch, args, reps, time_f32=False):
     """Kernel, plain version and SDPA on one captured layer's q, k, v; the
-    kernel against the plain version; the bound of the work."""
+    kernel against the plain version; the bound of the work.  The same q,
+    k, v in float32 go through the float32 kernel, which ``time_f32`` also
+    times (with its plain version, SDPA and its bound at the float32
+    CUDA-core peak)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
@@ -1146,23 +1190,38 @@ def _attn_at_path_shape(torch, args, reps):
     ok_rms = bool(torch.allclose(out_k.float(), out_p.float(), rtol=ATTN_PATH_RTOL,
                                  atol=ATTN_PATH_ATOL_RMS * rms))
     del out_p
+    pairs = int(_keys_per_row(S, S, True, None).sum())
+    flops = 4 * D * pairs * B * H
     q32, k32, v32 = (t.float() for t in args)
     o32_k = flash_attention(q32, k32, v32)
     o32_p = flash_attention_reference(q32, k32, v32)
     err32 = float((o32_k - o32_p).abs().max())
     rtol32, atol32 = ATTN_TOL["float32"]
     ok32 = bool(torch.allclose(o32_k, o32_p, rtol=rtol32, atol=atol32))
-    del q32, k32, v32, o32_k, o32_p
+    del o32_p
+    f32 = None
+    if time_f32:
+        ms32 = _time_ms(torch, lambda: flash_attention(q32, k32, v32), reps)
+        plain32 = _time_ms(torch, lambda: flash_attention_reference(q32, k32, v32), 2)
+        lib32, _ = _sdpa_ms(torch, q32, k32, v32, o32_k)
+        bound32, by32 = _bound(4 * (2 * q.numel() + k.numel() + v.numel()), flops,
+                               PEAK_F32_FLOPS)
+        f32 = dict(ms=ms32, plain_ms=plain32, bound_ms=bound32, bound_by=by32,
+                   library_ms=lib32, err=err32)
+        log(f"[qwen3] flash_attention_f32 at B={B} S={S} H={H} KV={k.shape[2]} D={D} "
+            f"float32 (the same q/k/v): kernel {ms32:.4f} ms ({flops / ms32 / 1e9:.2f} "
+            f"TFLOP/s), plain {plain32:.4f} ms, SDPA {lib32:.4f} ms, bound {bound32:.4f} ms "
+            f"by {by32} at the float32 CUDA-core peak")
+    del q32, k32, v32, o32_k
     ms = _time_ms(torch, lambda: flash_attention(q, k, v), reps)
     plain_ms = _time_ms(torch, lambda: flash_attention_reference(q, k, v), 2)
     library_ms, lib_diff = _sdpa_ms(torch, q, k, v, out_k)
-    pairs = int(_keys_per_row(S, S, True, None).sum())
-    flops = 4 * D * pairs * B * H
     bytes_moved = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     bound_ms, bound_by = _bound(bytes_moved, flops, PEAK_BF16_FLOPS)
     log(f"[qwen3] flash_attention at B={B} S={S} H={H} KV={k.shape[2]} D={D} "
         f"{str(q.dtype).split('.')[-1]} (one layer's q/k/v): kernel {ms:.4f} ms "
-        f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+        f"({flops / ms / 1e9:.2f} TFLOP/s, {ms / library_ms:.3f}x SDPA's time, "
+        f"{bound_ms / ms:.3f} of the bound), plain {plain_ms:.4f} ms, SDPA "
         f"{library_ms:.4f} ms (max diff to the kernel {lib_diff:.3e}), "
         f"bound {bound_ms:.4f} ms by {bound_by} ({bytes_moved} B, {flops} FLOP at "
         f"the bf16 tensor-core peak); kernel vs plain: output RMS {rms:.4e}, "
@@ -1175,7 +1234,7 @@ def _attn_at_path_shape(torch, args, reps):
     check(ok32, f"flash_attention disagrees with its plain version at B={B} S={S} "
                 f"(float32)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, err=err)
+                library_ms=library_ms, err=err, err32=err32, f32=f32)
 
 
 def _profile_step(torch, fn):
@@ -1312,7 +1371,8 @@ def qwen3_serving(torch, device):
         key = [k for k in timer.args_by_shape if k[0] == (B, S, cfg.n_heads, cfg.d_head)][0]
         reps = 3 if S > 8192 else 10
         records[name] = dict(launches=served[name]["launches"],
-                             **_attn_at_path_shape(torch, timer.args_by_shape[key], reps))
+                             **_attn_at_path_shape(torch, timer.args_by_shape[key], reps,
+                                                   time_f32=name == "4x4096"))
     del timer, params, requests
     torch.cuda.empty_cache()
 
@@ -1323,7 +1383,12 @@ def qwen3_serving(torch, device):
     toks = torch.as_tensor(next(TokenPipeline(V, 1, LM_GATE_TOKENS + 1, seed=1))["tokens"],
                            device=device)
     prompt = toks[:, :LM_GATE_TOKENS]
+    reset_counts()                                  # the float32 forward starts here
     logits_k, _, pre = tf.forward(params, prompt, cfg32, return_cache=True)
+    f32_launches = read_counts("qwen3 float32", ["flash_attention"])["flash_attention"]
+    check(f32_launches == L, f"qwen3 float32: {f32_launches} flash_attention launches, "
+                             f"want {L}")
+    records["4x4096"]["f32"]["launches"] = f32_launches
     tf.flash_attention = lambda q, k, v, causal=True, window=None: (  # noqa: E731
         flash_attention_reference(q, k, v, causal, window))
     try:
@@ -1390,7 +1455,7 @@ def main() -> int:
     device = resolve_device("cuda")
     dev_line = device_line()
     log(f"[device] {dev_line}; torch {torch.__version__} cuda {torch.version.cuda}")
-    build_kernels()
+    tensor_core_instructions(build_kernels())
     errs = {"vm_step": kernel_sweep(torch), "embedding_bag": bag_sweep(torch),
             "segment_spmm": spmm_sweep(torch), "flash_attention": attention_sweep(torch)}
     paper_values(device)
@@ -1436,17 +1501,31 @@ def main() -> int:
          "bound_ms": gnn["bound_ms"], "bound_by": gnn["bound_by"],
          "library_ms": gnn["library_ms"]},
     ] + [
-        # one kernel at the path's two prefill shapes: 1 x 32,768 and 4 x 4,096
+        # the bf16 tensor-core kernel at the path's two prefill shapes:
+        # 1 x 32,768 and 4 x 4,096
         {"name": name, "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
          "launches": r["launches"],
-         "max_abs_err": max(errs["flash_attention"], r["err"]),
+         "max_abs_err": max(errs["flash_attention"]["bfloat16"], r["err"]),
          "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]}
         for name, r in (("flash_attention", lm["1x32768"]),
                         ("flash_attention/4k", lm["4x4096"]))
+    ] + [
+        # the float32 CUDA-core kernel: its launches are the float32
+        # full-width forward's, its times at the 4 x 4,096 shape in float32
+        {"name": "flash_attention_f32", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
+         "launches": f32["launches"],
+         "max_abs_err": max(errs["flash_attention"]["float32"], lm["1x32768"]["err32"],
+                            lm["4x4096"]["err32"]),
+         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+         "library_ms": f32["library_ms"]}
+        for f32 in (lm["4x4096"]["f32"],)
     ]}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(dev_line)

@@ -87,25 +87,26 @@ def _layers(tree, path):
         raise ValueError(f"{path}: expected a list of {{'w', 'b'}} layers")
 
 
-def dlrm_params_from_reference(tree: Mapping, device="cpu") -> Dict:
+def dlrm_params_from_reference(tree: Mapping, device: DeviceLike = None) -> Dict:
     """The port's DLRM parameters from the reference's ``models.dlrm.init``
-    pytree (``{"embedding", "bot", "top"}``), copied onto ``device``."""
+    pytree (``{"embedding", "bot", "top"}``), copied onto ``device``
+    (default ``"cuda"``, through ``resolve_device``)."""
     if set(tree) != {"embedding", "bot", "top"}:
         raise ValueError(f"DLRM parameters have keys {sorted(tree)}, want "
                          "['bot', 'embedding', 'top']")
     _layers(tree["bot"], "bot")
     _layers(tree["top"], "top")
-    return _tensors(tree, device)
+    return _tensors(tree, resolve_device(device))
 
 
-def gcn_params_from_reference(tree: Mapping, device="cpu") -> Dict:
+def gcn_params_from_reference(tree: Mapping, device: DeviceLike = None) -> Dict:
     """The port's GCN parameters from the reference's
     ``models.gnn.gcn.init`` pytree (``{"layers": [{"w", "b"}, ...]}``),
-    copied onto ``device``."""
+    copied onto ``device`` (default ``"cuda"``, through ``resolve_device``)."""
     if set(tree) != {"layers"}:
         raise ValueError(f"GCN parameters have keys {sorted(tree)}, want ['layers']")
     _layers(tree["layers"], "layers")
-    return _tensors(tree, device)
+    return _tensors(tree, resolve_device(device))
 
 
 def _keys(tree, path: str, want: Set[str]) -> None:

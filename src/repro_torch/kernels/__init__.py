@@ -19,7 +19,10 @@ Kernels (CUDA C++ for ``sm_90a``; each replaces one TPU kernel):
                   dst-sorted CSR (replaces
                   ``src/repro/kernels/segment_spmm/kernel.py::_spmm_kernel``)
   flash_attention — the LM's prefill attention: blocked online softmax,
-                  top-left causal and one-sided window masks, GQA (replaces
+                  top-left causal and one-sided window masks, GQA; two
+                  kernels by input type, ``flash_attention_bf16`` on the
+                  tensor cores (wgmma, TMA, mbarriers) and
+                  ``flash_attention_f32`` on the CUDA cores (replace
                   ``src/repro/kernels/flash_attention/kernel.py::_attn_kernel``)
 
 Every TPU kernel of the JAX package has its counterpart here.

@@ -1,7 +1,10 @@
-// flash_attention — blocked online-softmax attention, for Hopper (sm_90a).
+// flash_attention_f32 — blocked online-softmax attention in float32 on the
+// CUDA cores, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:27
-// (_attn_kernel, launched by flash_attention_bhsd; GQA expanded by ops.py).
+// Replaces, for float32 q, k and v, the TPU kernel
+// src/repro/kernels/flash_attention/kernel.py:27 (_attn_kernel, launched by
+// flash_attention_bhsd; GQA expanded by ops.py); bfloat16 inputs go to the
+// tensor-core kernel flash_attention_bf16.cu.
 // For q (B, Sq, H, D) and k, v (B, Skv, KV, D), query head h reads KV head
 // h / (H / KV) (the order of ops.py's jnp.repeat), and
 //
@@ -12,9 +15,9 @@
 //
 // with p = exp(s - running max) where the mask holds and exactly 0 where it
 // does not; masked scores are -1e30, not -inf, so a row with no valid key
-// keeps l = 0 and acc = 0 and writes exactly 0.  q, k and v are converted to
-// float32 as they are staged, both products and the softmax run in float32,
-// and the output is written once in q's dtype (float32 or bfloat16).
+// keeps l = 0 and acc = 0 and writes exactly 0.  Both products and the
+// softmax run in float32 (no TF32), so the full-width float32 model through
+// this kernel stays within 1e-4 of the plain version.
 //
 // The TPU kernel walked a (B*H, q-block, kv-block) grid in order and carried
 // m, l and acc across the kv steps in VMEM scratch.  Here blocks run in no
@@ -28,8 +31,8 @@
 // the TPU kernel's pl.when did (half the work of a causal prefill).  q tiles
 // are issued last-first so the longest causal rows start first.
 //
-// Per kv tile of 64 rows: K and V are staged through shared memory as
-// float32 (K and Q rows padded by 4 floats so float4 reads by 8 neighbouring
+// Per kv tile of 64 rows: K and V are staged through shared memory (K and Q
+// rows padded by 4 floats so float4 reads by 8 neighbouring
 // threads hit 32 distinct banks); 256 threads form a 16 x 16 grid, each
 // owning 4 q rows: 4 score columns (tx + 16 j) of S = Q K^T, and D/16 output
 // columns (tx + 16 c) of acc.  Row max and row sum are reduced over the 16
@@ -39,18 +42,16 @@
 //
 // What bounds it on an H100: operations.  A causal prefill does
 // 4 * D * (pairs kept) FLOP; at qwen3-4b's 32k prefill (H=32, D=128) that is
-// 8.80e12 FLOP against 671 MB of q, k, v and out, far above the card's
-// ridge.  The bound is taken at the bf16 tensor-core rate (989 TFLOP/s,
-// 8.89 ms); this kernel runs on the float32 CUDA cores (67 TFLOP/s peak), so
-// it sits well above that bound by design.  A tensor-core version (mma.sync
-// or wgmma with TMA-fed tiles) is the redesign that closes the gap.
+// 8.80e12 FLOP, far above the card's ridge; on the float32 CUDA cores (67
+// TFLOP/s peak) that is 131 ms at the least.  This kernel reaches about half
+// of that peak; bf16 serving runs flash_attention_bf16.cu on the tensor
+// cores instead.
 //
 // Offsets are 64-bit.  Dynamic shared memory is 34.8 KB (D=32) to 198.7 KB
 // (D=256); the launcher raises the per-kernel limit and returns any error.
 
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -68,16 +69,6 @@ struct Elem<float> {
     return *reinterpret_cast<const float4*>(p);
   }
   __device__ static float store(float x) { return x; }
-};
-template <>
-struct Elem<__nv_bfloat16> {
-  __device__ static float4 load4(const __nv_bfloat16* p) {
-    const auto* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-    const float2 a = __bfloat1622float2(p2[0]);
-    const float2 b = __bfloat1622float2(p2[1]);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16_rn(x); }
 };
 
 template <int D>
@@ -295,24 +286,19 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
 
 }  // namespace
 
-// Plain C entry point for ctypes.  q, k, v and out are contiguous device
-// arrays in the model's layout, q and out (B, Sq, H, D), k and v
-// (B, Skv, KV, D), 16-byte aligned, all float32 (bf16 = 0) or all bfloat16
-// (bf16 = 1); D is 32, 64, 128 or 256, H a multiple of KV, Sq / 64 at most
-// 65535.  window is used when has_window is set.  The stream is PyTorch's
-// current stream.  Returns the cudaError_t of the launch.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* out, int B, int Sq, int Skv, int H, int KV,
-                                      int D, int causal, int has_window, long long window,
-                                      int bf16, float scale, void* stream) {
+// Plain C entry point for ctypes.  q, k, v and out are contiguous float32
+// device arrays in the model's layout, q and out (B, Sq, H, D), k and v
+// (B, Skv, KV, D), 16-byte aligned; D is 32, 64, 128 or 256, H a multiple of
+// KV, Sq / 64 at most 65535.  window is used when has_window is set.  The
+// stream is PyTorch's current stream.  Returns the cudaError_t of the launch.
+extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v,
+                                          void* out, int B, int Sq, int Skv, int H, int KV,
+                                          int D, int causal, int has_window, long long window,
+                                          float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (KV <= 0 || H % KV != 0 || Skv < 0 || (Sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, out, B, Sq, Skv, H, KV, causal, has_window,
-                                     window, scale, st)
-           : dispatch<float>(D, q, k, v, out, B, Sq, Skv, H, KV, causal, has_window, window,
-                             scale, st);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch<float>(D, q, k, v, out, B, Sq, Skv, H, KV, causal,
+                                          has_window, window, scale,
+                                          static_cast<cudaStream_t>(stream)));
 }

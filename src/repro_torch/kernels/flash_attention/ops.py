@@ -1,6 +1,7 @@
-"""Wrapper of the ``flash_attention`` kernel: argument checks, the launch
-count, and the choice between the kernel (CUDA tensors) and its plain
-version (CPU tensors).
+"""Wrapper of the ``flash_attention`` kernels: argument checks, the launch
+count, and the choice between a kernel (CUDA tensors: bfloat16 to the
+tensor-core kernel, float32 to the CUDA-core one) and the plain version
+(CPU tensors).
 
 The Pallas wrapper's ``block_q``/``block_k``/``interpret``/``use_pallas``
 are TPU tiling knobs and have no counterpart: the kernel picks its own
@@ -15,6 +16,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
+#: the kernel (``csrc/<name>.cu``) that serves CUDA tensors of each type
+KERNEL_BY_DTYPE = {torch.bfloat16: "flash_attention_bf16",
+                   torch.float32: "flash_attention_f32"}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,6 +55,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{window!r}")
 
 
+def kernel_name(q: torch.Tensor) -> Optional[str]:
+    """The kernel that serves ``q``'s device and type, or None for the
+    plain version (CPU tensors only); other devices raise."""
+    if q.device.type == "cpu":
+        return None
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return KERNEL_BY_DTYPE[q.dtype]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """Attention of q (B, Sq, H, D) over k, v (B, Skv, KV, D), in q's dtype.
@@ -58,17 +72,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Query head h reads KV head ``h // (H // KV)``.  ``causal`` masks keys
     past the query (top-left: ``kv_pos <= q_pos``, q counted from 0);
     ``window`` keeps keys with ``kv_pos > q_pos - window``.  A row with no
-    valid key is 0.  CUDA tensors go to the hand-written kernel
-    (``csrc/flash_attention.cu``), CPU tensors to the plain version.
+    valid key is 0.  CUDA tensors go to a hand-written kernel
+    (``kernel_name``: ``csrc/flash_attention_bf16.cu`` for bfloat16,
+    ``csrc/flash_attention_f32.cu`` for float32), CPU tensors to the plain
+    version.
     """
     _check(q, k, v, window)
-    if q.device.type == "cpu":
+    name = kernel_name(q)
+    if name is None:
         return flash_attention_reference(q, k, v, causal, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 
-    out = flash_attention_cuda(q, k, v, causal, window)
+    out = flash_attention_cuda(name, q, k, v, causal, window)
     flash_attention.launches += 1
     return out
 

@@ -198,12 +198,40 @@ ATTN_CASES = [
 ]
 
 
+# bf16 only (the tensor-core kernel): every head size with Sq != Skv,
+# windows, and lengths that are not multiples of 64 or 128
+ATTN_CASES_BF16 = [
+    (1, 333, 517, 2, 2, 128, True, 200),
+    (3, 77, 190, 1, 2, 32, False, 64),
+    (1, 700, 650, 1, 1, 64, True, 129),
+    (2, 1000, 1111, 2, 4, 256, False, 300),
+    (1, 190, 70, 1, 4, 64, True, None),
+    (2, 65, 1025, 2, 2, 32, True, 17),
+    (1, 1100, 1100, 2, 4, 128, False, 1),
+    (1, 257, 900, 1, 2, 256, True, None),
+]
+
+
+def _attn_inputs(seed, b, sq, skv, kv, g, d, dtype, device):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+            .to(device=device, dtype=dtype)
+            for shape in ((b, sq, kv * g, d), (b, skv, kv, d), (b, skv, kv, d)))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(card, dtype):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=2e-5, atol=2e-5)
+    if dtype == torch.bfloat16:
+        for i, (b, sq, skv, kv, g, d, causal, window) in enumerate(ATTN_CASES_BF16):
+            q, k, v = _attn_inputs(100 + i, b, sq, skv, kv, g, d, dtype, card)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            ref = flash_attention_reference(q, k, v, causal, window)
+            torch.testing.assert_close(out.float(), ref.float(), **tol)
     for i, (b, sq, skv, kv, g, d, causal, window) in enumerate(ATTN_CASES):
         rng = np.random.default_rng(i)
         q, k, v = (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
@@ -216,6 +244,27 @@ def test_flash_attention_kernel_matches_plain(card, dtype):
         ref = flash_attention_reference(q, k, v, causal, window)
         torch.testing.assert_close(out.float(), ref.float(), **tol)
     assert bool((out[:, 116:] == 0).all()) and bool((out[:, :116] != 0).any())
+
+
+def test_flash_attention_bf16_holds_the_path_gate(card):
+    """1 x 4,096 tokens, 32 query and 8 KV heads of 128 (qwen3-4b's), v rows
+    sharing a common part (output RMS ~0.5): the kernel within one bf16 step
+    plus 1e-3 of the output's RMS of the plain version (chip_smoke.py's
+    path gate)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    rng = np.random.default_rng(7)
+    q = torch.as_tensor(rng.normal(size=(1, 4096, 32, 128)), dtype=torch.float32)
+    k = torch.as_tensor(rng.normal(size=(1, 4096, 8, 128)), dtype=torch.float32)
+    v = torch.as_tensor(0.5 * rng.normal(size=(1, 1, 8, 128))
+                        + 0.3 * rng.normal(size=(1, 4096, 8, 128)), dtype=torch.float32)
+    q, k, v = (t.to(device=card, dtype=torch.bfloat16) for t in (q, k, v))
+    out = flash_attention(q, k, v).float()
+    ref = flash_attention_reference(q, k, v).float()
+    rms = float(ref.square().mean().sqrt())
+    assert 0.3 < rms < 0.7
+    torch.testing.assert_close(out, ref, rtol=2.0 ** -7, atol=1e-3 * rms)
 
 
 def test_transformer_forward_and_decode_on_the_card(card):

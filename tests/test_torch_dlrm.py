@@ -73,7 +73,16 @@ def test_click_log_pipeline_bitwise(multi_hot, seed, batch):
 
 def _weights(ref_cfg, seed=0):
     r_params, _ = r_dlrm.init(jax.random.PRNGKey(seed), ref_cfg)
-    return r_params, dlrm_params_from_reference(jax.tree.map(np.asarray, r_params))
+    return r_params, dlrm_params_from_reference(jax.tree.map(np.asarray, r_params),
+                                                    device="cpu")
+
+
+def test_dlrm_params_from_reference_defaults_to_the_card(monkeypatch):
+    r_params, _ = r_dlrm.init(jax.random.PRNGKey(0), _cfgs()[1])
+    tree = jax.tree.map(np.asarray, r_params)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dlrm_params_from_reference(tree)
 
 
 @pytest.mark.parametrize("multi_hot", [1, 4])

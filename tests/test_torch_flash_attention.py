@@ -4,6 +4,11 @@ and its oracle ``attention_reference``, on the same numpy-seeded inputs.
 On the CPU the wrapper takes the plain torch version; the CUDA kernel
 itself is checked on the card (tests/test_torch_cuda.py).  Tolerances are
 those of tests/test_kernels.py: 2e-5 in float32, 2e-2 in bfloat16."""
+import math
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -180,3 +185,162 @@ def test_flash_attention_has_no_plain_fallback_off_the_cpu():
     q, k, v = (t.to("meta") for t in _qkv())
     with pytest.raises(ValueError, match="no kernel"):
         flash_attention(q, k, v)
+
+
+# --- the bf16 tensor-core kernel's design, checked on the CPU ---------------
+#
+# ``_emulate`` repeats the arithmetic of csrc/flash_attention_bf16.cu in
+# torch: bf16 q, k, v; float32 scores; 128-row q tiles that visit the kv
+# tiles the kernel visits, BK rows at a time from the tile plan; the online
+# softmax in float32 with exp2; P fed to the products as bf16 hi + lo (or,
+# the design the kernel does not take, as one bf16 value), l summed from
+# the same weights; float32 accumulation; the output rounded to bf16.
+
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+
+#: the serving path's gate (chip_smoke.py): one bf16 step of the value plus
+#: 1e-3 of the output's RMS
+PATH_RTOL, PATH_ATOL_RMS = 2.0 ** -7, 1e-3
+
+
+def _emulate(q, k, v, causal=True, window=None, split=True):
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    plan = fa_kernel.TILE_PLAN[D]
+    sl2 = math.log2(math.e) / math.sqrt(D)
+    kf = k.float().repeat_interleave(H // KV, 2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(H // KV, 2).permute(0, 2, 1, 3)
+    qf = q.float().permute(0, 2, 1, 3)
+    out = torch.zeros(B, H, Sq, D)
+    for q0 in range(0, Sq, plan.bq):
+        rows = torch.arange(q0, min(q0 + plan.bq, Sq))
+        lo, hi = 0, Skv
+        if causal:
+            hi = min(hi, q0 + plan.bq)
+        if window is not None:
+            lo = max(0, q0 - window + 1)
+        m = torch.full((B, H, len(rows), 1), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, len(rows), D)
+        for kv0 in range(lo // plan.bk * plan.bk, hi, plan.bk):
+            cols = torch.arange(kv0, min(kv0 + plan.bk, Skv))
+            s = qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)
+            keep = torch.ones(len(rows), len(cols), dtype=torch.bool)
+            if causal:
+                keep &= cols[None] <= rows[:, None]
+            if window is not None:
+                keep &= cols[None] > rows[:, None] - window
+            s = s.masked_fill(~keep, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s * sl2 - m_new)
+            p_hi = p.bfloat16().float()
+            p = p_hi + (p - p_hi).bfloat16().float() if split else p_hi
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p @ vf[:, :, cols]
+            m = m_new
+        out[:, :, rows] = acc / l.clamp(min=1e-30)
+    return out.permute(0, 2, 1, 3).bfloat16()
+
+
+def _bf16(arrays):
+    return [torch.tensor(a, dtype=torch.float32).bfloat16() for a in arrays]
+
+
+@pytest.mark.parametrize("b,sq,skv,kv,g,d,causal,window,dtype", CASES)
+def test_kernel_arithmetic_matches_reference(b, sq, skv, kv, g, d, causal, window, dtype):
+    """The emulated bf16 kernel against the Pallas kernel (interpret) and
+    the oracle, at bf16's tolerance, on the cases' shapes in bf16."""
+    arrays = _inputs(sq * 1000 + skv + d, b, sq, skv, kv * g, kv, d)
+    out = _emulate(*_bf16(arrays), causal, window).float().numpy()
+    pallas, oracle = _reference(arrays, "bfloat16", causal, window, g)
+    np.testing.assert_allclose(out, pallas, **_tol("bfloat16"))
+    np.testing.assert_allclose(out, oracle, **_tol("bfloat16"))
+
+
+def _common_part(seed, S, H, KV, D):
+    """q, k ~ N(0, 1) and v rows sharing a common part: output RMS ~0.5, as
+    on the qwen3-4b path (PERF.md)."""
+    rng = np.random.default_rng(seed)
+    q, k = rng.normal(size=(1, S, H, D)), rng.normal(size=(1, S, KV, D))
+    v = 0.5 * rng.normal(size=(1, 1, KV, D)) + 0.3 * rng.normal(size=(1, S, KV, D))
+    return _bf16((q, k, v))
+
+
+def _misses_path_gate(out, ref):
+    rms = float(ref.float().square().mean().sqrt())
+    allowed = PATH_RTOL * ref.float().abs() + PATH_ATOL_RMS * rms
+    return rms, int(((out.float() - ref.float()).abs() > allowed).sum())
+
+
+@pytest.mark.parametrize("window", [None, 4])
+def test_split_weights_hold_the_path_gate(window):
+    """P as bf16 hi + lo holds the path gate against the plain version where
+    v shares a common part; one bf16 rounding of P does not once rows have
+    few keys (window 4): the reason for the kernel's second P V product."""
+    q, k, v = _common_part(31, 512, 8, 2, 128)
+    ref = flash_attention_reference(q, k, v, True, window)
+    rms, missed = _misses_path_gate(_emulate(q, k, v, True, window), ref)
+    assert 0.3 < rms < 0.7 and missed == 0
+    if window is not None:
+        assert _misses_path_gate(_emulate(q, k, v, True, window, split=False), ref)[1] > 0
+
+
+@pytest.mark.parametrize("d", fa_ops.HEAD_DIMS)
+def test_tile_plan_fits_the_card(d):
+    plan = fa_kernel.TILE_PLAN[d]
+    assert plan.bq % 64 == 0 and plan.bk % 16 == 0 and plan.stages >= 2
+    assert fa_kernel.smem_bytes(d, plan) <= fa_kernel.SMEM_LIMIT == 232448
+
+
+def test_tile_plan_is_what_the_source_instantiates():
+    src = (Path(fa_kernel.__file__).parents[1] / "csrc" / "flash_attention_bf16.cu").read_text()
+    planned = {(d, p.bk, p.stages) for d, p in fa_kernel.TILE_PLAN.items()}
+    built = {tuple(map(int, t)) for t in re.findall(r"FA_PLAN\((\d+), (\d+), (\d+)\)\n", src)}
+    assert planned == built and all(p.bq == 128 for p in fa_kernel.TILE_PLAN.values())
+    assert "kBQ = 128" in src
+
+
+def test_each_dtype_has_its_kernel_source():
+    """bf16 goes to the tensor-core source (wgmma); the float32 source
+    stays on the CUDA cores (no tensor-core instruction)."""
+    csrc = Path(fa_kernel.__file__).parents[1] / "csrc"
+    bf16 = (csrc / "flash_attention_bf16.cu").read_text()
+    f32 = (csrc / "flash_attention_f32.cu").read_text()
+    assert "wgmma.mma_async" in bf16 and "cp.async.bulk.tensor" in bf16
+    assert not re.search(r"wgmma|mma\.sync|bfloat16|bf16", f32.split("#include", 1)[1])
+
+
+@pytest.mark.parametrize("device,dtype,want", [
+    ("cuda", torch.bfloat16, "flash_attention_bf16"),
+    ("cuda", torch.float32, "flash_attention_f32"),
+    ("cpu", torch.bfloat16, None),
+    ("cpu", torch.float32, None),
+])
+def test_kernel_by_device_and_dtype(device, dtype, want):
+    fake = SimpleNamespace(device=torch.device(device), dtype=dtype)
+    assert fa_ops.kernel_name(fake) == want
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "flash_attention_bf16"),
+                                        (torch.float32, "flash_attention_f32")])
+def test_card_tensors_never_reach_the_plain_version(monkeypatch, dtype, name):
+    """With the routing of a CUDA tensor, the wrapper launches the kernel
+    of the tensor's dtype, counts the launch and never calls the plain
+    version."""
+    launched = []
+
+    def fake_launch(kernel, q, k, v, causal, window):
+        launched.append(kernel)
+        return torch.zeros_like(q)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version served a card tensor")
+
+    monkeypatch.setattr(fa_ops, "kernel_name", lambda q: fa_ops.KERNEL_BY_DTYPE[q.dtype])
+    monkeypatch.setattr(fa_ops, "flash_attention_reference", no_plain)
+    monkeypatch.setattr(fa_kernel, "flash_attention_cuda", fake_launch)
+    before = flash_attention.launches
+    flash_attention(*_qkv(dtype=dtype))
+    assert launched == [name] and flash_attention.launches == before + 1

@@ -107,7 +107,7 @@ def test_gcn_forward_matches_reference(cell, scale, seed, norm):
     ref = dataclasses.replace(r_get_config("gcn-cora"), norm=norm)
     batch = random_graph_batch(cfg, SHAPES[cell], seed=seed, scale=scale)
     r_params, _ = r_api.init(jax.random.PRNGKey(seed), ref, R_SHAPES[cell])
-    params = gcn_params_from_reference(jax.tree.map(np.asarray, r_params))
+    params = gcn_params_from_reference(jax.tree.map(np.asarray, r_params), device="cpu")
     want = np.asarray(r_gcn.forward(
         r_params, {k: jnp.asarray(v) for k, v in batch.items()}, ref))
     tensors = batch_to_device(batch, "cpu")
@@ -117,6 +117,15 @@ def test_gcn_forward_matches_reference(cell, scale, seed, norm):
     # the cached CSR gives the same logits
     again = gcn.forward(params, tensors, cfg, csr=gcn.graph_csr(tensors))
     assert torch.equal(got, again)
+
+
+def test_gcn_params_from_reference_defaults_to_the_card(monkeypatch):
+    r_params, _ = r_api.init(jax.random.PRNGKey(0), r_get_config("gcn-cora"),
+                             R_SHAPES["full_graph_sm"])
+    tree = jax.tree.map(np.asarray, r_params)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gcn_params_from_reference(tree)
 
 
 def test_gcn_init_shapes_match_reference():
