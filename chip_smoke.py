@@ -17,8 +17,9 @@ Phases (any failure exits non-zero and prints no result line):
    label chains of one to four 32-column blocks and the row placement's
    677-node trie, 3 to 26 labels; empty rows, hub rows of 12k in-edges,
    all-cut weights, up to 100k rows), ``embedding_bag`` (d 8/64/128, H 1/8/64,
-   repeated, padded and out-of-range ids), ``segment_spmm`` (F 8/16/100,
-   empty rows, a hub row of 10k edges, zero weights) and ``flash_attention``
+   repeated, padded and out-of-range ids), ``segment_spmm`` (F 8/16/100 with
+   float4 loads, 17 and a misaligned 100 with scalar loads, empty rows, a hub
+   row of 10k edges, zero weights) and ``flash_attention``
    (Sq/Skv 1-1,111, causal and not, window None/1/17/64/129/200/1,024,
    GQA 1/2/4, D 32/64/128/256, float32 and bfloat16, rows with no valid
    key; bf16 goes to the tensor-core kernel, float32 to the CUDA-core one);
@@ -28,8 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
    plain field on the CPU;
 5. path 1, TAPER at the paper's ProvGen scale: one ``Taper.invoke`` on
    ``provgen_like(1_000_000)``, k=8, PQ1-4, kernel field, with per-iteration
-   field/kernel/swap times, a bitwise repeat of the field, and the kernel's
-   time, bound and plain-version time at those shapes;
+   field/kernel/swap times and each evaluation's split (its ``vm_step``
+   launches, the rest of its wall time), a bitwise repeat of the field, one
+   more evaluation under ``torch.profiler`` (host ops by self time, the
+   device's busy time), and the kernel's time, bound, gather yardstick and
+   plain-version time at those shapes;
 6. path 2, DLRM serving at full ``dlrm-rm2`` width with ``multi_hot=8``
    (33,762,577 x 64 table on the card): 20 ``serve_p99`` and 3
    ``serve_bulk`` requests through ``serve_step``, kernel forward against
@@ -39,12 +43,12 @@ Phases (any failure exits non-zero and prints no result line):
 7. path 3, TAPER's embedding-row placement (``benchmarks/dlrm_span.py``'s
    settings): ``coaccess_graph`` -> ``Taper.invoke`` (kernel field, 677-node
    trie) -> ``query_span``: the plain field's partitions and the JAX
-   package's spans exactly, and the kernel's time, bound and plain time at
-   the path's shapes;
+   package's spans exactly, and the kernel's time, bound, gather yardstick
+   and plain time at the path's shapes;
 8. path 4, GCN inference (``gcn-cora``) on the ``ogb_products`` cell
    (2,449,029 nodes, 61,859,140 edges): three forwards, kernel forward
-   against plain forward, and each kernel's time, bound, plain time and
-   library time at the path's shapes;
+   against plain forward, and each kernel's time, bound, gather yardstick,
+   plain time and library time at the path's shapes;
 9. path 5, ``qwen3-4b`` serving at full width (bf16, random weights from
    seed 0): a batch of 4 requests of 4,096 tokens and one request of
    32,768 tokens, each prefilled through ``forward`` (one
@@ -57,8 +61,13 @@ Phases (any failure exits non-zero and prints no result line):
    the same forward through the plain version, and one decode step from its
    cache against the prefill.
 
-Each path runs with every kernel's launch count set to 0 just before it and
-read just after; a path that launched none of its kernels fails.  The line
+The gather yardstick of a ``segment_spmm`` or ``vm_step`` launch counts
+the 32-byte sectors its live edges' gathered rows touch, once per edge,
+beside every other input read once and the output written once; beside the
+bound (each input byte once) it shows how much of a kernel's gap is the
+graph's randomness.  Each path runs with every kernel's launch count set to
+0 just before it and read just after; a path that launched none of its
+kernels fails.  The line
 before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
@@ -285,8 +294,14 @@ def _csr_case(torch, rng, n, e, par, val, hub=0, cut_frac=0.5, empty_frac=0.1,
 
 
 def _vm_args(c):
-    return tuple(c[k] for k in ("alpha", "par", "val", "row_ptr", "src", "w",
-                                "row_label"))
+    """The wrapper's arguments: the CSR made once (checked and planned), as
+    the field makes it."""
+    import torch
+    from repro_torch.kernels.segment_spmm.ops import EdgeCSR
+
+    csr = EdgeCSR(c["row_ptr"], c["src"], torch.arange(c["src"].shape[0],
+                                                       device=c["src"].device))
+    return (c["alpha"], c["par"], c["val"], csr, c["w"], c["row_label"])
 
 
 def _vm_plain(args):
@@ -294,7 +309,8 @@ def _vm_plain(args):
     import torch
     from repro_torch.kernels.vm_step.ref import vm_step_reference
 
-    alpha, par, val, row_ptr, src, w, row_label = args
+    alpha, par, val, csr, w, row_label = args
+    row_ptr, src = csr.row_ptr, csr.src
     n = alpha.shape[0]
     dst = torch.repeat_interleave(torch.arange(n, device=alpha.device),
                                   (row_ptr[1:] - row_ptr[:-1]).long())
@@ -305,13 +321,48 @@ def _vm_bound(args):
     """(bound ms, by, bytes, FLOP, local edges) of one ``vm_step`` launch:
     every input read once and the output written once; per local edge and
     trie column one gather-multiply, one scale and one add."""
-    alpha, par, val, row_ptr, src, w, row_label = args
+    alpha, par, val, csr, w, row_label = args
     n, N = alpha.shape
-    L, E = par.shape[0], src.shape[0]
+    L, E = par.shape[0], csr.src.shape[0]
     nz = int((w != 0).sum())
     bytes_moved = 4 * ((n + 1) + 2 * E + n + 2 * n * N + 2 * L * N)
     flops = 3 * nz * N
     return (*_bound(bytes_moved, flops), bytes_moved, flops, nz)
+
+
+def _yardstick_text(gather_bytes, other_bytes, **times):
+    """The gather-traffic yardstick of a launch: the bytes of the 32-byte
+    sectors its live edges' gathered rows touch (one count per edge, as
+    when no gathered row is found in L2), plus every other input read once
+    and the output written once, its time at the HBM rate, and the share of
+    it each of ``times`` (ms) reaches.  Beside the bound (each input byte
+    once) it shows how much of a kernel's gap is the graph's randomness."""
+    ms = (gather_bytes + other_bytes) / PEAK_BYTES_S * 1e3
+    shares = ", ".join(f"{k} {ms / t:.3f}" for k, t in times.items())
+    return (f"gather yardstick {gather_bytes} B of gathered sectors + {other_bytes} B "
+            f"other, {ms:.4f} ms at {PEAK_BYTES_S / 1e12:.2f} TB/s; share reached: {shares}")
+
+
+def _vm_gather_sectors(torch, args):
+    """Bytes of the 32-byte sectors of alpha that one ``vm_step`` launch's
+    live edges gather: lane c of an edge from s into a row of label l reads
+    alpha[s, par[l, c]] for every column c < N."""
+    import numpy as np
+
+    alpha, par, val, csr, w, row_label = args
+    row_ptr, src = csr.row_ptr, csr.src
+    n, N = alpha.shape
+    deg = (row_ptr[1:] - row_ptr[:-1]).long()
+    lab = torch.repeat_interleave(row_label.long(), deg)
+    live = w != 0
+    base = alpha.data_ptr() % 32
+    phase = ((base + src[live].long() * (4 * N)) % 32) // 4     # 0..7 floats
+    par_np = par.cpu().numpy().astype(np.int64)
+    # distinct sectors per (label, phase of the row start within a sector)
+    table = np.array([[np.unique((4 * ph + 4 * par_np[l]) // 32).size
+                       for ph in range(8)] for l in range(par_np.shape[0])], np.int64)
+    sectors = torch.as_tensor(table, device=alpha.device)[lab[live], phase]
+    return int(sectors.sum()) * 32
 
 
 def kernel_sweep(torch) -> float:
@@ -419,12 +470,15 @@ def bag_sweep(torch) -> float:
 def spmm_sweep(torch) -> float:
     """``segment_spmm`` against its plain version on seeded shapes."""
     import numpy as np
-    from repro_torch.kernels.segment_spmm.ops import csr_from_edges, segment_spmm_csr
+    from repro_torch.kernels.segment_spmm.ops import (csr_from_edges, segment_spmm_csr,
+                                                      vector_width)
     from repro_torch.kernels.segment_spmm.ref import segment_spmm_reference
 
     worst = 0.0
     n, e = 50_000, 500_000
-    for i, F in enumerate((8, 16, 100)):
+    # F 8/16/100 with float4 loads; 17 and 100 on x one float into its
+    # buffer with scalar loads
+    for i, (F, offset) in enumerate(((8, 0), (16, 0), (100, 0), (17, 0), (100, 1))):
         rng = np.random.default_rng(400 + i)
         live = np.nonzero(rng.random(n) >= 0.1)[0]   # 10% of the rows get no edge
         dst = rng.choice(live, e)
@@ -433,20 +487,27 @@ def spmm_sweep(torch) -> float:
         w = rng.normal(size=e).astype(np.float32)
         w[rng.random(e) < 0.2] = 0.0                  # masked edges
         t = lambda a, dt: torch.as_tensor(a, device="cuda").to(dt)  # noqa: E731
-        x = t(rng.normal(size=(n, F)).astype(np.float32), torch.float32)
+        buf = torch.zeros(n * F + 4, device="cuda")
+        x = buf[offset:offset + n * F].view(n, F)
+        x.copy_(t(rng.normal(size=(n, F)).astype(np.float32), torch.float32))
         csr = csr_from_edges(t(src, torch.int32), t(dst, torch.int32), n)
         wc = t(w, torch.float32)[csr.order].contiguous()
         out = segment_spmm_csr(x, csr, wc)
         torch.cuda.synchronize()
-        ref = segment_spmm_reference(x, t(src, torch.int64), t(dst, torch.int64),
-                                     t(w, torch.float32), n)
+        # the plain version on the CPU: on the card its index_add_ adds in no
+        # fixed order (atomics); on the CPU it adds in edge order, the
+        # kernel's CSR order, so the two agree bit for bit
+        ref = segment_spmm_reference(x.cpu(), torch.as_tensor(src), torch.as_tensor(dst),
+                                     torch.as_tensor(w), n).to("cuda")
         err = float((out - ref).abs().max())
         ok = bool(torch.allclose(out, ref, rtol=SPMM_RTOL, atol=SPMM_ATOL))
+        bitwise = bool(torch.equal(out, ref))
         empty = csr.row_ptr[1:] == csr.row_ptr[:-1]
-        log(f"[kernel] segment_spmm F={F}: n={n} E={e} empty_rows={int(empty.sum())} "
-            f"hub=10000 max_abs_err={err:.3e} allclose(rtol={SPMM_RTOL}, "
-            f"atol={SPMM_ATOL})={ok}")
-        check(ok, f"segment_spmm kernel disagrees with its plain version at F={F}")
+        log(f"[kernel] segment_spmm F={F} ({vector_width(x)}-float loads): n={n} E={e} "
+            f"empty_rows={int(empty.sum())} hub=10000 max_abs_err={err:.3e} "
+            f"allclose(rtol={SPMM_RTOL}, atol={SPMM_ATOL})={ok} bitwise={bitwise}")
+        check(ok and bitwise, f"segment_spmm kernel disagrees with its plain version "
+                              f"(CSR order, on the CPU) at F={F}")
         check(bool((out[empty] == 0).all()), "segment_spmm wrote nonzero empty rows")
         worst = max(worst, err)
     return worst
@@ -704,6 +765,11 @@ def full_size(torch, device):
         log(f"[full] iteration {i}: {swap}field {rep.field_seconds[i]:.4f} s "
             f"(kernel {kern_ms[i]:.3f} ms over {per_eval} launches), "
             f"ipt {ipt[i]:.0f}")
+        # the field's split: its vm_step launches on the device, and the
+        # rest of its wall time (host work, and device work outside vm_step)
+        log(f"[full] field split, evaluation {i}: vm_step {kern_ms[i]:.3f} ms, "
+            f"the rest {rep.field_seconds[i] * 1e3 - kern_ms[i]:.3f} ms "
+            f"({1 - kern_ms[i] / (rep.field_seconds[i] * 1e3):.4f} of the field)")
     if len(rep.swap_seconds) > rep.iterations:
         log(f"[full] final swap (no moves): {rep.swap_seconds[-1]:.3f} s")
     field_s, swap_s = sum(rep.field_seconds), sum(rep.swap_seconds)
@@ -738,6 +804,14 @@ def full_size(torch, device):
     log(f"[full] field twice on the final partition: bitwise equal; "
         f"cuda field == plain torch field on the card bitwise: {same}")
     check(same, "full-size cuda field differs from the plain field")
+    # one more evaluation under the profiler: where the field's time goes
+    prof = _profile_step(torch, lambda: extroversion_field(
+        g, arrays, final, 8, _precomputed=taper._pre, device=device), top=8)
+    busy = "none traced" if prof["busy_ms"] is None else f"{prof['busy_ms']:.3f} ms"
+    log(f"[full] one field evaluation under torch.profiler: wall {prof['wall_ms']:.3f} ms, "
+        f"device busy {busy} over {prof['device_ops']} device ops, "
+        f"{prof['host_ops']} top-level aten ops; by self host time: "
+        + "; ".join(f"{name} {ms:.3f} ms x{cnt}" for name, ms, cnt in prof["top"]))
 
     # the kernel at the main path's shapes: its last launch's arguments
     return dict(launches=launches, **_vm_at_path_shapes(torch, "full", timer.last_args))
@@ -748,7 +822,8 @@ def _vm_at_path_shapes(torch, path, args):
     the arguments of a path's last launch."""
     from repro_torch.kernels.vm_step.ops import vm_step
 
-    alpha, par, val, row_ptr, src, wt, row_label = args
+    alpha, par, val, csr, wt, row_label = args
+    row_ptr, src, plan = csr.row_ptr, csr.src, csr.plan
     n, N = alpha.shape
     L, E = par.shape[0], src.shape[0]
     ms = _time_ms(torch, lambda: vm_step(*args), 20)
@@ -759,16 +834,22 @@ def _vm_at_path_shapes(torch, path, args):
     check(bool(torch.allclose(out_k, out_p, rtol=RTOL, atol=ATOL)),
           f"{path}: vm_step kernel disagrees with its plain version")
     bound_ms, bound_by, bytes_moved, flops, nz = _vm_bound(args)
+    gathered = _vm_gather_sectors(torch, args)
+    # every input but alpha (gathered) read once, the output written once
+    other = bytes_moved - 4 * n * N
     deg = (row_ptr[1:] - row_ptr[:-1]).long()
     rows = torch.repeat_interleave(torch.arange(n, device=deg.device), deg)
     local_deg = torch.bincount(rows[wt != 0], minlength=n)
     log(f"[{path}] vm_step rows: longest row {int(deg.max())} edges "
         f"({int(local_deg.max())} local); mean {E / n:.2f} edges "
-        f"({nz / n:.2f} local); {ms * 1e6 / max(nz, 1):.3f} ns per local edge")
+        f"({nz / n:.2f} local); {ms * 1e6 / max(nz, 1):.3f} ns per local edge; "
+        f"{plan.runs.shape[0] - 1} runs, {plan.long_rows.shape[0]} rows on the "
+        f"long-row path")
     log(f"[{path}] vm_step at n={n} E={E} N={N} L={L} (local edges {nz}): kernel "
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
         f"{bound_by} ({bytes_moved} B, {flops} FLOP), max_abs_err {err:.3e} "
-        f"bitwise={bool(torch.equal(out_k, out_p))}")
+        f"bitwise={bool(torch.equal(out_k, out_p))}; "
+        f"{_yardstick_text(gathered, other, kernel=ms)}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 err=err)
 
@@ -852,12 +933,18 @@ def dlrm_serving(torch, device):
         ids_shape = (B * cfg.n_sparse, cfg.multi_hot)
         ms = [v for k, v in per_launch.items() if k[1] == ids_shape][0]
         med = sorted(range(len(lat)), key=lat.__getitem__)[len(lat) // 2]
+        # the bag kernel's bound on the last request's ids (as at serve_bulk below)
+        ids = last[name][0]["sparse"].reshape(-1, cfg.multi_hot)
+        nb, H = ids.shape
+        bound_ms, bound_by = _bound(4 * (nb * H + _unique_rows(torch, ids, V) * d + nb * d),
+                                    nb * H * d)
         log(f"[dlrm] {name} B={B}: request latency (upload, serve_step, read "
             f"back) ms {[round(x * 1e3, 3) for x in lat]}; median "
             f"{lat[med] * 1e3:.3f} ms = upload {split[name][med][0] * 1e3:.3f} + "
             f"serve_step {split[name][med][1] * 1e3:.3f} + read back "
             f"{split[name][med][2] * 1e3:.3f}; embedding_bag per launch ms "
-            f"{[round(x, 4) for x in ms]}")
+            f"{[round(x, 4) for x in ms]} (median {sorted(ms)[len(ms) // 2]:.4f}), "
+            f"bound {bound_ms:.4f} ms by {bound_by} on the last request's ids")
 
     # kernel forward against plain forward on the same batch
     def plain_bag(table, ids):
@@ -1037,7 +1124,7 @@ def gcn_inference(torch, device):
     from repro_torch.configs.registry import get_config
     from repro_torch.data.graphs import batch_to_device, random_graph_batch
     from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
-    from repro_torch.kernels.segment_spmm.ops import segment_spmm_csr
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_csr, vector_width
     from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
     from repro_torch.models.gnn import api
 
@@ -1105,7 +1192,8 @@ def gcn_inference(torch, device):
         F = x.shape[1]
         # the kernel alone, and through the wrapper (host-side checks only:
         # the CSR was checked once, when it was built)
-        ms = _time_ms(torch, lambda: segment_spmm_cuda(x, row_ptr, src, w), 10)
+        vec = vector_width(x)
+        ms = _time_ms(torch, lambda: segment_spmm_cuda(x, row_ptr, src, w, vec), 10)
         wrapper_ms = _time_ms(torch, lambda: segment_spmm_csr(x, csr, w), 10)
         plain_ms = _time_ms(torch, lambda: segment_spmm_csr_reference(x, row_ptr, src, w), 2)
         with warnings.catch_warnings():             # "beta state" notices
@@ -1121,12 +1209,16 @@ def gcn_inference(torch, device):
         bytes_moved = 4 * ((n + 1) + 2 * E + srcs * F + n * F)
         flops = 2 * nnz * F
         bound_ms, bound_by = _bound(bytes_moved, flops)
+        start = x.data_ptr() % 32 + src[live].long() * (4 * F)
+        gathered = int(((start + 4 * F - 1) // 32 - start // 32 + 1).sum()) * 32
+        other = bytes_moved - 4 * srcs * F
         log(f"[gcn] segment_spmm at F={F} (n={n}, E={E}, nonzero weights {nnz}, "
             f"distinct sources {srcs}): kernel {ms:.4f} ms (through the wrapper "
             f"{wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms "
             f"(max diff {p_err:.3e}), torch.sparse.mm {library_ms:.4f} ms (max diff "
             f"{lib_err:.3e}), bound {bound_ms:.4f} ms by {bound_by} ({bytes_moved} B, "
-            f"{flops} FLOP)")
+            f"{flops} FLOP), {vec}-float loads; "
+            f"{_yardstick_text(gathered, other, kernel=ms, torch_sparse_mm=library_ms)}")
         check(p_err <= SPMM_ATOL + SPMM_RTOL * float(k_out.abs().max()),
               f"segment_spmm disagrees with its plain version at F={F}")
         del A, k_out
@@ -1237,12 +1329,13 @@ def _attn_at_path_shape(torch, args, reps, time_f32=False):
                 library_ms=library_ms, err=err, err32=err32, f32=f32)
 
 
-def _profile_step(torch, fn):
+def _profile_step(torch, fn, top=0):
     """One call of ``fn`` under ``torch.profiler``: its wall time there
     (host clock, synchronised), the device's busy time (the union of the
     intervals of its kernels, copies and fills), the count of those device
     operations, and of the top-level aten ops the host issued.  The busy
-    time is None when the trace holds no device event."""
+    time is None when the trace holds no device event.  With ``top``, also
+    the ``top`` ops by self host time: (name, ms, calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1262,8 +1355,10 @@ def _profile_step(torch, fn):
             end = b
     host_ops = sum(1 for e in events if e.device_type == DeviceType.CPU
                    and e.cpu_parent is None and e.name.startswith("aten::"))
+    by_self = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:top]
     return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3 if spans else None,
-                device_ops=len(spans), host_ops=host_ops)
+                device_ops=len(spans), host_ops=host_ops,
+                top=[(a.key, a.self_cpu_time_total / 1e3, a.count) for a in by_self])
 
 
 def qwen3_serving(torch, device):

@@ -157,14 +157,13 @@ def _device_inputs(g: LabelledGraph, pre: Dict, cnt, lab_vcount,
         "inv_cnt": 1.0 / torch.clamp_min(put(cnt, torch.float32), 1.0),
         "lab_vcount": put(lab_vcount, torch.int64),
         "out_deg": put(np.diff(g.row_ptr), torch.int64),
-        "csr_row_ptr": put(csr.row_ptr, torch.int32),
-        "csr_src": put(csr.src, torch.int32),
-        "csr_order": put(csr.order, torch.int64),
+        # checked and row-planned once per graph, when the graph made it
+        "csr": csr.to(device),
         "in_deg": put(np.diff(csr.row_ptr), torch.int64),
     }
     dev["dst_lab"] = dev["labels"][dev["dst"]]
     # per CSR slot: 1 / cnt[src, label(dst)], gathered from the same table
-    dev["csr_inv_cnt"] = dev["inv_cnt"][dev["src"], dev["dst_lab"]][dev["csr_order"]]
+    dev["csr_inv_cnt"] = dev["inv_cnt"][dev["src"], dev["dst_lab"]][dev["csr"].order]
     pre["_dev"] = dev
     pre["_dev_key"] = key
     return dev
@@ -251,7 +250,7 @@ def _field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray, k: int,
             pre["_T_dev"] = t_hit
         par, val = t_hit[1]
         # local-edge weights in CSR order (local is 0/1, so exact)
-        w = dev["csr_inv_cnt"] * local[dev["csr_order"]]
+        w = dev["csr_inv_cnt"] * local[dev["csr"].order]
         beta = alpha
 
     mass = torch.zeros(m, dtype=torch.float32, device=device)
@@ -263,11 +262,10 @@ def _field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray, k: int,
         mass = mass + _row_sum(contrib)
         if backend == "cuda":
             # the DP itself advances over local edges only — vm_step kernel
-            beta = vm_step(beta, par, val, dev["csr_row_ptr"], dev["csr_src"],
-                           w, dev["labels_i32"])
+            beta = vm_step(beta, par, val, dev["csr"], w, dev["labels_i32"])
             alpha = alpha + beta
         else:
-            upd = _segment_sum((contrib * local[:, None])[dev["csr_order"]],
+            upd = _segment_sum((contrib * local[:, None])[dev["csr"].order],
                                dev["in_deg"])
             cols = torch.as_tensor(np.asarray(nodes_d, np.int64), device=device)
             alpha[:, cols] += upd

@@ -12,11 +12,12 @@ The padded blocks served the TPU kernel's sequential grid.  The CUDA
 kernels (``segment_spmm`` here, ``vm_step``) read the destination-sorted
 CSR (:class:`EdgeCSR`) instead: the packing's real slots, in packed order,
 or the same stable destination sort done on the device
-(:func:`csr_from_edges`).  Each destination row is owned by one warp and
-summed in CSR order — no atomics, bitwise repeatable.
+(:func:`csr_from_edges`).  Each destination row is owned by one group of
+lanes and summed in CSR order — no atomics, bitwise repeatable.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Union
 
@@ -96,6 +97,54 @@ def packed_dst(packed: PackedEdges) -> np.ndarray:
 
 Array = Union[np.ndarray, torch.Tensor]
 
+#: rows with more edges than this go to the ``vm_step`` kernel's long-row
+#: path: one block per (row, 32-column block) gathers their messages in
+#: parallel
+LONG_ROW_EDGES = 256
+#: every other row goes to a warp's run: at most RUN_ROWS consecutive rows,
+#: cut where the count of edges before a row crosses a multiple of
+#: RUN_EDGES, so no warp walks much more than RUN_EDGES + LONG_ROW_EDGES
+#: edges (a skewed graph's early rows would otherwise fall to a few warps)
+RUN_ROWS = 32
+RUN_EDGES = 256
+
+
+@dataclass(frozen=True)
+class RowPlan:
+    """How the ``vm_step`` kernel splits a CSR's rows.  ``runs`` (int32,
+    ascending from 0 to n) cuts the rows into runs, each walked by one warp
+    as one edge stream; a run that is one long row (more than
+    ``LONG_ROW_EDGES`` edges) starts at ``~row`` instead of ``row``, and the
+    warps skip it.  ``long_rows`` (int32, longest first, so the longest
+    start first) lists those rows, each summed by a block per (row, column
+    block).  So every row is summed by exactly one path."""
+
+    runs: Array
+    long_rows: Array
+
+    def to(self, device) -> "RowPlan":
+        """The plan as int32 tensors on ``device``."""
+        return RowPlan(*(torch.as_tensor(a, device=device).to(torch.int32)
+                         for a in (self.runs, self.long_rows)))
+
+
+def row_plan(row_ptr: np.ndarray) -> RowPlan:
+    """The :class:`RowPlan` of a CSR's offsets (numpy in, numpy out): a run
+    starts at every ``RUN_ROWS``-th row, at every row whose first edge lies
+    in another ``RUN_EDGES`` bucket than its predecessor's, and at each long
+    row and the row after it, so a long row is a run of its own."""
+    rp = np.asarray(row_ptr, np.int64)
+    starts, deg = rp[:-1], np.diff(rp)
+    long_ids = np.nonzero(deg > LONG_ROW_EDGES)[0]
+    cut = np.arange(starts.shape[0]) % RUN_ROWS == 0
+    cut[1:] |= starts[1:] // RUN_EDGES != starts[:-1] // RUN_EDGES
+    cut[long_ids] = True
+    cut[long_ids[long_ids + 1 < cut.shape[0]] + 1] = True
+    runs = np.append(np.nonzero(cut)[0], starts.shape[0])
+    runs[np.searchsorted(runs, long_ids)] = ~long_ids     # the warps skip these
+    return RowPlan(runs.astype(np.int32),
+                   long_ids[np.argsort(-deg[long_ids], kind="stable")].astype(np.int32))
+
 
 @dataclass(frozen=True)
 class EdgeCSR:
@@ -103,33 +152,52 @@ class EdgeCSR:
     from a packing, tensors when built on the device.  Within a row, edges
     keep their order in the edge list.
 
-    Checked once, when made: ``row_ptr`` lies in ``[0, len(src)]`` and ends
-    at ``len(src)``, source ids are ``>= 0``; ``src_bound`` is one past the
-    largest source id.  So the kernels that read it need not check it again
-    (a check on the device costs a synchronisation per launch)."""
+    Checked once, when made: ``row_ptr`` is nondecreasing from ``>= 0`` to
+    ``len(src)``, source ids are ``>= 0``; ``src_bound`` is one past the
+    largest source id, and ``plan`` the :class:`RowPlan` of ``row_ptr``, on
+    its device.  So the kernels that read it need not check or plan it
+    again (a check on the device costs a synchronisation per launch), and
+    no plan can be paired with another CSR."""
 
     row_ptr: Array   # (n+1,) int32 offsets per destination row
     src: Array       # (E,) int32 source id per CSR slot
     order: Array     # (E,) int64 edge-list index per CSR slot
     src_bound: int = field(init=False)
+    plan: RowPlan = field(init=False)
 
     def __post_init__(self):
         E = self.src.shape[0]
         if self.row_ptr.shape[0] < 1:
             raise ValueError("EdgeCSR: row_ptr needs n_rows + 1 >= 1 entries")
-        stats = [self.row_ptr.min(), self.row_ptr.max(), self.row_ptr[-1]]
-        if E:
-            stats += [self.src.min(), self.src.max()]
-        if isinstance(self.row_ptr, torch.Tensor):
-            # one synchronisation for all five
-            stats = torch.stack([torch.as_tensor(v, device=self.row_ptr.device)
-                                 .long() for v in stats]).tolist()
-        lo, hi, last, *src_range = (int(v) for v in stats)
-        smin, smax = src_range or (0, -1)
-        if lo < 0 or hi > E or last != E or smin < 0:
-            raise ValueError("EdgeCSR: row_ptr must lie in [0, len(src)] and "
-                             "end at len(src), and source ids must be >= 0")
+        src_range = [self.src.min(), self.src.max()] if E else []
+        on_device = isinstance(self.row_ptr, torch.Tensor)
+        if on_device:
+            # one synchronisation: row_ptr and the source range to the host
+            n1 = self.row_ptr.shape[0]
+            host = torch.cat([self.row_ptr.long()] + [v.long()[None] for v in src_range]
+                             ).cpu().numpy()
+            rp, src_range = host[:n1], host[n1:]
+        else:
+            rp = np.asarray(self.row_ptr, np.int64)
+        smin, smax = (int(v) for v in src_range) if E else (0, -1)
+        if rp[0] < 0 or rp[-1] != E or np.any(np.diff(rp) < 0) or smin < 0:
+            raise ValueError("EdgeCSR: row_ptr must lie in [0, len(src)], be "
+                             "nondecreasing and end at len(src), and source ids "
+                             "must be >= 0")
+        plan = row_plan(rp)
         object.__setattr__(self, "src_bound", smax + 1)
+        object.__setattr__(self, "plan", plan.to(self.row_ptr.device) if on_device else plan)
+
+    def to(self, device) -> "EdgeCSR":
+        """The CSR as tensors on ``device`` (int32 offsets and sources,
+        int64 order), with its checks and plan carried over, not redone."""
+        moved = copy.copy(self)
+        for name, dtype in (("row_ptr", torch.int32), ("src", torch.int32),
+                            ("order", torch.int64)):
+            object.__setattr__(moved, name, torch.as_tensor(
+                getattr(self, name), device=device).to(dtype))
+        object.__setattr__(moved, "plan", self.plan.to(device))
+        return moved
 
 
 def csr_from_packing(packed: PackedEdges, dst_global: np.ndarray,
@@ -181,6 +249,13 @@ def _check(x, csr, w) -> None:
                          f"indexes past x's {x.shape[0]} rows")
 
 
+def vector_width(x: torch.Tensor) -> int:
+    """Floats per load of ``x``'s rows in the kernel: 4 (16-byte ``float4``
+    loads) when every row starts on a 16-byte boundary — ``F`` a multiple
+    of 4 and ``x`` itself 16-byte aligned — else 1 (scalar loads)."""
+    return 4 if x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+
+
 def segment_spmm_csr(x: torch.Tensor, csr: EdgeCSR,
                      w: torch.Tensor) -> torch.Tensor:
     """``out[v] = sum over CSR row v of w_e * x[src_e]``, ``(n_rows, F)``.
@@ -197,7 +272,7 @@ def segment_spmm_csr(x: torch.Tensor, csr: EdgeCSR,
         raise ValueError(f"segment_spmm: no kernel for device {x.device}")
     from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
 
-    out = segment_spmm_cuda(x, csr.row_ptr, csr.src, w)
+    out = segment_spmm_cuda(x, csr.row_ptr, csr.src, w, vector_width(x))
     segment_spmm_csr.launches += 1
     return out
 
@@ -216,8 +291,6 @@ def segment_spmm(x: torch.Tensor, packed: PackedEdges, edge_w: torch.Tensor,
     dst = packed_dst(packed)
     if dst.size and dst[packed.pad_mask].max(initial=0) >= n_out:
         raise ValueError("segment_spmm: an edge points past n_out")
-    csr = csr_from_packing(packed, dst, n_out)
-    on_x = EdgeCSR(*(torch.as_tensor(a, device=x.device)
-                     for a in (csr.row_ptr, csr.src, csr.order)))
+    on_x = csr_from_packing(packed, dst, n_out).to(x.device)
     real = torch.from_numpy(packed.pad_mask).to(edge_w.device)
     return segment_spmm_csr(x, on_x, edge_w[real].contiguous())

@@ -4,8 +4,10 @@
 the CUDA kernel reads the dst-sorted CSR
 (:class:`repro_torch.kernels.segment_spmm.ops.EdgeCSR`) derived from that
 packing's stable destination sort, so each destination row's output is
-written by one warp, summed in a fixed order — no atomics, bitwise
-repeatable.
+written by one lane per column, summed in a fixed order — no atomics,
+bitwise repeatable.  How the kernel splits the rows among its warps and
+blocks is the CSR's ``RowPlan``, made once with the CSR, so a launch
+needs no synchronisation.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 # the dst-sorted CSR serves both CUDA kernels; it lives with the packer
 # (re-exported here, its import path before segment_spmm was ported)
 from repro_torch.kernels.segment_spmm.ops import (  # noqa: F401
-    csr_from_packing, pack_edges)
+    EdgeCSR, csr_from_packing, pack_edges)
 from repro_torch.kernels.vm_step.ref import vm_step_reference
 
 
@@ -36,22 +38,24 @@ def pack_vm_inputs(edge_src, edge_dst, labels, cnt, n: int,
     return packed, dst_label, inv_cnt
 
 
-def _check(alpha, par, val, row_ptr, src, w, row_label) -> None:
+def _check(alpha, par, val, csr, w, row_label) -> None:
     dev = alpha.device
-    named = dict(alpha=alpha, par=par, val=val, row_ptr=row_ptr, src=src, w=w,
-                 row_label=row_label)
-    for name, t in named.items():
+    named = (("alpha", alpha, torch.float32, 2),
+             ("par", par, torch.int32, 2),
+             ("val", val, torch.float32, 2),
+             ("row_ptr", csr.row_ptr, torch.int32, 1),
+             ("src", csr.src, torch.int32, 1),
+             ("w", w, torch.float32, 1),
+             ("row_label", row_label, torch.int32, 1),
+             ("runs", csr.plan.runs, torch.int32, 1),
+             ("long_rows", csr.plan.long_rows, torch.int32, 1))
+    for name, t, dt, ndim in named:
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"vm_step: {name} must be a tensor")
         if t.device != dev:
             raise ValueError(f"vm_step: {name} is on {t.device}, alpha on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"vm_step: {name} must be contiguous")
-    for name, t, dt, ndim in (("alpha", alpha, torch.float32, 2),
-                              ("par", par, torch.int32, 2),
-                              ("val", val, torch.float32, 2),
-                              ("row_ptr", row_ptr, torch.int32, 1),
-                              ("src", src, torch.int32, 1),
-                              ("w", w, torch.float32, 1),
-                              ("row_label", row_label, torch.int32, 1)):
         if t.dtype != dt or t.dim() != ndim:
             raise ValueError(f"vm_step: {name} must be {ndim}-D {dt}, "
                              f"got {t.dim()}-D {t.dtype}")
@@ -59,37 +63,44 @@ def _check(alpha, par, val, row_ptr, src, w, row_label) -> None:
     if par.shape != val.shape or par.shape[1] != N:
         raise ValueError(f"vm_step: par {tuple(par.shape)} and val "
                          f"{tuple(val.shape)} must be (L, N), alpha has N={N}")
-    if row_ptr.shape[0] != n + 1 or row_label.shape[0] != n:
+    if csr.row_ptr.shape[0] != n + 1 or row_label.shape[0] != n:
         raise ValueError("vm_step: row_ptr must be (n+1,) and row_label (n,)")
-    if src.shape != w.shape:
+    if csr.src.shape != w.shape:
         raise ValueError("vm_step: src and w must have one entry per edge")
+    if csr.src_bound > n:
+        raise ValueError(f"vm_step: source id {csr.src_bound - 1} indexes past "
+                         f"alpha's {n} rows")
 
 
 def vm_step(alpha: torch.Tensor, par: torch.Tensor, val: torch.Tensor,
-            row_ptr: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
-            row_label: torch.Tensor) -> torch.Tensor:
+            csr: EdgeCSR, w: torch.Tensor, row_label: torch.Tensor) -> torch.Tensor:
     """``out[v] = sum over CSR row v of (alpha[src_e] @ T[row_label[v]]) * w_e``.
 
     ``par``/``val`` are the trie transition ``T`` in its column form
-    (:func:`repro_torch.kernels.vm_step.ref.transition_columns`),
-    ``row_ptr``/``src`` a destination-sorted CSR (``EdgeCSR``), ``w`` the
-    per-edge weight (``inv_cnt`` times the local-edge mask) and
-    ``row_label`` each destination's vertex label.  CUDA tensors go to the
-    hand-written kernel (``csrc/vm_step.cu``); CPU tensors to the plain
-    version.  Labels must lie in ``[0, L)`` and ``par`` in ``[0, N)``.
+    (:func:`repro_torch.kernels.vm_step.ref.transition_columns`), ``csr``
+    a destination-sorted CSR of tensors (checked and planned when it was
+    made, so a launch does not synchronise), ``w`` the per-edge weight
+    (``inv_cnt`` times the local-edge mask) and ``row_label`` each
+    destination's vertex label.  CUDA tensors go to the hand-written kernel
+    (``csrc/vm_step.cu``), which splits the rows by ``csr.plan``; CPU
+    tensors to the plain version.  Labels must lie in ``[0, L)`` and
+    ``par`` in ``[0, N)``.
     """
-    _check(alpha, par, val, row_ptr, src, w, row_label)
+    _check(alpha, par, val, csr, w, row_label)
     n = alpha.shape[0]
     if alpha.device.type == "cpu":
         dst = torch.repeat_interleave(
-            torch.arange(n), (row_ptr[1:] - row_ptr[:-1]).long())
-        return vm_step_reference(alpha, par, val, src, dst, w,
+            torch.arange(n), (csr.row_ptr[1:] - csr.row_ptr[:-1]).long())
+        return vm_step_reference(alpha, par, val, csr.src, dst, w,
                                  row_label[dst], n)
     if alpha.device.type != "cuda":
         raise ValueError(f"vm_step: no kernel for device {alpha.device}")
+    if alpha.numel() >= 2**31 - 1:
+        raise ValueError("vm_step: the kernel indexes alpha with int32 offsets")
     from repro_torch.kernels.vm_step.kernel import vm_step_cuda
 
-    out = vm_step_cuda(alpha, par, val, row_ptr, src, w, row_label)
+    out = vm_step_cuda(alpha, par, val, csr.row_ptr, csr.src, w, row_label,
+                       csr.plan.runs, csr.plan.long_rows)
     vm_step.launches += 1
     return out
 

@@ -15,6 +15,7 @@ from repro_torch.core.tpstry import TPSTry
 from repro_torch.core.visitor import extroversion_field
 from repro_torch.graphs.generators import provgen_like
 from repro_torch.graphs.partition import hash_partition
+from repro_torch.kernels.segment_spmm.ops import EdgeCSR
 from repro_torch.kernels.vm_step.ops import vm_step
 
 pytestmark = pytest.mark.cuda
@@ -37,8 +38,8 @@ def _trie_columns(workload, label_names):
 
 
 def _vm_step_args(rng, par, val, n, e, hub=0):
-    """Seeded dst-sorted CSR inputs (random alpha, 40% cut edges); ``hub``
-    edges point at row 17."""
+    """Seeded dst-sorted CSR inputs (random alpha, 40% cut edges) on the
+    CPU, each with a ``.to(device)``; ``hub`` edges point at row 17."""
     L, N = par.shape
     dst = rng.integers(0, n, e)
     dst[:hub] = 17
@@ -49,8 +50,9 @@ def _vm_step_args(rng, par, val, n, e, hub=0):
     w[rng.random(e) < 0.4] = 0.0                          # cut edges
     return [torch.as_tensor(rng.random((n, N)), dtype=torch.float32),
             torch.as_tensor(par), torch.as_tensor(val),
-            torch.as_tensor(row_ptr, dtype=torch.int32),
-            torch.as_tensor(rng.integers(0, n, e), dtype=torch.int32),
+            EdgeCSR(torch.as_tensor(row_ptr, dtype=torch.int32),
+                    torch.as_tensor(rng.integers(0, n, e), dtype=torch.int32),
+                    torch.arange(e)),
             torch.as_tensor(w),
             torch.as_tensor(rng.integers(0, L, n), dtype=torch.int32)]
 
@@ -106,8 +108,7 @@ def test_embedding_bag_kernel_matches_plain(card, d, H):
 
 @pytest.mark.parametrize("F", [8, 16, 100])
 def test_segment_spmm_kernel_matches_plain(card, F):
-    from repro_torch.kernels.segment_spmm.ops import (EdgeCSR, csr_from_edges,
-                                                      segment_spmm_csr)
+    from repro_torch.kernels.segment_spmm.ops import csr_from_edges, segment_spmm_csr
     from repro_torch.kernels.segment_spmm.ref import segment_spmm_reference
 
     rng = np.random.default_rng(F)
@@ -125,9 +126,12 @@ def test_segment_spmm_kernel_matches_plain(card, F):
     out = segment_spmm_csr(x, csr, wc)
     torch.cuda.synchronize()
     assert segment_spmm_csr.launches == before + 1
-    ref = segment_spmm_reference(x, t(src, torch.int64), t(dst, torch.int64),
-                                 t(w, torch.float32), n)
-    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    # the plain version over the raw edge list, on the CPU: on the card its
+    # index_add_ adds in no fixed order (atomics), and on the 10,000-edge hub
+    # row two of its own runs differ by up to 4.7e-4
+    ref = segment_spmm_reference(x.cpu(), torch.as_tensor(src), torch.as_tensor(dst),
+                                 torch.as_tensor(w), n)
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
     assert bool((out[n // 2:] == 0).all())
     # CSR order on both sides: the kernel sums as the CPU plain version does
     cpu_csr = EdgeCSR(csr.row_ptr.cpu(), csr.src.cpu(), csr.order.cpu())
@@ -299,3 +303,118 @@ def test_transformer_forward_and_decode_on_the_card(card):
             want, want_cache = tf.decode_step(params, want_cache, nxt, cfg)
             torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
             nxt = want.argmax(-1)
+
+
+#: rows of these edge counts sit among short random rows in the bitwise
+#: cases: empty, single, around one 32-edge batch, past the long-row
+#: threshold (256) and a hub
+ROW_LENGTHS = [0, 1, 31, 32, 33, 255, 256, 257, 300, 10_000]
+
+
+def _csr_of_lengths(rng, n):
+    """A CSR of n rows with ROW_LENGTHS at random places, other rows 0-11
+    edges; sources uniform over the n rows."""
+    deg = rng.integers(0, 12, n)
+    deg[rng.random(n) < 0.15] = 0
+    deg[rng.choice(n, len(ROW_LENGTHS), replace=False)] = ROW_LENGTHS
+    row_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=row_ptr[1:])
+    src = rng.integers(0, n, int(row_ptr[-1]))
+    return (torch.as_tensor(row_ptr, dtype=torch.int32),
+            torch.as_tensor(src, dtype=torch.int32), deg)
+
+
+@pytest.mark.parametrize("F", [1, 3, 4, 16, 17, 100, 128, 130])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_segment_spmm_kernel_bitwise_vs_cpu(card, F, offset):
+    """Every lane layout (float4 and scalar loads, 1 to 32 lanes a row, one
+    and several passes over a row's columns), on x at a 16-byte boundary
+    and one float past it: the kernel's sums are the CPU plain version's,
+    bit for bit."""
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_csr, vector_width
+
+    rng = np.random.default_rng(1000 + F)
+    n = 3000
+    row_ptr, src, deg = _csr_of_lengths(rng, n)
+    E = src.shape[0]
+    w = torch.as_tensor(rng.normal(size=E), dtype=torch.float32)
+    w[torch.as_tensor(rng.random(E) < 0.2)] = 0.0          # masked edges
+    xs = torch.as_tensor(rng.normal(size=(n, F)), dtype=torch.float32)
+    buf = torch.zeros(n * F + 4, device=card)
+    x = buf[offset:offset + n * F].view(n, F)
+    x.copy_(xs)
+    assert vector_width(x) == (4 if F % 4 == 0 and offset == 0 else 1)
+    csr = EdgeCSR(row_ptr.to(card), src.to(card), torch.arange(E, device=card))
+    before = segment_spmm_csr.launches
+    out = segment_spmm_csr(x, csr, w.to(card))
+    torch.cuda.synchronize()
+    assert segment_spmm_csr.launches == before + 1
+    cpu = segment_spmm_csr(xs, EdgeCSR(row_ptr, src, torch.arange(E)), w)
+    assert torch.equal(out.cpu(), cpu)
+    assert bool((out.cpu()[torch.as_tensor(deg == 0)] == 0).all())
+
+
+@pytest.mark.parametrize("workload", ["provgen", "placement"])
+def test_vm_step_long_rows_bitwise_vs_cpu(card, workload):
+    """Rows on both sides of the long-row threshold and a 10,000-edge hub,
+    under the provgen trie (N = 23, its columns in shared memory) and the
+    row placement's (N = 677, 22 column blocks): the kernel's sums, split by
+    the CSR's row plan, are the CPU plain version's, bit for bit, launch
+    after launch."""
+    from repro_torch.core.rpq import concat, label
+    from repro_torch.kernels.segment_spmm.ops import LONG_ROW_EDGES
+
+    if workload == "provgen":
+        queries = ["Entity.(Entity)*.Entity",
+                   "Agent.Activity.Entity.Entity.Activity.Agent",
+                   "(Entity)*.Activity.Entity", "Entity.Activity.(Agent)*"]
+        par, val = _trie_columns([(parse_rpq(q), f) for q, f in
+                                  zip(queries, (0.4, 0.2, 0.2, 0.2))],
+                                 ["Entity", "Activity", "Agent"])
+    else:
+        par, val = _trie_columns([(concat(label(f"F{i}"), label(f"F{j}")), 1.0 / 650)
+                                  for i in range(26) for j in range(26) if i != j],
+                                 [f"F{f}" for f in range(26)])
+    assert par.shape[1] == {"provgen": 23, "placement": 677}[workload]
+    rng = np.random.default_rng(7)
+    n = 4000
+    row_ptr, src, deg = _csr_of_lengths(rng, n)
+    assert (deg > LONG_ROW_EDGES).sum() == 3
+    E = src.shape[0]
+    w = torch.as_tensor(rng.random(E), dtype=torch.float32)
+    w[torch.as_tensor(rng.random(E) < 0.4)] = 0.0          # cut edges
+    args = [torch.as_tensor(rng.random((n, par.shape[1])), dtype=torch.float32),
+            torch.as_tensor(par), torch.as_tensor(val),
+            EdgeCSR(row_ptr, src, torch.arange(E)), w,
+            torch.as_tensor(rng.integers(0, par.shape[0], n), dtype=torch.int32)]
+    assert args[3].plan.long_rows.shape[0] == 3
+    want = vm_step(*args)
+    on_card = [a.to(card) for a in args]
+    before = vm_step.launches
+    for _ in range(3):
+        got = vm_step(*on_card)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+    assert vm_step.launches == before + 3
+
+
+def test_vm_step_reads_alpha_the_kernel_before_it_wrote(card):
+    """Without long rows the short-row kernel is an ordinary launch: each
+    step reads the alpha that the kernel just before it on the stream wrote
+    (no synchronisation between them), bit for bit as the CPU does."""
+    par, val = _trie_columns(
+        [(parse_rpq(q), f) for q, f in (("Entity.(Entity)*.Entity", 0.4),
+                                        ("Entity.Activity.(Agent)*", 0.6))],
+        ["Entity", "Activity", "Agent"])
+    args = _vm_step_args(np.random.default_rng(11), par, val, 200_000, 1_100_000)
+    assert args[3].plan.long_rows.shape[0] == 0
+    base, scales = args[0], [float(2 ** k) for k in range(-4, 4)]
+    on_card = [a.to(card) for a in args]
+    alpha = torch.empty_like(on_card[0])
+    got = []
+    for s in scales:
+        torch.mul(on_card[0], s, out=alpha)               # writes alpha just before
+        got.append(vm_step(alpha, *on_card[1:]))
+    torch.cuda.synchronize()
+    for s, out in zip(scales, got):
+        assert torch.equal(out.cpu(), vm_step(base * s, *args[1:]))

@@ -19,7 +19,7 @@ from repro_torch.kernels.segment_spmm.ops import (EdgeCSR, csr_from_edges,
                                                   csr_from_packing, pack_edges,
                                                   pack_weights, packed_dst,
                                                   segment_spmm,
-                                                  segment_spmm_csr)
+                                                  segment_spmm_csr, vector_width)
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_reference
 
 # the JAX sweep's ranges (tests/test_kernels.py): n 5-400, e 1-1500,
@@ -144,3 +144,26 @@ def test_segment_spmm_rejects_edges_past_n_out():
     with pytest.raises(ValueError, match="n_out"):
         segment_spmm(torch.from_numpy(x), packed,
                      torch.from_numpy(pack_weights(packed, w)), int(dst.max()))
+
+
+@pytest.mark.parametrize("F", [1, 3, 4, 16, 17, 100, 128, 130])
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_vector_width_needs_whole_float4_rows(F, offset):
+    """The kernel's float4 loads need every x row on a 16-byte boundary:
+    F a multiple of 4 and x itself 16-byte aligned.  A view that starts one
+    float into its buffer takes scalar loads; one that starts four floats
+    in is aligned again."""
+    n = 5
+    buf = torch.zeros(n * F + 8)
+    assert buf.data_ptr() % 16 == 0
+    x = buf[offset:offset + n * F].view(n, F)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset % 4 == 0)
+    assert vector_width(x) == (4 if F % 4 == 0 and offset % 4 == 0 else 1)
+    # the plain version (the CPU path) reads any such view alike
+    x.copy_(torch.arange(n * F, dtype=torch.float32).reshape(n, F))
+    csr = EdgeCSR(torch.tensor([0, 2, 2, 3, 3, 3], dtype=torch.int32),
+                  torch.tensor([4, 1, 0], dtype=torch.int32), torch.arange(3))
+    w = torch.tensor([0.5, 2.0, 0.0])
+    want = torch.zeros(n, F)
+    want[0] = 0.5 * x[4] + 2.0 * x[1]
+    assert torch.equal(segment_spmm_csr(x, csr, w), want)

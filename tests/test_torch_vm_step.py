@@ -19,6 +19,8 @@ from repro.kernels.vm_step.ref import vm_step_reference as r_vm_step_reference
 
 from repro_torch.convert import from_reference_arrays
 from repro_torch.core.visitor import extroversion_field
+from repro_torch.kernels.segment_spmm.ops import (LONG_ROW_EDGES, RUN_EDGES,
+                                                  RUN_ROWS, EdgeCSR, row_plan)
 from repro_torch.kernels.vm_step.ops import (csr_from_packing, pack_vm_inputs,
                                              vm_step)
 from repro_torch.kernels.vm_step.ref import transition_columns
@@ -35,8 +37,7 @@ def _csr_inputs(src, dst, labels, cnt, n, block_n=64, block_e=128):
     dst_global = (np.repeat(packed.meta[:, 0], block_e) * block_n
                   + packed.dst_local)
     csr = csr_from_packing(packed, dst_global, n)
-    return (torch.from_numpy(csr.row_ptr), torch.from_numpy(csr.src),
-            torch.from_numpy(inv_cnt[packed.pad_mask]),
+    return (csr.to("cpu"), torch.from_numpy(inv_cnt[packed.pad_mask]),
             torch.from_numpy(np.asarray(labels, np.int32)))
 
 
@@ -101,6 +102,14 @@ def test_vm_step_matches_visitor_dp(paper_graph, paper_trie, paper_partition):
     np.testing.assert_allclose(out[:, d2], ref.alpha[:, d2], rtol=1e-5, atol=1e-6)
 
 
+def _vm(args):
+    """``vm_step`` on ``_small_args``' layout: the CSR made of its row_ptr
+    and src."""
+    alpha, par, val, row_ptr, src, w, row_label = args
+    csr = EdgeCSR(row_ptr, src, torch.arange(src.shape[0]))
+    return vm_step(alpha, par, val, csr, w, row_label)
+
+
 def _small_args():
     alpha = torch.rand(4, 3)
     par = torch.tensor([[0, 0, 1], [0, 0, 0]], dtype=torch.int32)
@@ -115,7 +124,7 @@ def _small_args():
 def test_vm_step_plain_on_cpu_counts_no_launch():
     before = vm_step.launches
     args = _small_args()
-    out = vm_step(*args)
+    out = _vm(args)
     alpha, par, val = args[:3]
     T = torch.zeros(2, 3, 3).scatter_(1, par.long()[:, None, :], val[:, None, :])
     want = torch.zeros(4, 3)
@@ -139,7 +148,7 @@ def test_vm_step_rejects_bad_arguments(bad):
     i, value = bad
     args[i] = value
     with pytest.raises(ValueError):
-        vm_step(*args)
+        _vm(args)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
@@ -168,3 +177,123 @@ def test_transition_columns_rebuild_the_trie_transition(n_labels, depth, branch)
     assert par.dtype == torch.int32 and par.shape == val.shape == T.shape[::2]
     back = torch.zeros_like(T).scatter_(1, par.long()[:, None, :], val[:, None, :])
     assert torch.equal(back, T)
+
+
+def _row_ptr(deg):
+    row_ptr = np.zeros(len(deg) + 1, np.int32)
+    np.cumsum(deg, out=row_ptr[1:])
+    return row_ptr
+
+
+def _csr_of(deg, seed=0):
+    row_ptr = _row_ptr(np.asarray(deg, np.int64))
+    E = int(row_ptr[-1])
+    src = np.random.default_rng(seed).integers(0, max(len(deg), 1), E).astype(np.int32)
+    return EdgeCSR(row_ptr, src, np.arange(E))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_row_plan_sums_every_row_once(seed):
+    """The kernel's two paths split the rows: the long-row list (every row
+    above LONG_ROW_EDGES, longest first, int32, each a run of its own,
+    marked ~row in the runs) and the runs, which cover every row once, in
+    order, at most RUN_ROWS rows each, and hold at most RUN_EDGES +
+    LONG_ROW_EDGES edges of rows they sum; the CSR made of tensors carries
+    the plan of the one made of numpy arrays."""
+    rng = np.random.default_rng(seed)
+    n = 2000
+    deg = rng.integers(0, 8, n)
+    deg[rng.random(n) < 0.2] = 0
+    deg[:40] = rng.integers(100, 400, 40)                 # a skewed graph's early rows
+    lengths = [0, 1, 31, 32, 33, 255, 256, 257, 300, 10_000]
+    at = rng.choice(np.arange(40, n), len(lengths), replace=False)
+    deg[at] = lengths
+    if seed % 2:
+        deg[-1] = 300                                     # a long last row
+    csr = _csr_of(deg, seed)
+    plan = csr.plan
+    ids = plan.long_rows
+    assert ids.dtype == np.int32 and np.all(np.diff(deg[ids]) <= 0)   # longest first
+    assert np.array_equal(np.sort(ids), np.nonzero(deg > LONG_ROW_EDGES)[0])
+    assert set(deg[at][np.isin(at, ids)]) == {257, 300, 10_000}
+    runs = plan.runs
+    starts = np.where(runs < 0, ~runs, runs)
+    assert runs.dtype == np.int32 and starts[0] == 0 and runs[-1] == n
+    assert np.all(np.diff(starts) >= 1) and np.all(np.diff(starts) <= RUN_ROWS)
+    marked = starts[:-1][runs[:-1] < 0]                   # the runs the warps skip
+    assert np.array_equal(np.sort(marked), np.sort(ids))
+    assert np.all(np.isin(marked + 1, starts))            # ... each one row long
+    summed = np.where(deg > LONG_ROW_EDGES, 0, deg)
+    per_run = np.add.reduceat(summed, starts[:-1])
+    assert per_run.max() <= RUN_EDGES + LONG_ROW_EDGES
+    on_tensor = EdgeCSR(torch.from_numpy(csr.row_ptr), torch.from_numpy(csr.src),
+                        torch.from_numpy(csr.order))
+    for made in (on_tensor.plan, csr.to("cpu").plan):
+        assert made.runs.dtype == made.long_rows.dtype == torch.int32
+        assert np.array_equal(made.runs.numpy(), runs)
+        assert np.array_equal(made.long_rows.numpy(), ids)
+
+
+@pytest.mark.parametrize("deg", [[], [0], [0, 0, 0], [5, 0, 2], [0] * 70])
+def test_row_plan_of_empty_and_edgeless_csrs(deg):
+    plan = row_plan(_row_ptr(np.asarray(deg, np.int64)))
+    assert len(plan.long_rows) == 0
+    assert list(plan.runs) == list(range(0, len(deg), RUN_ROWS)) + [len(deg)]
+    csr = _csr_of(deg)
+    for made in (csr.plan, csr.to("cpu").plan):
+        assert list(np.asarray(made.runs)) == list(plan.runs)
+        assert len(made.long_rows) == 0
+
+
+def test_csr_plans_its_own_rows():
+    """The plan is made by the CSR, from its own row_ptr: it cannot be
+    passed in or swapped for another CSR's, and a row_ptr the plan could
+    not cover (decreasing) is refused when the CSR is made.  On the CPU
+    the plain version does not read the plan."""
+    import dataclasses
+
+    args = _small_args()
+    want = _vm(args)
+    alpha, par, val, row_ptr, src, w, row_label = args
+    csr = EdgeCSR(row_ptr, src, torch.arange(3))
+    other = _csr_of([300, 0, 2, 1])
+    assert other.plan.long_rows.tolist() == [0]
+    with pytest.raises(TypeError):
+        EdgeCSR(row_ptr, src, torch.arange(3), plan=other.plan)
+    with pytest.raises(ValueError):
+        dataclasses.replace(csr, plan=other.plan)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        csr.plan = other.plan
+    with pytest.raises(ValueError, match="nondecreasing"):
+        EdgeCSR(torch.tensor([0, 2, 1, 3, 3], dtype=torch.int32), src, torch.arange(3))
+    assert torch.equal(vm_step(alpha, par, val, csr, w, row_label), want)
+    with pytest.raises(ValueError, match="past alpha"):       # sources past alpha's rows
+        vm_step(alpha, par, val, EdgeCSR(row_ptr, src + 4, torch.arange(3)), w, row_label)
+    with pytest.raises(ValueError, match="tensor"):            # a numpy CSR, not moved
+        vm_step(alpha, par, val, EdgeCSR(row_ptr.numpy(), src.numpy(), np.arange(3)),
+                w, row_label)
+
+
+def test_field_plans_the_rows_once_per_graph():
+    """The field uploads the graph's cached CSR, with its row plan, once
+    per graph."""
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.core.tpstry import TPSTry
+    from repro_torch.graphs.generators import provgen_like
+    from repro_torch.graphs.partition import hash_partition
+
+    g = provgen_like(400, seed=2)
+    arrays = TPSTry.from_workload([(parse_rpq("Entity.(Entity)*.Entity"), 1.0)]
+                                  ).compile(g.label_names)
+    pre = {}
+    extroversion_field(g, arrays, hash_partition(g.n, 4, seed=1), 4,
+                       _precomputed=pre, device="cpu")
+    csr = pre["_dev"]["csr"]
+    want = row_plan(g.vm_csr().row_ptr)
+    assert csr.plan.runs.dtype == csr.plan.long_rows.dtype == torch.int32
+    assert np.array_equal(csr.plan.runs.numpy(), want.runs)
+    assert np.array_equal(csr.plan.long_rows.numpy(), want.long_rows)
+    assert np.array_equal(csr.row_ptr.numpy(), g.vm_csr().row_ptr)
+    extroversion_field(g, arrays, hash_partition(g.n, 4, seed=2), 4,
+                       _precomputed=pre, device="cpu")
+    assert pre["_dev"]["csr"] is csr
