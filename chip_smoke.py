@@ -11,18 +11,24 @@ Phases (any failure exits non-zero and prints no result line):
    in the checkout (``nvcc``, ``sm_90a``, one process per source); count
    the tensor-core instructions (``HGMMA``, ``HMMA``) in the built
    attention libraries with ``cuobjdump -sass``: the bf16 kernel must have
-   ``HGMMA``, the float32 kernel none of either;
+   ``HGMMA`` (wgmma), the float32 kernel TF32 ``HMMA`` (its three-product
+   mma.sync) and no ``HGMMA``;
 2. each kernel against its plain PyTorch version on the card, over seeded
    shapes: ``vm_step`` (the transitions of workload tries: PQ, MQ, seeded
    label chains of one to four 32-column blocks and the row placement's
    677-node trie, 3 to 26 labels; empty rows, hub rows of 12k in-edges,
-   all-cut weights, up to 100k rows), ``embedding_bag`` (d 8/64/128, H 1/8/64,
-   repeated, padded and out-of-range ids), ``segment_spmm`` (F 8/16/100 with
+   all-cut weights, up to 100k rows), ``embedding_bag`` (d 8/17/64/128/256,
+   H 1/3/8/9/64, an odd number of bags, the table and the output off their
+   16-byte alignment, repeated, padded and out-of-range ids; bit for bit
+   against the plain version on the CPU), ``segment_spmm`` (F 8/16/100 with
    float4 loads, 17 and a misaligned 100 with scalar loads, empty rows, a hub
    row of 10k edges, zero weights) and ``flash_attention``
    (Sq/Skv 1-1,111, causal and not, window None/1/17/64/129/200/1,024,
    GQA 1/2/4, D 32/64/128/256, float32 and bfloat16, rows with no valid
-   key; bf16 goes to the tensor-core kernel, float32 to the CUDA-core one);
+   key; bf16 goes to the wgmma kernel, float32 to the 3xTF32 one); then the
+   plain scatter-adds (``scatter_sum``, ``vm_step_reference``,
+   ``segment_spmm_reference``) twice on the card over 5M unsorted edges:
+   bit for bit equal to each other and to the CPU's;
 3. the paper's worked-example values through ``backend="cuda"``;
 4. fig7 at N=2000 on the card (provgen and musicbrainz, hash start): the
    reference's final ipt exactly, and the kernel field bitwise equal to the
@@ -39,7 +45,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``serve_bulk`` requests through ``serve_step``, kernel forward against
    plain forward, per-request latency and per-launch kernel time, one
    ``retrieval_step`` over 10^6 candidates, the bag kernel against its
-   plain version on independent zipf ids over the whole table;
+   plain version on independent zipf ids over the whole table; the kernel's
+   time, bound and ``F.embedding_bag``'s time on the zipf ids and at
+   ``serve_bulk``;
 7. path 3, TAPER's embedding-row placement (``benchmarks/dlrm_span.py``'s
    settings): ``coaccess_graph`` -> ``Taper.invoke`` (kernel field, 677-node
    trie) -> ``query_span``: the plain field's partitions and the JAX
@@ -59,7 +67,9 @@ Phases (any failure exits non-zero and prints no result line):
    each shape, and the whole-path gate: the full-width model in float32 at
    2,048 tokens through the float32 kernel (its 36 launches counted) against
    the same forward through the plain version, and one decode step from its
-   cache against the prefill.
+   cache against the prefill; the float32 kernel's time at 4 x 4,096 with
+   its bounds at the TF32 tensor-core and float32 CUDA-core rates and the
+   time of SDPA's memory-efficient back end.
 
 The gather yardstick of a ``segment_spmm`` or ``vm_step`` launch counts
 the 32-byte sectors its live edges' gathered rows touch, once per edge,
@@ -73,6 +83,7 @@ before the last is the ``kernels`` JSON record; the last line is
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -98,10 +109,12 @@ FULL_MAX_ITERS = 8
 #: kernel vs plain tolerance (float32; the sums run in different orders)
 RTOL, ATOL = 1e-5, 1e-6
 #: H100 SXM data-sheet peaks (NVIDIA H100 data sheet, dense, without
-#: sparsity): HBM3 bytes/s, float32 (non-tensor) FLOP/s, bf16 tensor-core FLOP/s
+#: sparsity): HBM3 bytes/s, float32 (non-tensor) FLOP/s, bf16 and TF32
+#: tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 #: embedding_bag and segment_spmm against their plain versions (the
 #: tolerances of tests/test_torch_embedding_bag.py and
 #: tests/test_torch_segment_spmm.py); model forwards kernel vs plain
@@ -191,7 +204,9 @@ def _bound(bytes_moved, flops, peak_flops=PEAK_F32_FLOPS):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def device_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
@@ -217,9 +232,12 @@ def build_kernels():
 
 
 def tensor_core_instructions(libs):
-    """``{library: (HGMMA count, HMMA count)}`` of the two attention
-    kernels' libraries, from ``cuobjdump -sass``; fails unless the bf16
-    kernel has HGMMA and the float32 kernel has neither."""
+    """``{library: (HGMMA count, HMMA count, TF32 HMMA count)}`` of the two
+    attention kernels' libraries, from ``cuobjdump -sass``; fails unless the
+    bf16 kernel has HGMMA (wgmma) and the float32 kernel has TF32 HMMA
+    (``HMMA.1688.F32.TF32``: its three-TF32-product mma.sync) and no
+    HGMMA.  That the float32 kernel's products carry float32 accuracy is
+    held by its 2e-5 gate, not by the absence of tensor-core instructions."""
     import re
     import shutil
 
@@ -228,13 +246,15 @@ def tensor_core_instructions(libs):
     for name in ("flash_attention_bf16", "flash_attention_f32"):
         sass = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True,
                               text=True, timeout=300, check=True).stdout
-        counts[name] = (len(re.findall(r"\bHGMMA\b", sass)), len(re.findall(r"\bHMMA\b", sass)))
-        log(f"[build] {name}: {counts[name][0]} HGMMA and {counts[name][1]} HMMA "
-            f"instructions in the SASS")
+        counts[name] = (len(re.findall(r"\bHGMMA\b", sass)),
+                        len(re.findall(r"\bHMMA\b", sass)),
+                        len(re.findall(r"\bHMMA\.1688\.F32\.TF32\b", sass)))
+        log(f"[build] {name}: {counts[name][0]} HGMMA, {counts[name][1]} HMMA "
+            f"({counts[name][2]} HMMA.1688.F32.TF32) instructions in the SASS")
     check(counts["flash_attention_bf16"][0] > 0,
           "the bf16 attention kernel has no HGMMA (tensor-core) instruction")
-    check(counts["flash_attention_f32"] == (0, 0),
-          "the float32 attention kernel has tensor-core instructions")
+    check(counts["flash_attention_f32"][2] > 0 and counts["flash_attention_f32"][0] == 0,
+          "the float32 attention kernel has no TF32 HMMA, or has HGMMA")
     return counts
 
 
@@ -436,35 +456,109 @@ def _span_columns():
 
 
 def bag_sweep(torch) -> float:
-    """``embedding_bag`` against its plain version on seeded shapes."""
+    """``embedding_bag`` against its plain version on seeded shapes: every
+    lane layout the kernel branches on (d 8/17/64/128/256: float4, float2
+    and scalar rows, 2 to 32 lanes a bag, two passes at 256), slot tails
+    (H 1/3/9 beside 8 and 64), an odd number of bags, the table one and two
+    floats past a 16-byte boundary and the output one float past it;
+    repeated ids (one row in every slot), -1 pads and ids past the table.
+    Bit for bit against the plain version on the CPU, and within BAG_RTOL /
+    BAG_ATOL of the plain version on the card."""
     import numpy as np
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_reference
 
     worst = 0.0
-    V, B = 100_000, 4096
-    for i, (d, H) in enumerate((d, H) for d in (8, 64, 128) for H in (1, 8, 64)):
+    V, B = 100_000, 4097
+    for i, (d, H) in enumerate((d, H) for d in (8, 17, 64, 128, 256)
+                               for H in (1, 3, 8, 9, 64)):
         rng = np.random.default_rng(300 + i)
-        table = torch.as_tensor(rng.normal(size=(V, d)).astype(np.float32),
-                                device="cuda")
+        table = torch.as_tensor(rng.normal(size=(V, d)).astype(np.float32))
         ids = rng.integers(0, V, (B, H))
         ids[::3] = ids[::3, :1]                       # one row repeated H times
         ids[::5, -1] = -1                             # pad slots
         ids[::7, 0] = V + 11                          # past the table
-        ids = torch.as_tensor(ids.astype(np.int32), device="cuda")
-        for combiner in ("sum", "mean"):
-            out = embedding_bag(table, ids, combiner)
-            torch.cuda.synchronize()
-            ref = embedding_bag_reference(table, ids, combiner)
-            err = float((out - ref).abs().max())
-            ok = bool(torch.allclose(out, ref, rtol=BAG_RTOL, atol=BAG_ATOL))
-            log(f"[kernel] embedding_bag d={d} H={H} {combiner}: V={V} B={B} "
-                f"max_abs_err={err:.3e} bitwise={bool(torch.equal(out, ref))} "
-                f"allclose(rtol={BAG_RTOL}, atol={BAG_ATOL})={ok}")
-            check(ok, f"embedding_bag kernel disagrees with its plain version "
-                      f"at d={d} H={H} {combiner}")
-            worst = max(worst, err)
+        ids = torch.as_tensor(ids.astype(np.int32))
+        ids_card = ids.to("cuda")
+        for t_off, o_off in ((0, 0), (1, 1), (2, 0)):
+            buf = torch.zeros(V * d + 4, device="cuda")
+            tab = buf[t_off:t_off + V * d].view(V, d)
+            tab.copy_(table)
+            obuf = torch.empty(B * d + 4, device="cuda")
+            for combiner in ("sum", "mean"):
+                if o_off:
+                    out = embedding_bag_cuda(tab, ids_card, combiner == "mean",
+                                             out=obuf[o_off:o_off + B * d].view(B, d))
+                else:
+                    out = embedding_bag(tab, ids_card, combiner)
+                torch.cuda.synchronize()
+                ref = embedding_bag_reference(tab, ids_card, combiner)
+                cpu = embedding_bag_reference(table, ids, combiner)
+                err = float((out - ref).abs().max())
+                ok = bool(torch.allclose(out, ref, rtol=BAG_RTOL, atol=BAG_ATOL))
+                bitwise = bool(torch.equal(out.cpu(), cpu))
+                log(f"[kernel] embedding_bag d={d} H={H} {combiner} table +{t_off} out "
+                    f"+{o_off} floats: V={V} B={B} max_abs_err={err:.3e} "
+                    f"allclose(rtol={BAG_RTOL}, atol={BAG_ATOL})={ok} bitwise vs the CPU "
+                    f"plain version={bitwise}")
+                check(ok and bitwise, f"embedding_bag kernel disagrees with its plain "
+                                      f"version at d={d} H={H} {combiner}")
+                worst = max(worst, err)
     return worst
+
+
+def plain_repeat(torch):
+    """The plain scatter-adds (``scatter_sum`` with and without a mask,
+    ``vm_step_reference``, ``segment_spmm_reference`` with the chunk at its
+    size and at 4,999 edges) twice on the card over unsorted destinations
+    with a 10,000-edge hub row: the two results bit for bit equal, and equal
+    to the CPU's."""
+    import numpy as np
+    import repro_torch.kernels.segment_spmm.ref as spmm_ref
+    import repro_torch.models.gnn.common as common
+    from repro_torch.kernels.vm_step.ref import vm_step_reference
+
+    n, e = 100_000, 5_000_000
+    rng = np.random.default_rng(900)
+    dst = rng.integers(0, n // 2, e)
+    dst[:10_000] = 5
+    rng.shuffle(dst)
+    dst = torch.as_tensor(dst)
+    src = torch.as_tensor(rng.integers(0, n, e))
+    mask = torch.as_tensor(rng.random(e) < 0.7)
+    w = torch.as_tensor(rng.normal(size=e), dtype=torch.float32)
+    L, N = 3, 23
+    cases = {
+        "scatter_sum": (common.scatter_sum, (torch.as_tensor(
+            rng.normal(size=(e, 16)), dtype=torch.float32), dst, n)),
+        "vm_step_reference": (vm_step_reference, (
+            torch.as_tensor(rng.random((n, N)), dtype=torch.float32),
+            torch.as_tensor(rng.integers(0, N, (L, N)), dtype=torch.int32),
+            torch.as_tensor(rng.random((L, N)), dtype=torch.float32), src, dst,
+            w.abs(), torch.as_tensor(rng.integers(0, L, e)), n)),
+        "segment_spmm_reference": (spmm_ref.segment_spmm_reference, (
+            torch.as_tensor(rng.normal(size=(n, 100)), dtype=torch.float32),
+            src.int(), dst.int(), w, n)),
+    }
+    cases["scatter_sum masked"] = (common.scatter_sum, cases["scatter_sum"][1] + (mask,))
+    cases["segment_spmm_reference, 4,999-edge chunks"] = cases["segment_spmm_reference"]
+    chunk = spmm_ref.CHUNK
+    for name, (fn, args) in cases.items():
+        spmm_ref.CHUNK = 4999 if "chunks" in name else chunk
+        try:
+            want = fn(*args)
+            on_card = [a.to("cuda") if isinstance(a, torch.Tensor) else a for a in args]
+            first, second = fn(*on_card), fn(*on_card)
+            torch.cuda.synchronize()
+        finally:
+            spmm_ref.CHUNK = chunk
+        repeat, same = bool(torch.equal(first, second)), bool(torch.equal(first.cpu(), want))
+        log(f"[repeat] {name} on the card (E={e}, unsorted destinations, hub 10000): two "
+            f"runs bitwise equal {repeat}; equal to the CPU's bitwise {same}")
+        check(repeat and same, f"{name}: the plain version does not repeat on the card "
+                               f"or differs from the CPU's")
+        del on_card, first, second, want
 
 
 def spmm_sweep(torch) -> float:
@@ -494,9 +588,8 @@ def spmm_sweep(torch) -> float:
         wc = t(w, torch.float32)[csr.order].contiguous()
         out = segment_spmm_csr(x, csr, wc)
         torch.cuda.synchronize()
-        # the plain version on the CPU: on the card its index_add_ adds in no
-        # fixed order (atomics); on the CPU it adds in edge order, the
-        # kernel's CSR order, so the two agree bit for bit
+        # the plain version on the CPU: it adds in edge order, the kernel's
+        # CSR order, so the two agree bit for bit
         ref = segment_spmm_reference(x.cpu(), torch.as_tensor(src), torch.as_tensor(dst),
                                      torch.as_tensor(w), n).to("cuda")
         err = float((out - ref).abs().max())
@@ -864,6 +957,47 @@ def _unique_rows(torch, ids, V):
     return int(((u >= 0) & (u < V)).sum())
 
 
+def _bag_times(torch, table, ids, V, reps, plain_reps=0):
+    """The bag kernel's time per launch on ``ids`` (sum), its bound (ids
+    and distinct rows read once, the output written once; one add per slot
+    and column), ``F.embedding_bag``'s time and its largest difference, and
+    with ``plain_reps`` the plain version's time."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_reference
+
+    nb, H = ids.shape
+    d = table.shape[1]
+    ms = _time_ms(torch, lambda: embedding_bag(table, ids), reps)
+    lib = lambda: torch.nn.functional.embedding_bag(ids, table, mode="sum")  # noqa: E731
+    library_ms = _time_ms(torch, lib, reps)
+    lib_err = float((lib() - embedding_bag(table, ids)).abs().max())
+    plain_ms = (_time_ms(torch, lambda: embedding_bag_reference(table, ids), plain_reps)
+                if plain_reps else None)
+    rows = _unique_rows(torch, ids, V)
+    bytes_moved = 4 * (nb * H + rows * d + nb * d)
+    bound_ms, bound_by = _bound(bytes_moved, nb * H * d)
+    # the yardstick of a launch whose rows are never found in L2: every
+    # bag reads each of its distinct valid rows once
+    srt = torch.sort(ids, dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    per_bag = int((first & (srt >= 0) & (srt < V)).sum())
+    yard_ms = 4 * (nb * H + per_bag * d + nb * d) / PEAK_BYTES_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, lib_err=lib_err,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=bytes_moved, bags=nb, H=H,
+                d=d, rows=rows, per_bag=per_bag, yard_ms=yard_ms)
+
+
+def _bag_text(t):
+    plain = "" if t["plain_ms"] is None else f", plain {t['plain_ms']:.4f} ms"
+    return (f"bags {t['bags']}, H={t['H']}, d={t['d']}, distinct rows {t['rows']}: kernel "
+            f"{t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.3f} of the bound){plain}, "
+            f"F.embedding_bag {t['library_ms']:.4f} ms (max diff to the kernel "
+            f"{t['lib_err']:.3e}), bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+            f"({t['bytes']} B); rows read once per bag ({t['per_bag']}, none from L2) "
+            f"{t['yard_ms']:.4f} ms, the kernel at {t['yard_ms'] / t['ms']:.3f} of it")
+
+
 def dlrm_serving(torch, device):
     import dataclasses
     import math
@@ -944,7 +1078,8 @@ def dlrm_serving(torch, device):
             f"serve_step {split[name][med][1] * 1e3:.3f} + read back "
             f"{split[name][med][2] * 1e3:.3f}; embedding_bag per launch ms "
             f"{[round(x, 4) for x in ms]} (median {sorted(ms)[len(ms) // 2]:.4f}), "
-            f"bound {bound_ms:.4f} ms by {bound_by} on the last request's ids")
+            f"bound {bound_ms:.4f} ms by {bound_by} on the last request's ids; "
+            f"{device_line()}")
 
     # kernel forward against plain forward on the same batch
     def plain_bag(table, ids):
@@ -1001,34 +1136,21 @@ def dlrm_serving(torch, device):
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     ok = bool(torch.allclose(out, ref, rtol=BAG_RTOL, atol=BAG_ATOL))
-    zipf_ms = _time_ms(torch, lambda: embedding_bag(table, zipf), 10)
-    log(f"[dlrm] embedding_bag on independent zipf ids over the whole table "
-        f"(bags {zipf.shape[0]}, H={cfg.multi_hot}, distinct rows "
-        f"{_unique_rows(torch, zipf, V)}, max row id {int(zipf.max())}): "
-        f"max_abs_err={err:.3e} allclose(rtol={BAG_RTOL}, atol={BAG_ATOL})={ok}; "
-        f"{zipf_ms:.4f} ms per launch")
     check(ok, "embedding_bag disagrees with its plain version on zipf ids")
     worst = max(worst, err)
+    zipf_times = _bag_times(torch, table, zipf, V, 10)
+    log(f"[dlrm] embedding_bag on independent zipf ids over the whole table: "
+        f"{_bag_text(zipf_times)}; max_abs_err={err:.3e} allclose(rtol={BAG_RTOL}, "
+        f"atol={BAG_ATOL})={ok}; max row id {int(zipf.max())}; {device_line()}")
     del zipf, out, ref
 
     # the kernel at serve_bulk's shapes: the last bulk request's ids
     ids = last["serve_bulk"][0]["sparse"].reshape(-1, cfg.multi_hot)
-    ms = _time_ms(torch, lambda: embedding_bag(table, ids), 10)
-    plain_ms = _time_ms(torch, lambda: embedding_bag_reference(table, ids), 3)
-    lib = lambda: torch.nn.functional.embedding_bag(ids, table, mode="sum")  # noqa: E731
-    library_ms = _time_ms(torch, lib, 10)
-    lib_err = float((lib() - embedding_bag(table, ids)).abs().max())
-    rows = _unique_rows(torch, ids, V)
-    nb, H = ids.shape
-    bytes_moved = 4 * (nb * H + rows * d + nb * d)
-    flops = nb * H * d
-    bound_ms, bound_by = _bound(bytes_moved, flops)
-    log(f"[dlrm] embedding_bag at serve_bulk (bags {nb}, H={H}, d={d}, distinct "
-        f"rows {rows}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"F.embedding_bag {library_ms:.4f} ms (max diff to the kernel "
-        f"{lib_err:.3e}), bound {bound_ms:.4f} ms by {bound_by} "
-        f"({bytes_moved} B, {flops} FLOP); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    t = _bag_times(torch, table, ids, V, 10, plain_reps=3)
+    ms, plain_ms, library_ms = t["ms"], t["plain_ms"], t["library_ms"]
+    bound_ms, bound_by = t["bound_ms"], t["bound_by"]
+    log(f"[dlrm] embedding_bag at serve_bulk: {_bag_text(t)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {device_line()}")
     return dict(launches=counts["embedding_bag"], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 err=worst)
@@ -1254,8 +1376,9 @@ def _sdpa_ms(torch, q, k, v, out_k):
     def call():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=gqa)
 
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-                      SDPBackend.EFFICIENT_ATTENTION]):
+    backends = ([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                 SDPBackend.EFFICIENT_ATTENTION] if gqa else [SDPBackend.EFFICIENT_ATTENTION])
+    with sdpa_kernel(backends):
         ms = _time_ms(torch, call, 5)
         diff = float((call().transpose(1, 2).float() - out_k.float()).abs().max())
     return ms, diff
@@ -1265,8 +1388,9 @@ def _attn_at_path_shape(torch, args, reps, time_f32=False):
     """Kernel, plain version and SDPA on one captured layer's q, k, v; the
     kernel against the plain version; the bound of the work.  The same q,
     k, v in float32 go through the float32 kernel, which ``time_f32`` also
-    times (with its plain version, SDPA and its bound at the float32
-    CUDA-core peak)."""
+    times (with its plain version, SDPA's memory-efficient back end and its
+    bounds: three TF32 products at the tensor-core peak, and beside it one
+    float32 product at the CUDA-core peak)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
@@ -1295,15 +1419,23 @@ def _attn_at_path_shape(torch, args, reps, time_f32=False):
     if time_f32:
         ms32 = _time_ms(torch, lambda: flash_attention(q32, k32, v32), reps)
         plain32 = _time_ms(torch, lambda: flash_attention_reference(q32, k32, v32), 2)
-        lib32, _ = _sdpa_ms(torch, q32, k32, v32, o32_k)
-        bound32, by32 = _bound(4 * (2 * q.numel() + k.numel() + v.numel()), flops,
-                               PEAK_F32_FLOPS)
+        lib32, lib_diff32 = _sdpa_ms(torch, q32, k32, v32, o32_k)
+        bytes32 = 4 * (2 * q.numel() + k.numel() + v.numel())
+        # the least time: the three TF32 products on the tensor cores; beside
+        # it, the one float32 product on the CUDA cores
+        bound32, by32 = _bound(bytes32, 3 * flops, PEAK_TF32_FLOPS)
+        cuda_core32, _ = _bound(bytes32, flops, PEAK_F32_FLOPS)
         f32 = dict(ms=ms32, plain_ms=plain32, bound_ms=bound32, bound_by=by32,
                    library_ms=lib32, err=err32)
         log(f"[qwen3] flash_attention_f32 at B={B} S={S} H={H} KV={k.shape[2]} D={D} "
             f"float32 (the same q/k/v): kernel {ms32:.4f} ms ({flops / ms32 / 1e9:.2f} "
-            f"TFLOP/s), plain {plain32:.4f} ms, SDPA {lib32:.4f} ms, bound {bound32:.4f} ms "
-            f"by {by32} at the float32 CUDA-core peak")
+            f"TFLOP/s, {ms32 / lib32:.3f}x SDPA's time), plain {plain32:.4f} ms, SDPA "
+            f"(memory-efficient back end) {lib32:.4f} ms (max diff to the kernel "
+            f"{lib_diff32:.3e}), bound {bound32:.4f} ms by {by32} (3 x {flops} FLOP at the "
+            f"TF32 tensor-core {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; {bound32 / ms32:.3f} of "
+            f"it), {cuda_core32:.4f} ms for one product at the float32 CUDA-core "
+            f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s; max_abs_err vs plain {err32:.3e}; "
+            f"{device_line()}")
     del q32, k32, v32, o32_k
     ms = _time_ms(torch, lambda: flash_attention(q, k, v), reps)
     plain_ms = _time_ms(torch, lambda: flash_attention_reference(q, k, v), 2)
@@ -1320,7 +1452,7 @@ def _attn_at_path_shape(torch, args, reps, time_f32=False):
         f"max_abs_err={err:.3e}, allclose(rtol={rtol}, atol={atol})={ok}, "
         f"allclose(rtol=2^-7, atol={ATTN_PATH_ATOL_RMS} x RMS)={ok_rms}; the same "
         f"q/k/v in float32 max_abs_err={err32:.3e} allclose(rtol={rtol32}, "
-        f"atol={atol32})={ok32}")
+        f"atol={atol32})={ok32}; {device_line()}")
     check(ok and ok_rms, f"flash_attention disagrees with its plain version at "
                          f"B={B} S={S} (bf16)")
     check(ok32, f"flash_attention disagrees with its plain version at B={B} S={S} "
@@ -1553,6 +1685,7 @@ def main() -> int:
     tensor_core_instructions(build_kernels())
     errs = {"vm_step": kernel_sweep(torch), "embedding_bag": bag_sweep(torch),
             "segment_spmm": spmm_sweep(torch), "flash_attention": attention_sweep(torch)}
+    plain_repeat(torch)
     paper_values(device)
     fig7(torch, device)
     full = full_size(torch, device)
@@ -1609,7 +1742,7 @@ def main() -> int:
         for name, r in (("flash_attention", lm["1x32768"]),
                         ("flash_attention/4k", lm["4x4096"]))
     ] + [
-        # the float32 CUDA-core kernel: its launches are the float32
+        # the float32 (3xTF32) kernel: its launches are the float32
         # full-width forward's, its times at the 4 x 4,096 shape in float32
         {"name": "flash_attention_f32", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_f32.cu",

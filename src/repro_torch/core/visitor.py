@@ -46,6 +46,7 @@ import torch
 from repro_torch.core.tpstry import TrieArrays
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import LabelledGraph
+from repro_torch.kernels.segment_spmm.ref import segment_sum
 from repro_torch.kernels.vm_step.ops import vm_step
 from repro_torch.kernels.vm_step.ref import transition_columns
 
@@ -72,22 +73,6 @@ class ExtroversionResult:
     @property
     def introversion(self) -> np.ndarray:
         return np.where(self.pr > 0, 1.0 - self.extroversion, 1.0)
-
-
-def _segment_sum(vals: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Sums of the rows of ``vals`` grouped in contiguous runs of
-    ``lengths``; each run is summed in row order starting from 0.
-
-    The values go in as 2-D so ``torch.segment_reduce`` takes its generic
-    path, which walks each segment sequentially (deterministic, and the
-    same order as a sequential scatter-add of the rows)."""
-    flat = vals.dim() == 1
-    v = vals[:, None] if flat else vals
-    if v.shape[0] == 0:
-        out = v.new_zeros((lengths.shape[0], v.shape[1]))
-    else:
-        out = torch.segment_reduce(v, "sum", lengths=lengths, axis=0)
-    return out[:, 0] if flat else out
 
 
 def _prior_columns(depth, labels_n, N, vlabels, lab_vcount, p, n):
@@ -118,15 +103,15 @@ def _field_aggregates(counted_nodes, k, dense_ext_to, alpha, mass, dev,
     for i in counted_nodes:
         pr = pr + alpha[:, i]
     ext_mass = mass * (1.0 - local)
-    extro_mass = _segment_sum(ext_mass, dev["out_deg"])
+    extro_mass = segment_sum(ext_mass, dev["out_deg"])
     extroversion = torch.where(
         pr > _EPS, extro_mass / torch.clamp_min(pr, _EPS), 0.0)
     ext_to = None
     if dense_ext_to:
         key = dev["src"] * k + part[dev["dst"]]
         order = torch.argsort(key, stable=True)
-        ext_to = _segment_sum(ext_mass[order],
-                              torch.bincount(key, minlength=n * k))
+        ext_to = segment_sum(ext_mass[order],
+                             torch.bincount(key, minlength=n * k))
         ext_to = ext_to.reshape(n, k)
     return pr, extro_mass, extroversion, ext_to
 
@@ -265,8 +250,8 @@ def _field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray, k: int,
             beta = vm_step(beta, par, val, dev["csr"], w, dev["labels_i32"])
             alpha = alpha + beta
         else:
-            upd = _segment_sum((contrib * local[:, None])[dev["csr"].order],
-                               dev["in_deg"])
+            upd = segment_sum((contrib * local[:, None])[dev["csr"].order],
+                              dev["in_deg"])
             cols = torch.as_tensor(np.asarray(nodes_d, np.int64), device=device)
             alpha[:, cols] += upd
 

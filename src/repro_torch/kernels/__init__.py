@@ -22,7 +22,8 @@ Kernels (CUDA C++ for ``sm_90a``; each replaces one TPU kernel):
                   top-left causal and one-sided window masks, GQA; two
                   kernels by input type, ``flash_attention_bf16`` on the
                   tensor cores (wgmma, TMA, mbarriers) and
-                  ``flash_attention_f32`` on the CUDA cores (replace
+                  ``flash_attention_f32`` as three TF32 mma.sync products
+                  per product (replace
                   ``src/repro/kernels/flash_attention/kernel.py::_attn_kernel``)
 
 Every TPU kernel of the JAX package has its counterpart here.

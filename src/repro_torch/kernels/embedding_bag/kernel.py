@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -24,12 +25,19 @@ def _launcher():
     return fn
 
 
-def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
-                       mean: bool) -> torch.Tensor:
-    """Launch the kernel; arguments are checked by ``ops.embedding_bag``."""
+def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor, mean: bool,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel; arguments are checked by ``ops.embedding_bag``.
+    ``out``, when given, is a contiguous (B, d) float32 tensor on the
+    table's device to write into (at any 4-byte alignment)."""
     V, d = table.shape
     B, H = ids.shape
-    out = torch.empty((B, d), dtype=table.dtype, device=table.device)
+    if out is None:
+        out = torch.empty((B, d), dtype=table.dtype, device=table.device)
+    elif (out.shape != (B, d) or out.dtype != table.dtype or out.device != table.device
+          or not out.is_contiguous()):
+        raise ValueError(f"embedding_bag: out must be a contiguous ({B}, {d}) "
+                         f"{table.dtype} tensor on {table.device}")
     with torch.cuda.device(table.device):
         err = _launcher()(
             table.data_ptr(), ids.data_ptr(), out.data_ptr(), V, d, B, H,

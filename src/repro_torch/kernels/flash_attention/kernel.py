@@ -7,13 +7,14 @@ input type; see each source for its design:
   flash_attention_bf16 — ``csrc/flash_attention_bf16.cu``: bfloat16 on the
       tensor cores (wgmma, TMA, mbarrier pipeline, warp specialisation), the
       serving path's kernel;
-  flash_attention_f32  — ``csrc/flash_attention_f32.cu``: float32 FMAs on
-      the CUDA cores (the float32 model and its whole-path gate).
+  flash_attention_f32  — ``csrc/flash_attention_f32.cu``: float32 on the
+      tensor cores as three TF32 products per product (mma.sync, cp.async
+      double buffering; the float32 model and its whole-path gate).
 
 The shared libraries are built from the checkout at first use
 (``kernels/build.py``) and launched on PyTorch's current stream.
-``TILE_PLAN`` is the bf16 kernel's tiling per head size; the source
-instantiates exactly these plans and rejects any other.
+``TILE_PLAN`` and ``TILE_PLAN_F32`` are the two kernels' tilings per head
+size; each source instantiates exactly its plans and rejects any other.
 """
 from __future__ import annotations
 
@@ -37,6 +38,14 @@ class TilePlan(NamedTuple):
 #: D = 256 O alone takes 128); two K/V stages everywhere
 TILE_PLAN: Dict[int, TilePlan] = {32: TilePlan(128, 64, 2), 64: TilePlan(128, 64, 2),
                                   128: TilePlan(128, 128, 2), 256: TilePlan(128, 64, 2)}
+#: the float32 kernel's tiles per head size D: 64 q rows (four warps of 16)
+#: and two K/V tiles in flight everywhere; 64 keys a tile up to D = 64, 32
+#: above, where two 64-key K and V tiles with the Q tile would leave room
+#: for one block an SM (D = 128) or not fit (D = 256)
+TILE_PLAN_F32: Dict[int, TilePlan] = {32: TilePlan(64, 64, 2), 64: TilePlan(64, 64, 2),
+                                      128: TilePlan(64, 32, 2), 256: TilePlan(64, 32, 2)}
+#: each kernel's plans by name
+TILE_PLANS = {"flash_attention_bf16": TILE_PLAN, "flash_attention_f32": TILE_PLAN_F32}
 #: shared memory one block may use on an H100 (227 KB)
 SMEM_LIMIT = 232448
 
@@ -48,14 +57,19 @@ def smem_bytes(d: int, plan: TilePlan) -> int:
     return 1024 + 2 * d * (plan.bq + 2 * plan.stages * plan.bk) + 128
 
 
+def smem_bytes_f32(d: int, plan: TilePlan) -> int:
+    """Dynamic shared memory of the float32 kernel at head size ``d``: the
+    float32 Q tile and ``stages`` K tiles at a row stride of d + 16 floats,
+    ``stages`` V tiles at d + 4 (the source's ``Plan::kSmem``)."""
+    return 4 * ((plan.bq + plan.stages * plan.bk) * (d + 16) + plan.stages * plan.bk * (d + 4))
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher(name: str):
     from repro_torch.kernels.build import load
 
     fn = getattr(load(name), f"{name}_launch")
-    plan_args = [ctypes.c_int] * 2 if name == "flash_attention_bf16" else []
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + plan_args
-                   + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                    + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -73,16 +87,13 @@ def flash_attention_cuda(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.T
         if t.data_ptr() % 16:
             raise ValueError("flash_attention: the kernel takes 16-byte aligned "
                              "tensors (a view at an odd offset is not one)")
-    if name == "flash_attention_bf16":
-        plan = TILE_PLAN[D]
-        extra, scale = [plan.bk, plan.stages], math.log2(math.e) / math.sqrt(D)
-    else:
-        extra, scale = [], 1.0 / math.sqrt(D)
+    plan = TILE_PLANS[name][D]
+    scale_log2 = math.log2(math.e) / math.sqrt(D)
     with torch.cuda.device(q.device):
         err = _launcher(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, KV, D, *extra, int(causal), int(window is not None),
-            0 if window is None else window, scale,
+            B, Sq, Skv, H, KV, D, plan.bk, plan.stages, int(causal), int(window is not None),
+            0 if window is None else window, scale_log2,
             torch.cuda.current_stream().cuda_stream)
     if err >= 10000:
         raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {err - 10000}")

@@ -1,6 +1,6 @@
 """Wrapper of the ``flash_attention`` kernels: argument checks, the launch
 count, and the choice between a kernel (CUDA tensors: bfloat16 to the
-tensor-core kernel, float32 to the CUDA-core one) and the plain version
+wgmma kernel, float32 to the three-TF32-product one) and the plain version
 (CPU tensors).
 
 The Pallas wrapper's ``block_q``/``block_k``/``interpret``/``use_pallas``

@@ -13,12 +13,16 @@ one nonzero per column, so the port keeps it in its column form
 (:func:`transition_columns`): ``par[l, c]`` the nonzero's row and
 ``val[l, c]`` its value.  The matmul is then one gather and one multiply
 per column.  This is the CPU path of ``ops.vm_step`` and the CUDA kernel's
-yardstick on the card.
+yardstick on the card; on both it adds each row's messages in edge order
+from 0 (``segment_spmm.ref.scatter_add``), so it repeats bitwise on the card
+and gives the CPU's bits there.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.segment_spmm.ref import scatter_add
 
 
 def transition_columns(trie_parent, trie_label, trie_cond_p, n_labels: int):
@@ -48,9 +52,8 @@ def vm_step_reference(
     n: int,
 ) -> torch.Tensor:
     """Gather ``alpha[src, par[label]]``, multiply by ``val[label]``, scale,
-    ``index_add_``: one (E, N) message tensor."""
+    scatter-add by destination: one (E, N) message tensor."""
     lab = dst_label.long()
     msgs = alpha[edge_src.long()[:, None], par.long()[lab]] * val[lab]
     msgs = msgs * inv_cnt_e[:, None]
-    out = torch.zeros((n, alpha.shape[1]), dtype=alpha.dtype, device=alpha.device)
-    return out.index_add_(0, edge_dst.long(), msgs)
+    return scatter_add(msgs, edge_dst, n)

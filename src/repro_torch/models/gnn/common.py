@@ -1,9 +1,11 @@
 """Shared GNN substrate: batch container, segment message passing, MLPs.
 
 The JAX package builds its aggregation on ``jax.ops.segment_sum`` with the
-``segment_spmm`` Pallas kernel as the TPU twin; here the plain scatter is
-``index_add_`` and the models' weighted aggregation runs as the port's
-``segment_spmm`` CUDA kernel (``models/gnn/gcn.py``).
+``segment_spmm`` Pallas kernel as the TPU twin; here the plain scatter adds
+each row's terms in edge order (``segment_spmm.ref.scatter_add``:
+``index_add_`` on the CPU, sorted segment sums on the card, the same bits)
+and the models' weighted aggregation runs as the port's ``segment_spmm``
+CUDA kernel (``models/gnn/gcn.py``).
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.segment_spmm.ref import scatter_add
 
 
 @dataclass
@@ -59,14 +63,17 @@ def scatter_sum(values: torch.Tensor, index: torch.Tensor, n: int,
         n_bins = n + 1
     else:
         n_bins = n
-    out = values.new_zeros((n_bins,) + tuple(values.shape[1:]))
-    return out.index_add_(0, index.long(), values)[:n]
+    return scatter_add(values, index, n_bins)[:n]
 
 
 def degrees(edge_dst: torch.Tensor, n: int,
             edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    ones = torch.ones(edge_dst.shape, dtype=torch.float32, device=edge_dst.device)
-    return scatter_sum(ones, edge_dst, n, edge_mask)
+    """In-degrees as float32, masked edges left out: a count, exact in any
+    order, so one ``bincount`` serves every device (no sort)."""
+    index = edge_dst.long()
+    if edge_mask is not None:
+        index = torch.where(edge_mask, index, n)
+    return torch.bincount(index, minlength=n + 1)[:n].to(torch.float32)
 
 
 def gather(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

@@ -418,3 +418,130 @@ def test_vm_step_reads_alpha_the_kernel_before_it_wrote(card):
     torch.cuda.synchronize()
     for s, out in zip(scales, got):
         assert torch.equal(out.cpu(), vm_step(base * s, *args[1:]))
+
+
+# --- the plain versions repeat on the card ----------------------------------
+#
+# On the card ``index_add_`` adds with atomics in no fixed order; the port's
+# plain scatter-adds sum through a stable sort and sequential segment sums
+# there, so two runs agree bit for bit, and with the CPU's ``index_add_``.
+
+def _plain_inputs(which, rng):
+    """(function, CPU arguments) of one plain version: unsorted or sorted
+    destinations over 3,000 rows (half of them empty), a 10,000-edge hub
+    row, 40,000 edges."""
+    import repro_torch.models.gnn.common as common
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_reference
+    from repro_torch.kernels.vm_step.ref import vm_step_reference
+
+    n, e = 3000, 40_000
+    dst = rng.integers(0, n // 2, e)
+    dst[:10_000] = 5
+    rng.shuffle(dst)
+    if which.endswith("sorted"):
+        dst = np.sort(dst, kind="stable")
+    dst = torch.as_tensor(dst)
+    src = torch.as_tensor(rng.integers(0, n, e))
+    if which.startswith("scatter_sum"):
+        vals = torch.as_tensor(rng.normal(size=(e, 7)), dtype=torch.float32)
+        mask = torch.as_tensor(rng.random(e) < 0.7) if "masked" in which else None
+        return common.scatter_sum, (vals, dst, n, mask)
+    if which.startswith("vm_step"):
+        L, N = 3, 23
+        return vm_step_reference, (
+            torch.as_tensor(rng.random((n, N)), dtype=torch.float32),
+            torch.as_tensor(rng.integers(0, N, (L, N)), dtype=torch.int32),
+            torch.as_tensor(rng.random((L, N)), dtype=torch.float32), src, dst,
+            torch.as_tensor(rng.random(e), dtype=torch.float32),
+            torch.as_tensor(rng.integers(0, L, e)), n)
+    w = torch.as_tensor(rng.normal(size=e), dtype=torch.float32)
+    w[torch.as_tensor(rng.random(e) < 0.2)] = 0.0
+    x = torch.as_tensor(rng.normal(size=(n, 100)), dtype=torch.float32)
+    return segment_spmm_reference, (x, src.int(), dst.int(), w, n)
+
+
+@pytest.mark.parametrize("which", ["scatter_sum", "scatter_sum_masked", "vm_step",
+                                   "vm_step_sorted", "segment_spmm", "segment_spmm_sorted",
+                                   "segment_spmm_chunks"])
+def test_plain_versions_repeat_and_equal_the_cpu(card, monkeypatch, which):
+    """Each plain scatter-add twice on the card: the two results are equal
+    bit for bit, and equal to the CPU's.  ``segment_spmm_chunks`` takes the
+    edges 4,999 at a time, so the hub row and many others run across chunk
+    boundaries."""
+    import repro_torch.kernels.segment_spmm.ref as spmm_ref
+
+    if which == "segment_spmm_chunks":
+        monkeypatch.setattr(spmm_ref, "CHUNK", 4999)
+    fn, args = _plain_inputs(which, np.random.default_rng(len(which)))
+    want = fn(*args)
+    on_card = [a.to(card) if isinstance(a, torch.Tensor) else a for a in args]
+    first, second = fn(*on_card), fn(*on_card)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first.cpu(), want)
+
+
+# --- embedding_bag bit for bit against the CPU ------------------------------
+
+@pytest.mark.parametrize("H", [1, 3, 8, 9, 64])
+@pytest.mark.parametrize("d", [8, 17, 64, 128, 256])
+def test_embedding_bag_kernel_bitwise_vs_cpu(card, d, H):
+    """Every lane layout (float4, float2 and scalar rows; 2 to 32 lanes a
+    bag, one or two passes over a row), ids in one 16-byte load or one a
+    slot, slot tails (H 1, 3, 9), an odd number of bags, the table one and
+    two floats past a 16-byte boundary and the output one float past it;
+    repeated, -1 and past-the-table ids: the kernel's sums and means are the
+    CPU plain version's, bit for bit."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_reference
+
+    rng = np.random.default_rng(10 * d + H)
+    V, B = 20_000, 1001
+    table = torch.as_tensor(rng.normal(size=(V, d)), dtype=torch.float32)
+    ids = rng.integers(0, V, (B, H))
+    ids[::3] = ids[::3, :1]                               # one row in every slot
+    ids[::5, -1] = -1                                     # pads
+    ids[::7, 0] = V + 11                                  # past the table
+    ids = torch.as_tensor(ids.astype(np.int32))
+    ids_card = ids.to(card)
+    for t_off in (0, 1, 2):
+        buf = torch.zeros(V * d + 4, device=card)
+        tab = buf[t_off:t_off + V * d].view(V, d)
+        tab.copy_(table)
+        for combiner in ("sum", "mean"):
+            want = embedding_bag_reference(table, ids, combiner)
+            before = embedding_bag.launches
+            got = embedding_bag(tab, ids_card, combiner)
+            assert embedding_bag.launches == before + 1
+            obuf = torch.full((B * d + 4,), float("nan"), device=card)
+            shifted = embedding_bag_cuda(tab, ids_card, combiner == "mean",
+                                         out=obuf[1:1 + B * d].view(B, d))
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (t_off, combiner)
+            assert torch.equal(shifted.cpu(), want), (t_off, combiner)
+
+
+# --- flash_attention_f32 (3xTF32) on lengths off its tiles ------------------
+
+def test_flash_attention_f32_kernel_off_its_tiles(card):
+    """The bf16 cases' shapes (lengths off every tile, Sq != Skv, windows,
+    every head size) and qwen3-4b's heads at 1 x 4,096 with v rows sharing a
+    common part, in float32: the kernel within 2e-5 of the plain version."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    for i, (b, sq, skv, kv, g, d, causal, window) in enumerate(ATTN_CASES_BF16):
+        q, k, v = _attn_inputs(200 + i, b, sq, skv, kv, g, d, torch.float32, card)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = flash_attention_reference(q, k, v, causal, window)
+        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    rng = np.random.default_rng(8)
+    q = torch.as_tensor(rng.normal(size=(1, 4096, 32, 128)), dtype=torch.float32)
+    k = torch.as_tensor(rng.normal(size=(1, 4096, 8, 128)), dtype=torch.float32)
+    v = torch.as_tensor(0.5 * rng.normal(size=(1, 1, 8, 128))
+                        + 0.3 * rng.normal(size=(1, 4096, 8, 128)), dtype=torch.float32)
+    q, k, v = (t.to(card) for t in (q, k, v))
+    torch.testing.assert_close(flash_attention(q, k, v), flash_attention_reference(q, k, v),
+                               rtol=2e-5, atol=2e-5)

@@ -303,13 +303,17 @@ def test_tile_plan_is_what_the_source_instantiates():
 
 
 def test_each_dtype_has_its_kernel_source():
-    """bf16 goes to the tensor-core source (wgmma); the float32 source
-    stays on the CUDA cores (no tensor-core instruction)."""
+    """bf16 goes to the wgmma + TMA source; the float32 source runs its
+    products on the tensor cores as TF32 mma.sync (three products each) and
+    has no wgmma and no bf16."""
     csrc = Path(fa_kernel.__file__).parents[1] / "csrc"
     bf16 = (csrc / "flash_attention_bf16.cu").read_text()
-    f32 = (csrc / "flash_attention_f32.cu").read_text()
+    f32 = (csrc / "flash_attention_f32.cu").read_text().split("#include", 1)[1]
     assert "wgmma.mma_async" in bf16 and "cp.async.bulk.tensor" in bf16
-    assert not re.search(r"wgmma|mma\.sync|bfloat16|bf16", f32.split("#include", 1)[1])
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in f32
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in f32    # TF32 rna
+    assert "cp.async.cg.shared.global" in f32
+    assert not re.search(r"wgmma|bfloat16|bf16", f32)
 
 
 @pytest.mark.parametrize("device,dtype,want", [
@@ -344,3 +348,171 @@ def test_card_tensors_never_reach_the_plain_version(monkeypatch, dtype, name):
     before = flash_attention.launches
     flash_attention(*_qkv(dtype=dtype))
     assert launched == [name] and flash_attention.launches == before + 1
+
+
+# --- the float32 kernel's design (3xTF32 on the tensor cores), on the CPU --
+#
+# ``_emulate_f32`` repeats the arithmetic of csrc/flash_attention_f32.cu in
+# torch: each float32 operand split as hi = rna(x) to TF32 and lo = rna(x -
+# hi), rounded on the int32 view; S = Q K^T as three sums over 8-dim k-steps
+# (in the kernel's order of dims), hi.lo, lo.hi and hi.hi, added small terms
+# first; each kv tile's P V summed from 0 over its 8-key k-steps, each
+# k-step's hi.lo, lo.hi, hi.hi added in that order, then O = O * corr + P V
+# in one rounding; (or, the design the kernel does not take, hi.hi alone);
+# 64-row q tiles that visit the kv tiles the kernel visits, BK keys at a
+# time from the tile plan; the online softmax in float32 with exp2 of the
+# score times log2(e) / sqrt(D).  Sums round to nearest here; the tensor
+# core's own rounding of its float32 sums (toward zero) is held by the
+# kernel's tests on the card.
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero: cvt.rna.tf32.f32, on the int32 view."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _score_ksteps(d):
+    """Head dims of each 8-dim k-step of S = Q K^T: thread t's {4t, 4t + 1}
+    then {4t + 2, 4t + 3} of each 16 dims."""
+    for base in range(0, d, 16):
+        for pair in (0, 2):
+            yield [base + 4 * t + pair + c for c in (0, 1) for t in range(4)]
+
+
+def _emulate_f32(q, k, v, causal=True, window=None, products=3):
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    plan = fa_kernel.TILE_PLAN_F32[D]
+    sl2 = math.log2(math.e) / math.sqrt(D)
+    kf = k.repeat_interleave(H // KV, 2).permute(0, 2, 1, 3)
+    vf = v.repeat_interleave(H // KV, 2).permute(0, 2, 1, 3)
+    qf = q.permute(0, 2, 1, 3)
+    ksteps = list(_score_ksteps(D))
+    out = torch.zeros(B, H, Sq, D)
+    for q0 in range(0, Sq, plan.bq):
+        rows = torch.arange(q0, min(q0 + plan.bq, Sq))
+        lo, hi = 0, Skv
+        if causal:
+            hi = min(hi, q0 + plan.bq)
+        if window is not None:
+            lo = max(0, q0 - window + 1)
+        m = torch.full((B, H, len(rows), 1), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, len(rows), D)
+        for kv0 in range(lo // plan.bk * plan.bk, hi, plan.bk):
+            cols = torch.arange(kv0, min(kv0 + plan.bk, Skv))
+            qt, kt = qf[:, :, rows], kf[:, :, cols]
+            hl, lh, hh = (torch.zeros(B, H, len(rows), len(cols)) for _ in range(3))
+            for dims in ksteps:
+                (ah, al), (bh, bl) = _split(qt[..., dims]), _split(kt[..., dims].transpose(-1, -2))
+                hl, lh, hh = hl + ah @ bl, lh + al @ bh, hh + ah @ bh
+            s = (hl + lh) + hh if products == 3 else hh
+            keep = torch.ones(len(rows), len(cols), dtype=torch.bool)
+            if causal:
+                keep &= cols[None] <= rows[:, None]
+            if window is not None:
+                keep &= cols[None] > rows[:, None] - window
+            s = torch.where(keep, s * sl2, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(keep, torch.exp2(s - m_new), torch.tensor(0.0))
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            pv = torch.zeros(B, H, len(rows), D)
+            for j in range(0, len(cols), 8):
+                (ph, pl), (vh, vl) = _split(p[..., j:j + 8]), _split(vf[:, :, cols[j:j + 8]])
+                if products == 3:
+                    pv = pv + ph @ vl
+                    pv = pv + pl @ vh
+                pv = pv + ph @ vh
+            acc = (acc.double() * corr.double() + pv.double()).float()
+            m = m_new
+        out[:, :, rows] = acc / l.clamp(min=1e-30)
+    return out.permute(0, 2, 1, 3)
+
+
+def _f32(arrays):
+    return [torch.tensor(a, dtype=torch.float32) for a in arrays]
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12,
+                      1.0 + 3 * 2.0 ** -11, 3.0e-40, 0.0, -0.0])
+    want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
+                         1.0 + 2.0 ** -9, _tf32(torch.tensor([3.0e-40]))[0], 0.0, -0.0])
+    got = _tf32(x)
+    assert torch.equal(got, want) and bool((got.view(torch.int32) & 0x1FFF == 0).all())
+    hi = _tf32(x[:4])
+    assert torch.equal(hi + _tf32(x[:4] - hi), x[:4])    # two parts carry 22 bits
+
+
+@pytest.mark.parametrize("b,sq,skv,kv,g,d,causal,window,dtype", CASES)
+def test_f32_kernel_arithmetic_matches_reference(b, sq, skv, kv, g, d, causal, window, dtype):
+    """The emulated float32 kernel against the Pallas kernel (interpret) and
+    the oracle at float32's 2e-5, on the cases' shapes in float32."""
+    arrays = _inputs(sq * 1000 + skv + d, b, sq, skv, kv * g, kv, d)
+    out = _emulate_f32(*_f32(arrays), causal, window).numpy()
+    pallas, oracle = _reference(arrays, "float32", causal, window, g)
+    np.testing.assert_allclose(out, pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out, oracle, rtol=2e-5, atol=2e-5)
+
+
+@given(
+    b=st.integers(1, 2),
+    sq=st.integers(1, 200),
+    skv=st.integers(1, 200),
+    h=st.sampled_from([1, 2]),
+    g=st.sampled_from([1, 2]),
+    d=st.sampled_from([32, 64]),
+    causal=st.booleans(),
+    window=st.sampled_from([None, 17, 64]),
+)
+@SET
+def test_f32_kernel_arithmetic_sweep(b, sq, skv, h, g, d, causal, window):
+    """The sweep's draws in float32 through the emulated kernel, against the
+    Pallas kernel and the oracle at 2e-5."""
+    if causal and sq > skv:
+        sq = skv
+    arrays = _inputs(abs(hash((b, sq, skv, h, g, d))) % 2**31, b, sq, skv, h * g, h, d)
+    out = _emulate_f32(*_f32(arrays), causal, window).numpy()
+    pallas, oracle = _reference(arrays, "float32", causal, window, g)
+    np.testing.assert_allclose(out, pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out, oracle, rtol=2e-5, atol=2e-5)
+
+
+def test_one_tf32_product_misses_the_f32_tolerance():
+    """qwen3-4b's head size (128, 4 query heads a KV head), 256 causal
+    tokens: three TF32 products hold 2e-5 against the plain version, one
+    (hi.hi, the TF32 rounding of every operand) misses it, which is why
+    the kernel pays for three."""
+    arrays = _f32(_inputs(41, 1, 256, 256, 8, 2, 128))
+    ref = flash_attention_reference(*arrays, True, None)
+    three = _emulate_f32(*arrays, True, None)
+    one = _emulate_f32(*arrays, True, None, products=1)
+    torch.testing.assert_close(three, ref, rtol=2e-5, atol=2e-5)
+    assert not torch.allclose(one, ref, rtol=2e-5, atol=2e-5)
+    assert float((one - ref).abs().max()) > 10 * float((three - ref).abs().max())
+
+
+@pytest.mark.parametrize("d", fa_ops.HEAD_DIMS)
+def test_f32_tile_plan_fits_the_card(d):
+    plan = fa_kernel.TILE_PLAN_F32[d]
+    assert plan.bq == 64 and plan.bk % 8 == 0 and plan.bk <= 64 and plan.stages >= 2
+    assert fa_kernel.smem_bytes_f32(d, plan) <= fa_kernel.SMEM_LIMIT == 232448
+    # one 64-row q tile's four warps of 16 rows, two blocks an SM up to D = 128
+    assert fa_kernel.smem_bytes_f32(d, plan) <= (fa_kernel.SMEM_LIMIT // 2 if d <= 128
+                                                 else fa_kernel.SMEM_LIMIT)
+
+
+def test_f32_tile_plan_is_what_the_source_instantiates():
+    src = (Path(fa_kernel.__file__).parents[1] / "csrc" / "flash_attention_f32.cu").read_text()
+    planned = {(d, p.bk, p.stages) for d, p in fa_kernel.TILE_PLAN_F32.items()}
+    built = {tuple(map(int, t)) for t in re.findall(r"FA32_PLAN\((\d+), (\d+), (\d+)\)\n", src)}
+    assert planned == built
+    assert "kWarps = 4" in src and "kBQ = 16 * kWarps" in src
+    assert "kLdQK = D + 16" in src and "kLdV = D + 4" in src

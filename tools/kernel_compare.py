@@ -1,0 +1,249 @@
+#!/usr/bin/env python3
+"""The embedding_bag and float32 attention kernels of this checkout against
+those of another checkout (for example its parent commit), on the GPU, at
+the main path's shapes.
+
+Run from the root of a checkout, on the machine with the card:
+
+    python3 tools/kernel_compare.py --other DIR
+
+DIR is the root of the other checkout (``git archive`` of a commit unpacked
+into a git-ignored directory such as ``archive/parent``).  Both checkouts'
+``csrc/embedding_bag.cu`` and ``csrc/flash_attention_f32.cu`` are built with
+nvcc (``sm_90a``) into the git-ignored ``kernels/build/compare/``, and each
+kernel is timed in turns (other, this, this, other) with CUDA events over
+back-to-back launches and, for the bag kernel, also as device time per
+launch from a ``torch.profiler`` trace (at serve_p99 the launches are
+host-bound):
+
+  embedding_bag on dlrm-rm2's 33,762,577 x 64 table (random, on the card)
+      at serve_bulk (ClickLogPipeline ids of 262,144 requests x 26 fields,
+      multi_hot 8: 6,815,744 bags of one id in all 8 slots), at serve_p99
+      (512 requests: 13,312 bags) and on independent zipf ids over the whole
+      table (16,384 x 26 bags of 8), as chip_smoke.py makes them;
+  flash_attention_f32 at 4 x 4,096 tokens, 32 query and 8 KV heads of 128,
+      causal, random float32 q, k, v.
+
+The two bag kernels must agree bit for bit, both attention kernels within
+2e-5 of the plain version.  Prints the card's name and power limit and one
+line per shape; exits non-zero without CUDA or nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = Path("src/repro_torch/kernels/csrc")
+OUT = ROOT / "src" / "repro_torch" / "kernels" / "build" / "compare"
+KERNELS = ("embedding_bag", "flash_attention_f32")
+
+
+def build(roots):
+    """{(tag, kernel): library} for every checkout and kernel, nvcc in
+    parallel."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
+
+    procs = {}
+    for tag, root in roots.items():
+        (OUT / tag).mkdir(parents=True, exist_ok=True)
+        for name in KERNELS:
+            lib = OUT / tag / f"lib{name}.so"
+            procs[tag, name] = (lib, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(root / CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"{key}: nvcc failed:\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {key[0]} {key[1]}: {line.strip()}", flush=True)
+        libs[key] = lib
+    return libs
+
+
+def bag_launcher(lib):
+    fn = ctypes.CDLL(str(lib)).embedding_bag_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def attn_launcher(lib, source, d):
+    """The float32 attention entry point, whether it takes a tile plan, and
+    the score scale it takes at head size ``d`` (the earlier CUDA-core
+    kernel takes no plan and 1 / sqrt(d))."""
+    fn = ctypes.CDLL(str(lib)).flash_attention_f32_launch
+    planned = bool(re.search(r"int D, int bk, int stages", source))
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (10 if planned else 8)
+                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    scale = (math.log2(math.e) if "scale_log2" in source else 1.0) / math.sqrt(d)
+    return fn, planned, scale
+
+
+def time_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps
+
+
+def device_ms(torch, fn, reps):
+    """The device time of one call of ``fn`` (the sum of its kernels'
+    intervals in a ``torch.profiler`` trace of ``reps`` calls, over
+    ``reps``): free of the host time between launches, which bounds
+    back-to-back launches of a small kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise SystemExit("kernel_compare: the profiler traced no device event")
+    return sum(r.end - r.start for r in spans) / 1e3 / reps
+
+
+def in_turns(torch, calls, reps, timer=time_ms):
+    """{tag: [ms, ms]} timed other, this, this, other."""
+    out = {tag: [] for tag in calls}
+    for tag in ("other", "this", "this", "other"):
+        out[tag].append(timer(torch, calls[tag], reps))
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--other", type=Path, required=True,
+                        help="root of the other checkout")
+    args = parser.parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_compare: CUDA is not available", file=sys.stderr)
+        return 2
+    roots = {"this": ROOT, "other": args.other.resolve()}
+    for tag, root in roots.items():
+        if not (root / CSRC).is_dir():
+            print(f"kernel_compare: {root} holds no {CSRC}", file=sys.stderr)
+            return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {card}; torch {torch.__version__}", flush=True)
+    libs = build(roots)
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses
+
+    from repro_torch.configs.base import DLRM_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.recsys import ClickLogPipeline
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_reference
+    from repro_torch.kernels.flash_attention.kernel import TILE_PLAN_F32
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+    from repro_torch.models.dlrm import table_offsets
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    # --- embedding_bag ---------------------------------------------------
+    cfg = dataclasses.replace(get_config("dlrm-rm2"), multi_hot=8)
+    V, d = cfg.total_rows(), cfg.embed_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn((V, d), generator=gen, device=dev) / math.sqrt(d)
+    shapes = {s.name: s.dim("batch") for s in DLRM_SHAPES}
+    ids = {name: torch.as_tensor(next(ClickLogPipeline(cfg, shapes[name], seed=seed))["sparse"]
+                                 .reshape(-1, cfg.multi_hot), device=dev)
+           for seed, name in ((1, "serve_p99"), (2, "serve_bulk"))}
+    rng = np.random.default_rng(7)
+    offsets = table_offsets(cfg)
+    cols = [np.minimum((v * rng.random((16384, 8)) ** 3.0).astype(np.int64), v - 1)
+            + offsets[f] for f, v in enumerate(cfg.vocab_sizes)]
+    ids["zipf"] = torch.as_tensor(np.stack(cols, axis=1).reshape(-1, 8).astype(np.int32),
+                                  device=dev)
+    bags = {tag: bag_launcher(libs[tag, "embedding_bag"]) for tag in roots}
+    for name, x in ids.items():
+        B, H = x.shape
+        outs = {tag: torch.empty((B, d), device=dev) for tag in roots}
+
+        def call(tag, x=x, B=B, H=H):
+            err = bags[tag](table.data_ptr(), x.data_ptr(), outs[tag].data_ptr(), V, d, B, H,
+                            0, stream)
+            if err:
+                raise SystemExit(f"embedding_bag ({tag}) launch failed: CUDA error {err}")
+
+        calls = {tag: (lambda tag=tag: call(tag)) for tag in roots}
+        ms = in_turns(torch, calls, 20 if B < 100_000 else 10)
+        dev_ms = in_turns(torch, calls, 20, device_ms)
+        plain = embedding_bag_reference(table, x)
+        same = bool(torch.equal(outs["this"], outs["other"]))
+        ok = bool(torch.allclose(outs["this"], plain, rtol=1e-4, atol=1e-5))
+        distinct = int(torch.unique(x).numel())
+        bound = 4 * (B * H + distinct * d + B * d) / 3.35e12 * 1e3
+        print(f"[bag] {name}: bags {B}, H={H}, d={d}, distinct rows {distinct}; ms per "
+              f"launch other {ms['other'][0]:.4f} / {ms['other'][1]:.4f}, this "
+              f"{ms['this'][0]:.4f} / {ms['this'][1]:.4f}; device ms per launch (profiler) "
+              f"other {dev_ms['other'][0]:.4f} / {dev_ms['other'][1]:.4f}, this "
+              f"{dev_ms['this'][0]:.4f} / {dev_ms['this'][1]:.4f}; bound {bound:.4f} ms by bytes; "
+              f"this == other bitwise {same}; this vs plain allclose {ok}; {card}",
+              flush=True)
+        if not (same and ok):
+            return 1
+        del outs, plain
+    del table, ids
+    torch.cuda.empty_cache()
+
+    # --- flash_attention_f32 ---------------------------------------------
+    B, S, H, KV, D = 4, 4096, 32, 8, 128
+    q = torch.randn((B, S, H, D), generator=gen, device=dev)
+    k = torch.randn((B, S, KV, D), generator=gen, device=dev)
+    v = torch.randn((B, S, KV, D), generator=gen, device=dev)
+    ref = flash_attention_reference(q, k, v)
+    attn = {tag: attn_launcher(libs[tag, "flash_attention_f32"],
+                               (roots[tag] / CSRC / "flash_attention_f32.cu").read_text(), D)
+            for tag in roots}
+    outs = {tag: torch.empty_like(q) for tag in roots}
+    plan = TILE_PLAN_F32[D]
+
+    def attend(tag):
+        fn, planned, scale = attn[tag]
+        extra = [plan.bk, plan.stages] if planned else []
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), outs[tag].data_ptr(), B, S, S, H,
+                 KV, D, *extra, 1, 0, 0, scale, stream)
+        if err:
+            raise SystemExit(f"flash_attention_f32 ({tag}) launch failed: CUDA error {err}")
+
+    ms = in_turns(torch, {tag: (lambda tag=tag: attend(tag)) for tag in roots}, 5)
+    flops = 4 * D * (S * (S + 1) // 2) * B * H
+    errs = {tag: float((outs[tag] - ref).abs().max()) for tag in roots}
+    print(f"[attn f32] B={B} S={S} H={H} KV={KV} D={D} causal: ms per launch other "
+          f"{ms['other'][0]:.4f} / {ms['other'][1]:.4f}, this {ms['this'][0]:.4f} / "
+          f"{ms['this'][1]:.4f} ({flops / min(ms['this']) / 1e9:.1f} TFLOP/s); bound "
+          f"{3 * flops / 495e12 * 1e3:.4f} ms at the TF32 tensor-core rate (three products), "
+          f"{flops / 67e12 * 1e3:.4f} ms at the float32 CUDA-core rate; max_abs_err vs plain "
+          f"other {errs['other']:.3e}, this {errs['this']:.3e}; {card}", flush=True)
+    return 0 if max(errs.values()) <= 2e-5 + 2e-5 * float(ref.abs().max()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
