@@ -32,14 +32,32 @@ Phases (any failure exits non-zero and prints no result line):
 3. the paper's worked-example values through ``backend="cuda"``;
 4. fig7 at N=2000 on the card (provgen and musicbrainz, hash start): the
    reference's final ipt exactly, and the kernel field bitwise equal to the
-   plain field on the CPU;
+   plain field on the CPU; then online TAPER at N=2000
+   (``benchmarks/online_topology.py``'s settings: an ``OnlineTaper`` over
+   ten ticks of mixed mutations and a drifting workload, the kernel field):
+   every tick's n, m, ipt, hash baseline, trigger and reason, and the four
+   invocations, exactly the reference's;
 5. path 1, TAPER at the paper's ProvGen scale: one ``Taper.invoke`` on
    ``provgen_like(1_000_000)``, k=8, PQ1-4, kernel field, with per-iteration
    field/kernel/swap times and each evaluation's split (its ``vm_step``
    launches, the rest of its wall time), a bitwise repeat of the field, one
    more evaluation under ``torch.profiler`` (host ops by self time, the
    device's busy time), and the kernel's time, bound, gather yardstick and
-   plain-version time at those shapes;
+   plain-version time at those shapes; then the online path on that graph
+   and final partition: an ``OnlineTaper`` over four ticks of mixed
+   mutations (n/2000 new vertices and m/2000 churned edges a tick) with
+   only the topology trigger live, so each invocation is mutation-local
+   (3 iterations at most); per tick the host times of the batch,
+   ``apply_mutations``, the arrival placement, the executor's patch, the
+   swap and the field (its device inputs' rebuild apart), the ``vm_step``
+   launches and their device time, the balance (at most 1.05) and ipt
+   against the drifting hash baseline; then the patched graph against a
+   fresh one built from its arrays (edges, reverse index, counts,
+   ``vm_packing``, ``vm_csr`` with its row plan) and the patched executor
+   against a rebuilt one, bit for bit, the kernel field on the final
+   partition repeatable and equal to the plain field, the device memory
+   no more than the first tick's plus the graph's growth, and the kernel
+   at the path's last launch's shapes;
 6. path 2, DLRM serving at full ``dlrm-rm2`` width with ``multi_hot=8``
    (33,762,577 x 64 table on the card): 20 ``serve_p99`` and 3
    ``serve_bulk`` requests through ``serve_step``, kernel forward against
@@ -78,7 +96,8 @@ bound (each input byte once) it shows how much of a kernel's gap is the
 graph's randomness.  Each path runs with every kernel's launch count set to
 0 just before it and read just after; a path that launched none of its
 kernels fails.  The line
-before the last is the ``kernels`` JSON record; the last line is
+before the last is the ``kernels`` JSON record (``vm_step`` on three paths:
+the provgen invocation, the online path and the placement); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -103,9 +122,35 @@ MQ = ["Area.Artist.(Artist|Label).Area",
       "Artist.Credit.(Track|Recording).Credit.Artist",
       "Artist.Credit.Track.Medium"]
 MQ_FREQ = (0.2, 0.3, 0.5)
+#: benchmarks/online_topology.py at N=2000 on the card (BENCH_PR5..PR10.json,
+#: online_topology/tick0..9): per tick n, m, ipt, the drifting hash
+#: baseline's ipt, below it, invoked, reason; and the invocations in all
+ONLINE_2000 = [
+    (2002, 8976, 199000, 263979, True, False, "-"),
+    (2004, 8986, 113836, 150725, True, False, "-"),
+    (2006, 8998, 39768, 52338, True, True, "topology"),
+    (2008, 9008, 11044, 12795, True, False, "-"),
+    (2010, 9020, 28372, 36457, True, True, "workload"),
+    (2012, 9032, 88714, 120210, True, False, "-"),
+    (2014, 9044, 164200, 229778, True, True, "ipt"),
+    (2016, 9056, 228322, 321839, True, False, "-"),
+    (2018, 9068, 252401, 358224, True, False, "-"),
+    (2020, 9078, 230615, 331805, True, True, "topology"),
+]
+ONLINE_2000_INVOCATIONS = 4
 #: full-size cell: the paper's ProvGen scale (~1M vertices, paper §6.1)
 FULL_N = 1_000_000
 FULL_MAX_ITERS = 8
+#: the online path on path 1's graph and partition: ticks of mixed
+#: mutations (n/2000 new vertices, m/2000 churned edges a tick), queries
+#: observed a tick, and the online invocations' iteration cap
+ONLINE_TICKS = 4
+ONLINE_BATCH = 300
+ONLINE_MAX_ITERS = 3
+#: slack per live tensor on the device-memory check of the online path:
+#: the caching allocator counts a whole block as allocated, and leaves a
+#: large block unsplit when less than 1 MiB of it would remain
+ONLINE_MEM_SLACK = 1 << 20
 #: kernel vs plain tolerance (float32; the sums run in different orders)
 RTOL, ATOL = 1e-5, 1e-6
 #: H100 SXM data-sheet peaks (NVIDIA H100 data sheet, dense, without
@@ -756,6 +801,66 @@ def fig7(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: online TAPER at N=2000
+# ---------------------------------------------------------------------------
+
+
+def online_2000(torch, device):
+    """benchmarks/online_topology.py's settings with the kernel field: an
+    OnlineTaper over a mixed mutation stream and a drifting workload, the
+    executor's counts patched tick by tick; every tick's values are the
+    reference's."""
+    from repro_torch.core.online import OnlinePolicy, OnlineTaper
+    from repro_torch.core.taper import Taper, TaperConfig
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.graphs.partition import hash_partition
+    from repro_torch.workload.executor import QueryExecutor
+    from repro_torch.workload.stream import GraphMutationStream, WorkloadStream
+
+    t_phase = time.perf_counter()
+    g = musicbrainz_like(2000, 6.0, seed=13).copy()
+    queries = [q for q, _ in _workload(MQ, MQ_FREQ)]
+    ex = QueryExecutor(g)
+    stream = WorkloadStream(queries, period=float(len(ONLINE_2000)), seed=3)
+    muts = GraphMutationStream("mixed", seed=7, vertices_per_tick=max(2, g.n // 2000),
+                               edges_per_tick=max(8, g.m // 2000))
+    taper0 = Taper(g, 8, TaperConfig(max_iterations=4, seed=0), device=device)
+    part0 = taper0.invoke(hash_partition(g.n, 8, seed=1), stream.workload()).final_part
+    online = OnlineTaper(g, 8, part=part0, config=taper0.config, device=device,
+                         policy=OnlinePolicy(cadence=4, dirty_fraction=0.05,
+                                             drift_l1=0.35))
+    online.observe(stream.sample(300))
+    for q in queries:
+        ex.traversals(q)
+    for tick, want in enumerate(ONLINE_2000):
+        stream.advance(1.0)
+        online.observe(stream.sample(300))
+        t0 = time.perf_counter()
+        applied = g.apply_mutations(muts.next_batch(g))
+        for q in queries:
+            ex.traversals(q)
+        t_maint = time.perf_counter() - t0
+        online.ingest(applied)
+        w_true = stream.workload()
+        ipt_now = ex.workload_ipt(w_true, online.part)
+        step = online.step(measured_ipt=ipt_now)
+        if step.invoked:
+            ipt_now = ex.workload_ipt(w_true, online.part)
+        ipt_hash = ex.workload_ipt(w_true, hash_partition(g.n, 8, seed=1))
+        got = (g.n, g.m, round(ipt_now), round(ipt_hash), bool(ipt_now < ipt_hash),
+               step.invoked, step.reason or "-")
+        log(f"[online2000] tick {tick}: n={got[0]} m={got[1]} ipt={got[2]} "
+            f"hash_baseline={got[3]} below_baseline={got[4]} invoked={got[5]} "
+            f"reason={got[6]} maintenance {t_maint * 1e3:.2f} ms; reference {want}")
+        check(got == want, f"online N=2000 tick {tick}: {got}, reference {want}")
+    log(f"[online2000] invocations={online.invocations} "
+        f"(reference {ONLINE_2000_INVOCATIONS}); phase {time.perf_counter() - t_phase:.2f} s")
+    check(online.invocations == ONLINE_2000_INVOCATIONS,
+          f"online N=2000: {online.invocations} invocations, "
+          f"reference {ONLINE_2000_INVOCATIONS}")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the main path at full size
 # ---------------------------------------------------------------------------
 
@@ -906,8 +1011,10 @@ def full_size(torch, device):
         f"{prof['host_ops']} top-level aten ops; by self host time: "
         + "; ".join(f"{name} {ms:.3f} ms x{cnt}" for name, ms, cnt in prof["top"]))
 
-    # the kernel at the main path's shapes: its last launch's arguments
-    return dict(launches=launches, **_vm_at_path_shapes(torch, "full", timer.last_args))
+    # the kernel at the main path's shapes: its last launch's arguments; the
+    # graph and its final partition go on to the online path
+    return dict(launches=launches, graph=g, part=final,
+                **_vm_at_path_shapes(torch, "full", timer.last_args))
 
 
 def _vm_at_path_shapes(torch, path, args):
@@ -945,6 +1052,211 @@ def _vm_at_path_shapes(torch, path, args):
         f"{_yardstick_text(gathered, other, kernel=ms)}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 err=err)
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: online TAPER on path 1's graph
+# ---------------------------------------------------------------------------
+
+
+def _live_bytes(torch, *tensor_sets):
+    """(bytes, count) of the distinct device tensors in the given dicts and
+    tuples (a CSR counted with its plan), each storage once."""
+    from repro_torch.kernels.segment_spmm.ops import EdgeCSR
+
+    seen = {}
+    for ts in tensor_sets:
+        for t in (ts.values() if isinstance(ts, dict) else ts):
+            if isinstance(t, EdgeCSR):
+                parts = (t.row_ptr, t.src, t.order, t.plan.runs, t.plan.long_rows)
+            else:
+                parts = (t,)
+            for p in parts:
+                if isinstance(p, torch.Tensor) and p.is_cuda:
+                    seen[p.data_ptr()] = p.numel() * p.element_size()
+    return sum(seen.values()), len(seen)
+
+
+def online_full(torch, device, g, part):
+    """An OnlineTaper on path 1's graph and final partition: ticks of mixed
+    mutations, only the topology trigger live (so every invocation is
+    mutation-local), the kernel field over each version's rebuilt CSR and
+    row plan; then the patched graph, the patched executor and the field
+    held against fresh builds, and the device memory against the graph's
+    growth."""
+    import numpy as np
+    import repro_torch.core.visitor as visitor
+    from repro_torch.core.online import OnlinePolicy, OnlineTaper
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.core.tpstry import TPSTry
+    from repro_torch.core.visitor import extroversion_field
+    from repro_torch.graphs.graph import LabelledGraph
+    from repro_torch.graphs.metrics import partition_balance
+    from repro_torch.graphs.partition import hash_partition
+    from repro_torch.kernels.vm_step.ops import vm_step
+    from repro_torch.workload.executor import QueryExecutor
+    from repro_torch.workload.stream import GraphMutationStream, WorkloadStream
+
+    t_path = time.perf_counter()
+    queries = [q for q, _ in _workload(PQ, PQ_FREQ)]
+    stream = WorkloadStream(queries, period=float(ONLINE_TICKS), seed=3)
+    muts = GraphMutationStream("mixed", seed=7, vertices_per_tick=g.n // 2000,
+                               edges_per_tick=g.m // 2000)
+    policy = OnlinePolicy(dirty_fraction=0.01, cadence=1000, drift_l1=2.0,
+                          ipt_regression=float("inf"))
+    online = OnlineTaper(g, 8, part=part, policy=policy, device=device,
+                         config=TaperConfig(max_iterations=ONLINE_MAX_ITERS, seed=0))
+    n0, m0 = g.n, g.m
+    t0 = time.perf_counter()
+    ex = QueryExecutor(g)
+    for q in queries:
+        ex.traversals(q)
+    t_ex0 = time.perf_counter() - t0
+    online.observe(stream.sample(ONLINE_BATCH))
+    log(f"[online] provgen n={g.n} m={g.m} k=8 from path 1's final partition; "
+        f"{ONLINE_TICKS} ticks of {muts.vertices_per_tick} new vertices and "
+        f"{muts.edges_per_tick} churned edges, {ONLINE_BATCH} observed queries a "
+        f"tick; OnlinePolicy(dirty_fraction=0.01, cadence=1000, drift_l1=2.0, "
+        f"ipt_regression=inf); max_iterations={ONLINE_MAX_ITERS}; executor "
+        f"counts for PQ1-4 built in {t_ex0:.2f} s")
+
+    uploads = []
+    device_inputs = visitor._device_inputs
+
+    def timed_inputs(g_, pre, cnt, lab_vcount, dev):
+        if pre.get("_dev_key") == (g_.version, dev):
+            return device_inputs(g_, pre, cnt, lab_vcount, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = device_inputs(g_, pre, cnt, lab_vcount, dev)
+        torch.cuda.synchronize()
+        uploads.append(time.perf_counter() - t)
+        return out
+
+    timer = _KernelTimer(torch, vm_step)
+    visitor.vm_step, visitor._device_inputs = timer, timed_inputs
+    mem, invoked_ticks = [], 0
+    try:
+        reset_counts()                              # the path starts here
+        for tick in range(ONLINE_TICKS):
+            stream.advance(1.0)
+            online.observe(stream.sample(ONLINE_BATCH))
+            t0 = time.perf_counter()
+            batch = muts.next_batch(g)
+            t1 = time.perf_counter()
+            applied = g.apply_mutations(batch)
+            t2 = time.perf_counter()
+            online.ingest(applied)
+            t3 = time.perf_counter()
+            for q in queries:
+                ex.traversals(q)
+            t4 = time.perf_counter()
+            w_true = stream.workload()
+            ipt_now = ex.workload_ipt(w_true, online.part)
+            dirty = int(online._dirty.sum())
+            n_up, n_ev = len(uploads), len(timer.events)
+            t5 = time.perf_counter()
+            step = online.step(measured_ipt=ipt_now)
+            t_step = time.perf_counter() - t5
+            torch.cuda.synchronize()
+            rep = step.report
+            kern = [a.elapsed_time(b) for a, b in timer.events[n_ev:]]
+            line = (f"[online] tick {tick}: n={g.n} m={g.m} dirty={dirty} "
+                    f"reason={step.reason or '-'}; host: batch {t1 - t0:.3f} s, "
+                    f"apply_mutations {t2 - t1:.3f} s, ingest (arrival placement) "
+                    f"{t3 - t2:.3f} s, executor patch {t4 - t3:.3f} s")
+            if rep is not None:
+                invoked_ticks += 1
+                ipt_now = ex.workload_ipt(w_true, online.part)
+                bal = partition_balance(online.part, 8)
+                line += (f"; invocation {t_step:.3f} s: {rep.iterations} iterations, "
+                         f"{rep.total_moves} moves, swap {sum(rep.swap_seconds):.3f} s, "
+                         f"field {sum(rep.field_seconds):.3f} s (device inputs "
+                         f"rebuilt in {sum(uploads[n_up:]):.3f} s), vm_step "
+                         f"{len(kern)} launches {sum(kern):.3f} ms; balance {bal:.4f}")
+                check(bal <= 1.0 + 0.05 + 1e-9,
+                      f"online tick {tick}: balance {bal} breaks the 5% bound")
+            ipt_hash = ex.workload_ipt(w_true, hash_partition(g.n, 8, seed=1))
+            log(line + f"; ipt {ipt_now:.0f}, hash baseline {ipt_hash:.0f}")
+            if "_dev" in online.taper._pre:
+                mem.append((tick, torch.cuda.memory_allocated(),
+                            _live_bytes(torch, online.taper._pre["_dev"],
+                                        timer.last_args or ())))
+            timer.args_by_shape.clear()
+        launches = read_counts("online", ["vm_step"])["vm_step"]  # ... ends here
+    finally:
+        visitor.vm_step, visitor._device_inputs = vm_step, device_inputs
+    check(invoked_ticks >= 1 and online.invocations == invoked_ticks,
+          f"online: {online.invocations} invocations over {ONLINE_TICKS} ticks")
+
+    # the device memory: one version's buffers held, the old ones freed
+    (t_a, mem_a, (live_a, _)), (t_b, mem_b, (live_b, count_b)) = mem[0], mem[-1]
+    allowed = mem_a + (live_b - live_a) + count_b * ONLINE_MEM_SLACK
+    log(f"[online] device memory allocated after tick {t_a}: {mem_a} B, after "
+        f"tick {t_b}: {mem_b} B; the graph's device arrays grew by "
+        f"{live_b - live_a} B (n {n0} -> {g.n}, m {m0} -> {g.m}); allowed "
+        f"{allowed} B (with {count_b} x {ONLINE_MEM_SLACK} B of allocator "
+        f"blocks); one stale version's buffers would add {live_a} B")
+    check(mem_b <= allowed, "online: device memory grew past the graph's growth "
+          "(a stale version's buffers were kept)")
+
+    # the patched graph against a fresh one built from its arrays
+    t0 = time.perf_counter()
+    fresh = LabelledGraph(n=g.n, labels=g.labels.copy(), label_names=g.label_names,
+                          src=g.src.copy(), dst=g.dst.copy())
+    pairs = [("src", g.src, fresh.src), ("dst", g.dst, fresh.dst),
+             ("row_ptr", g.row_ptr, fresh.row_ptr),
+             ("reverse_edge_index", g.reverse_edge_index, fresh.reverse_edge_index),
+             ("neighbour-label counts", g.cached_neighbor_label_counts(),
+              fresh.neighbor_label_counts())]
+    (p, dl, ic, dg), (fp, fdl, fic, fdg) = g.vm_packing(), fresh.vm_packing()
+    pairs += [(f"vm_packing.{k}", getattr(p, k), getattr(fp, k))
+              for k in ("src", "dst_local", "meta", "pad_mask", "order")]
+    pairs += [("vm_packing dst_label", dl, fdl), ("vm_packing inv_cnt", ic, fic),
+              ("vm_packing dst_global", dg, fdg)]
+    c, fc = g.vm_csr(), fresh.vm_csr()
+    pairs += [(f"vm_csr.{k}", getattr(c, k), getattr(fc, k))
+              for k in ("row_ptr", "src", "order")]
+    pairs += [("vm_csr.plan.runs", c.plan.runs, fc.plan.runs),
+              ("vm_csr.plan.long_rows", c.plan.long_rows, fc.plan.long_rows)]
+    for name, a, b in pairs:
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"online: patched {name} differs from a fresh graph's")
+    log(f"[online] patched graph == fresh graph bitwise ({len(pairs)} arrays: edges, "
+        f"row_ptr, reverse index, counts, vm_packing, vm_csr with its plan of "
+        f"{c.plan.runs.shape[0] - 1} runs and {c.plan.long_rows.shape[0]} long rows); "
+        f"fresh build and compare {time.perf_counter() - t0:.2f} s")
+    del fresh, pairs, fp, fdl, fic, fdg, fc
+
+    # the patched executor against a fresh one
+    t0 = time.perf_counter()
+    ex2 = QueryExecutor(g)
+    for q in queries:
+        check(np.array_equal(ex.traversals(q), ex2.traversals(q)),
+              f"online: patched traversal counts of {q.to_text()} differ from a rebuild")
+    t_rebuild = time.perf_counter() - t0
+    log(f"[online] executor: patched counts for PQ1-4 == rebuilt counts bitwise; "
+        f"rebuild {t_rebuild:.3f} s (first build {t_ex0:.3f} s)")
+    del ex2
+
+    # the kernel field on the final partition: repeatable, and the plain field
+    arrays = TPSTry.from_workload(_workload(PQ, PQ_FREQ)).compile(g.label_names)
+    pre = online.taper._pre
+    f1 = extroversion_field(g, arrays, online.part, 8, _precomputed=pre, device=device)
+    f2 = extroversion_field(g, arrays, online.part, 8, _precomputed=pre, device=device)
+    fpl = extroversion_field(g, arrays, online.part, 8, _precomputed=pre,
+                             backend="torch", device=device)
+    for k in ("alpha", "pr", "edge_mass", "extro_mass", "extroversion", "ext_to"):
+        a = getattr(f1, k)
+        check(bool(np.isfinite(a).all()), f"online: field {k} not finite")
+        check(np.array_equal(a, getattr(f2, k)), f"online: field {k} not repeatable")
+        check(np.array_equal(a, getattr(fpl, k)),
+              f"online: cuda field {k} differs from the plain field")
+    log(f"[online] final field (n={g.n}, N={arrays.n_nodes}): cuda twice bitwise "
+        f"equal, == plain torch field on the card bitwise; vm_step launches "
+        f"{launches}; path {time.perf_counter() - t_path:.1f} s")
+    del f1, f2, fpl
+    return dict(launches=launches, **_vm_at_path_shapes(torch, "online", timer.last_args))
 
 
 # ---------------------------------------------------------------------------
@@ -1688,7 +2000,9 @@ def main() -> int:
     plain_repeat(torch)
     paper_values(device)
     fig7(torch, device)
+    online_2000(torch, device)
     full = full_size(torch, device)
+    online = online_full(torch, device, full.pop("graph"), full.pop("part"))
     serve = dlrm_serving(torch, device)
     place = row_placement(torch, device)
     gnn = gcn_inference(torch, device)
@@ -1711,6 +2025,16 @@ def main() -> int:
          "max_abs_err": max(errs["vm_step"], place["err"]),
          "ms": place["ms"], "plain_ms": place["plain_ms"],
          "bound_ms": place["bound_ms"], "bound_by": place["bound_by"],
+         "library_ms": None},
+        # the same kernel on the online path: a graph that mutates between
+        # invocations, each version's CSR and row plan rebuilt
+        {"name": "vm_step/online", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vm_step.cu",
+         "replaces": "src/repro/kernels/vm_step/kernel.py:26",
+         "launches": online["launches"],
+         "max_abs_err": max(errs["vm_step"], online["err"]),
+         "ms": online["ms"], "plain_ms": online["plain_ms"],
+         "bound_ms": online["bound_ms"], "bound_by": online["bound_by"],
          "library_ms": None},
         {"name": "embedding_bag", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",

@@ -1,12 +1,13 @@
 """Carry the JAX reference's state across into the port's objects.
 
-TAPER has no weights: its state is the graph, the compiled workload trie,
-the partition vector and, between the field and the swap, the extroversion
-field.  The models (DLRM, GCN, the dense LM transformer) have parameter
-pytrees: nested dicts and lists of arrays.  Each arrives here as plain numpy arrays (read off the
-reference's objects by the caller, ``np.asarray`` per leaf), so both
-packages can compute on the same state without this package importing the
-reference.
+TAPER has no weights: its state is the graph (with its mutation version
+and log, once it has changed), the compiled workload trie, the partition
+vector, the online driver's query-frequency sketch and, between the field
+and the swap, the extroversion field.  The models (DLRM, GCN, the dense LM
+transformer) have parameter pytrees: nested dicts and lists of arrays.
+Each arrives here as plain numpy arrays (read off the reference's objects
+by the caller, ``np.asarray`` per leaf), so both packages can compute on
+the same state without this package importing the reference.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch
 from repro_torch.core.tpstry import TrieArrays
 from repro_torch.core.visitor import ExtroversionResult
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graphs.graph import LabelledGraph
+from repro_torch.graphs.graph import LabelledGraph, mutation_log_from_state
+from repro_torch.workload.sketch import FrequencySketch
 
 TRIE_FIELDS = ("parent", "label", "depth", "p", "cond_p", "child_index",
                "is_leaf", "n_labels")
@@ -33,6 +35,7 @@ class PortState:
     trie: Optional[TrieArrays] = None
     part: Optional[np.ndarray] = None
     field: Optional[ExtroversionResult] = None
+    sketch: Optional[FrequencySketch] = None
 
 
 def _copy(v):
@@ -42,14 +45,20 @@ def _copy(v):
 def from_reference_arrays(graph: Optional[Mapping] = None,
                           trie: Optional[Mapping] = None,
                           part=None,
-                          field: Optional[Mapping] = None) -> PortState:
+                          field: Optional[Mapping] = None,
+                          sketch: Optional[Mapping] = None) -> PortState:
     """Build the port's objects from the reference's arrays.
 
     ``graph`` maps ``n``, ``labels``, ``label_names``, ``src`` and ``dst``
     (the edge list may be in any order: the graph re-sorts it by
-    ``(src, dst)``), ``trie`` maps :data:`TRIE_FIELDS`, ``field`` maps
-    :data:`RESULT_FIELDS` and ``part`` is a partition vector.  Arrays are
-    copied; each argument is optional.
+    ``(src, dst)``) and, for a graph that has mutated, optionally
+    ``version`` and ``mutation_log``, the ``(arrays, meta)`` pair of the
+    reference's ``mutation_log_state`` — so an executor's cached counts
+    patch across the same records as they would there.  ``trie`` maps
+    :data:`TRIE_FIELDS`, ``field`` maps :data:`RESULT_FIELDS`, ``part`` is
+    a partition vector and ``sketch`` is a ``FrequencySketch.state_dict()``
+    (half life, clock, counts, stamps and query texts).  Arrays are copied;
+    each argument is optional.
     """
     out = PortState()
     if graph is not None:
@@ -59,7 +68,14 @@ def from_reference_arrays(graph: Optional[Mapping] = None,
             label_names=list(graph["label_names"]),
             src=np.array(graph["src"], np.int32),
             dst=np.array(graph["dst"], np.int32),
+            version=int(graph.get("version", 0)),
         )
+        if graph.get("mutation_log") is not None:
+            arrays, meta = graph["mutation_log"]
+            out.graph.mutation_log.extend(mutation_log_from_state(
+                {k: np.array(v, copy=True) for k, v in arrays.items()}, meta))
+    if sketch is not None:
+        out.sketch = FrequencySketch.from_state(sketch)
     if trie is not None:
         out.trie = TrieArrays(**{f: _copy(trie[f]) for f in TRIE_FIELDS})
     if part is not None:

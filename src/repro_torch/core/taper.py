@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field as dfield
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -29,6 +29,12 @@ from repro_torch.utils import get_logger
 log = get_logger("core.taper")
 
 Workload = Sequence[Tuple[RPQ, float]]
+
+
+class InvocationAborted(RuntimeError):
+    """Raised inside :meth:`Taper.invoke` when the caller's ``should_abort``
+    hook fires — a watchdog cancelling a stalled/abandoned run.  The
+    partition is untouched (enhancement only publishes via the report)."""
 
 
 @dataclass
@@ -97,7 +103,8 @@ class TaperReport:
 
 
 class Taper:
-    """Workload-aware partition enhancer over a fixed graph."""
+    """Workload-aware partition enhancer over a graph that may mutate
+    between invocations (``LabelledGraph.apply_mutations``)."""
 
     def __init__(self, g: LabelledGraph, k: int,
                  config: Optional[TaperConfig] = None,
@@ -107,13 +114,16 @@ class Taper:
         self.config = config or TaperConfig()
         self.device = resolve_device(device)
         # partition-independent precomputes shared across invocations; the
-        # field also caches its device-resident edge arrays in here (keyed
-        # to the graph's version), so only the partition vector is uploaded
-        # per iteration
+        # field also caches its device-resident edge arrays in here, so only
+        # the partition vector is uploaded per iteration.  All of it is keyed
+        # to the graph's mutation version: after ``g.apply_mutations`` the
+        # host counts are re-fetched (the graph patches them incrementally)
+        # and the visitor replaces its stale device buffers.
         self._pre = {
             "cnt": g.cached_neighbor_label_counts(),
             "lab_vcount": g.label_counts(),
         }
+        self._g_version = g.version
         self._rng = np.random.default_rng(self.config.seed)
         # §4.2 lazy re-evaluation state: compiled trie + memoised fields are
         # reused across invocations while the TPSTry is unchanged.  The
@@ -143,6 +153,32 @@ class Taper:
             np.array([nd.p for nd in trie.nodes], dtype=np.float64).tobytes(),
         )
 
+    def _sync_graph(self) -> None:
+        """Refresh graph-derived host state after topology mutations.
+
+        Device-buffer refresh happens inside ``repro_torch.core.visitor``
+        (it compares the version recorded next to the buffers); here we
+        re-fetch the incrementally-patched host count arrays and drop the
+        field memo, which was computed against the old topology."""
+        if self._g_version != self.g.version:
+            self._pre["cnt"] = self.g.cached_neighbor_label_counts()
+            self._pre["lab_vcount"] = self.g.label_counts()
+            self._field_memo = None
+            self._g_version = self.g.version
+
+    def _frontier_mask(self, frontier: np.ndarray) -> np.ndarray:
+        """Dirty-frontier candidate mask: the mutated vertices plus their
+        1-hop neighbourhood (a mutation changes the extroversion of both
+        endpoints' neighbourhoods)."""
+        g = self.g
+        mask = np.zeros(g.n, dtype=bool)
+        vs = np.asarray(frontier, dtype=np.int64).reshape(-1)
+        vs = vs[(vs >= 0) & (vs < g.n)]
+        mask[vs] = True
+        if vs.size:
+            mask[g.dst[g.edge_indices_of(vs)].astype(np.int64)] = True
+        return mask
+
     # -- workload handling ---------------------------------------------------
     def build_trie(self, workload: Workload) -> TPSTry:
         return TPSTry.from_workload(
@@ -153,6 +189,7 @@ class Taper:
     def field(
         self, part: np.ndarray, trie: Union[TPSTry, TrieArrays]
     ) -> ExtroversionResult:
+        self._sync_graph()
         arrays = (
             trie if isinstance(trie, TrieArrays) else trie.compile(self.g.label_names)
         )
@@ -195,8 +232,27 @@ class Taper:
         part: np.ndarray,
         workload: Union[Workload, TPSTry, TrieArrays],
         max_iterations: Optional[int] = None,
+        frontier: Optional[np.ndarray] = None,
+        should_abort: Optional[Callable[[], bool]] = None,
     ) -> TaperReport:
-        """One TAPER invocation (def. 1): enhance ``part`` for the workload."""
+        """One TAPER invocation (def. 1): enhance ``part`` for the workload.
+
+        ``frontier`` (optional vertex-id array) runs a *mutation-local*
+        invocation: the swap candidate queue is seeded only from the dirty
+        frontier (the given vertices plus their 1-hop neighbourhood), and
+        grows with each iteration's moved vertices so improvements can
+        propagate outward — paper §5.5's queue pruning generalised to
+        topology deltas.
+
+        ``should_abort`` (optional zero-arg callable) is polled at iteration
+        boundaries; returning True raises :class:`InvocationAborted` — the
+        cooperative cancel a serving watchdog uses on an abandoned run, so
+        the thread releases the graph-immutability window promptly instead
+        of finishing work nobody will commit.
+        """
+        self._sync_graph()
+        if should_abort is not None and should_abort():
+            raise InvocationAborted("invocation aborted before start")
         if isinstance(workload, TrieArrays):
             arrays = workload
         elif isinstance(workload, TPSTry):
@@ -241,15 +297,28 @@ class Taper:
             self.g.n, self.k, arrays.n_nodes, fld.total_extroversion,
         )
 
+        cand_mask = None
+        if frontier is not None:
+            cand_mask = self._frontier_mask(frontier)
+
         iters = max_iterations or cfg.max_iterations
         for it in range(iters):
+            if should_abort is not None and should_abort():
+                raise InvocationAborted(
+                    f"invocation aborted at iteration {it + 1}")
             t0 = time.perf_counter()
             new_part, stats = swap_iteration(
-                self.g, part, fld, self.k, cfg.swap_config(), self._rng)
+                self.g, part, fld, self.k, cfg.swap_config(), self._rng,
+                candidate_mask=cand_mask)
             report.swap_seconds.append(time.perf_counter() - t0)
             if stats.moves == 0:
                 log.info("iteration %d: no moves, converged", it + 1)
                 break
+            if cand_mask is not None:
+                # let the frontier follow the moves: moved vertices and
+                # their neighbourhoods become candidates next iteration
+                moved_now = np.nonzero(new_part != part)[0]
+                cand_mask |= self._frontier_mask(moved_now)
             part = new_part
             fld = self._timed_field(part, arrays, report)
             report.parts.append(part.copy())

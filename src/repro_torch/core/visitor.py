@@ -123,11 +123,14 @@ def _device_inputs(g: LabelledGraph, pre: Dict, cnt, lab_vcount,
     Cached inside the caller's ``_precomputed`` dict (Taper keeps one per
     graph) next to the graph's ``version`` and the device, so repeated
     iterations re-use the same buffers: only the partition vector crosses
-    host->device per iteration."""
+    host->device per iteration.  After a mutation the stale version's
+    buffers are dropped before the new ones are uploaded (with the CSR's
+    new row plan), so one version's buffers are held at a time."""
     key = (g.version, device)
     dev = pre.get("_dev")
     if dev is not None and pre.get("_dev_key") == key:
         return dev
+    pre["_dev"] = dev = None      # free the stale version's buffers first
     csr = g.vm_csr()
 
     def put(a, dtype):
@@ -142,7 +145,7 @@ def _device_inputs(g: LabelledGraph, pre: Dict, cnt, lab_vcount,
         "inv_cnt": 1.0 / torch.clamp_min(put(cnt, torch.float32), 1.0),
         "lab_vcount": put(lab_vcount, torch.int64),
         "out_deg": put(np.diff(g.row_ptr), torch.int64),
-        # checked and row-planned once per graph, when the graph made it
+        # checked and row-planned once per graph version, when the graph made it
         "csr": csr.to(device),
         "in_deg": put(np.diff(csr.row_ptr), torch.int64),
     }

@@ -1,11 +1,18 @@
-from repro_torch.graphs.graph import LabelledGraph
-from repro_torch.graphs.partition import hash_partition, metis_like_partition
+from repro_torch.graphs.graph import AppliedMutation, LabelledGraph, MutationBatch
+from repro_torch.graphs.partition import (
+    hash_partition,
+    metis_like_partition,
+    fennel_stream_partition,
+)
 from repro_torch.graphs.metrics import edge_cut, partition_balance, partition_sizes
 
 __all__ = [
+    "AppliedMutation",
     "LabelledGraph",
+    "MutationBatch",
     "hash_partition",
     "metis_like_partition",
+    "fennel_stream_partition",
     "edge_cut",
     "partition_balance",
     "partition_sizes",

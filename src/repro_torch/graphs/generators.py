@@ -230,3 +230,19 @@ def provgen_like(n: int = 20_000, avg_degree: float = 6.0, seed: int = 0) -> Lab
         n, PROV_LABELS, [0.6, 0.3, 0.1], _PROV_SCHEMA,
         avg_degree=avg_degree, skew=1.2, seed=seed,
     )
+
+
+def power_law_labelled(
+    n: int, n_labels: int = 4, avg_degree: float = 8.0, skew: float = 1.0, seed: int = 0
+) -> LabelledGraph:
+    """Unstructured labelled graph (any label pair allowed) for property tests."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_labels, size=n).astype(np.int32)
+    m = int(n * avg_degree / 2)
+    us = _zipf_pick(rng, n, m, skew)
+    vs = rng.integers(0, n, size=m)
+    g = LabelledGraph.from_undirected_edges(
+        n, labels, np.stack([us, vs], axis=1), [f"L{i}" for i in range(n_labels)]
+    )
+    g.validate()
+    return g

@@ -2,7 +2,7 @@
 
 TAPER *enhances* an existing partitioning (paper §1.1); it never computes one
 from scratch.  We provide the two starting points the paper evaluates —
-hash and (unweighted) Metis:
+hash and (unweighted) Metis — plus a streaming partitioner:
 
 * ``hash_partition`` — the cheap baseline (paper §1: "grouping vertices by
   some hash of their ids").
@@ -10,6 +10,8 @@ hash and (unweighted) Metis:
   (heavy-edge-matching coarsening, greedy region-growing initialisation,
   boundary FM refinement at every level).  Stands in for the Metis binary;
   same objective, no external dependency.
+* ``fennel_stream_partition`` — single-pass streaming partitioner (Fennel,
+  paper [24]) as a third baseline.
 """
 from __future__ import annotations
 
@@ -40,6 +42,37 @@ def hash_partition(n: int, k: int, seed: int = 0) -> np.ndarray:
     x *= np.uint64(0x94D049BB133111EB)
     x ^= x >> np.uint64(31)
     return (x % np.uint64(k)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Fennel streaming
+# ---------------------------------------------------------------------------
+
+
+def fennel_stream_partition(
+    g: LabelledGraph, k: int, seed: int = 0, gamma: float = 1.5
+) -> np.ndarray:
+    """One-pass Fennel: argmax_p |N(v) ∩ P_p| - alpha*gamma/2*|P_p|^(gamma-1)."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(g.n)
+    m = g.undirected_edge_count()
+    alpha = m * (k ** (gamma - 1.0)) / max(g.n, 1) ** gamma
+    part = -np.ones(g.n, dtype=np.int32)
+    sizes = np.zeros(k, dtype=np.int64)
+    cap = int(1.1 * g.n / k) + 1
+    for v in order:
+        nbrs = g.neighbors(v)
+        scores = np.zeros(k, dtype=np.float64)
+        pn = part[nbrs]
+        pn = pn[pn >= 0]
+        if pn.size:
+            np.add.at(scores, pn, 1.0)
+        scores -= alpha * gamma / 2.0 * np.power(sizes.astype(np.float64), gamma - 1.0)
+        scores[sizes >= cap] = -np.inf
+        p = int(np.argmax(scores))
+        part[v] = p
+        sizes[p] += 1
+    return part
 
 
 # ---------------------------------------------------------------------------

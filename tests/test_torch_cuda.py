@@ -545,3 +545,94 @@ def test_flash_attention_f32_kernel_off_its_tiles(card):
     q, k, v = (t.to(card) for t in (q, k, v))
     torch.testing.assert_close(flash_attention(q, k, v), flash_attention_reference(q, k, v),
                                rtol=2e-5, atol=2e-5)
+
+
+# --- vm_step on a graph that mutates between invocations ---------------------
+
+def _mutated_provgen():
+    """provgen_like(3000) after three mixed mutation batches and a batch
+    that gives vertex 17 a long row, with its CSR cached before each."""
+    from repro_torch.graphs.graph import MutationBatch
+    from repro_torch.workload.stream import GraphMutationStream
+
+    g = provgen_like(3000, seed=5)
+    ms = GraphMutationStream("mixed", seed=7, vertices_per_tick=20, edges_per_tick=200)
+    for _ in range(3):
+        g.vm_csr()
+        g.apply_mutations(ms.next_batch(g))
+    g.vm_csr()
+    g.apply_mutations(MutationBatch(add_edges=[(17, v) for v in range(100, 700)]))
+    return g
+
+
+def test_vm_step_on_a_patched_csr_bitwise_vs_cpu(card):
+    """The CSR that apply_mutations leaves behind (re-derived from the
+    patched packing, with its row plan, a long row included) equals a fresh
+    graph's, and the kernel over it is the CPU plain version bit for bit."""
+    from repro_torch.graphs.graph import LabelledGraph
+
+    g = _mutated_provgen()
+    csr = g.vm_csr()
+    fresh = LabelledGraph(n=g.n, labels=g.labels, label_names=g.label_names,
+                          src=g.src, dst=g.dst).vm_csr()
+    for a, b in ((csr.row_ptr, fresh.row_ptr), (csr.src, fresh.src),
+                 (csr.order, fresh.order), (csr.plan.runs, fresh.plan.runs),
+                 (csr.plan.long_rows, fresh.plan.long_rows)):
+        assert np.array_equal(a, b)
+    assert csr.plan.long_rows.shape[0] >= 1
+    par, val = _trie_columns(
+        [(parse_rpq(q), f) for q, f in (("Entity.(Entity)*.Entity", 0.4),
+                                        ("Entity.Activity.(Agent)*", 0.6))],
+        g.label_names)
+    rng = np.random.default_rng(3)
+    E = csr.src.shape[0]
+    w = rng.random(E).astype(np.float32)
+    w[rng.random(E) < 0.4] = 0.0
+    args = [torch.as_tensor(rng.random((g.n, par.shape[1])), dtype=torch.float32),
+            torch.as_tensor(par), torch.as_tensor(val), csr.to("cpu"),
+            torch.as_tensor(w), torch.as_tensor(g.labels, dtype=torch.int32)]
+    want = vm_step(*args)
+    before = vm_step.launches
+    got = vm_step(*(a.to(card) for a in args))
+    torch.cuda.synchronize()
+    assert vm_step.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_device_inputs_reupload_once_per_version(card):
+    """A Taper's device buffers are uploaded once per graph version: reused
+    within a version, replaced (and the old ones freed) after a mutation,
+    and the kernel field on the mutated graph equals the CPU plain field
+    bit for bit."""
+    import gc
+    import weakref
+
+    from repro_torch.core.taper import Taper
+    from repro_torch.graphs.graph import MutationBatch
+
+    g = provgen_like(3000, seed=5)
+    w = [(parse_rpq("Entity.(Entity)*.Entity"), 0.6),
+         (parse_rpq("Entity.Activity.(Agent)*"), 0.4)]
+    arrays = TPSTry.from_workload(w).compile(g.label_names)
+    part = hash_partition(g.n, 8, seed=1)
+    taper = Taper(g, 8, device=card)
+    taper.field(part, arrays)
+    dev0 = taper._pre["_dev"]
+    taper.field(part[::-1].copy(), arrays)
+    assert taper._pre["_dev"] is dev0 and taper._pre["_dev_key"] == (0, card)
+    old_src = weakref.ref(dev0["src"])
+    del dev0
+    g.apply_mutations(MutationBatch(add_vertex_labels=[0, 1],
+                                    add_edges=[(3000, 5), (3001, 3000), (7, 9)],
+                                    remove_edges=[(int(g.src[0]), int(g.dst[0]))]))
+    part = np.concatenate([part, [0, 1]]).astype(np.int32)
+    f = taper.field(part, arrays)
+    gc.collect()
+    assert old_src() is None
+    dev1 = taper._pre["_dev"]
+    assert taper._pre["_dev_key"] == (1, card)
+    taper.field(part[::-1].copy(), arrays)
+    assert taper._pre["_dev"] is dev1
+    fp = extroversion_field(g, arrays, part, 8, backend="torch", device="cpu")
+    for name in ("alpha", "pr", "edge_mass", "extro_mass", "extroversion", "ext_to"):
+        assert np.array_equal(getattr(f, name), getattr(fp, name)), name
