@@ -36,15 +36,28 @@ Phases (any failure exits non-zero and prints no result line):
    (``benchmarks/online_topology.py``'s settings: an ``OnlineTaper`` over
    ten ticks of mixed mutations and a drifting workload, the kernel field):
    every tick's n, m, ipt, hash baseline, trigger and reason, and the four
-   invocations, exactly the reference's;
+   invocations, exactly the reference's; then the sharded field at N=2000
+   on 4 gloo ranks spawned on the one card (``launch/mesh.py::run_ranks``;
+   NCCL refuses two ranks on one card, so their CUDA tensors cross through
+   pinned host buffers): fig7 through ``cuda_sharded`` (partition map,
+   sliced exchange) with the reference's final ipt and the same partitions
+   on every rank, and one field per shard map and exchange, each bitwise
+   the ``cuda`` field;
 5. path 1, TAPER at the paper's ProvGen scale: one ``Taper.invoke`` on
    ``provgen_like(1_000_000)``, k=8, PQ1-4, kernel field, with per-iteration
    field/kernel/swap times and each evaluation's split (its ``vm_step``
    launches, the rest of its wall time), a bitwise repeat of the field, one
    more evaluation under ``torch.profiler`` (host ops by self time, the
    device's busy time), and the kernel's time, bound, gather yardstick and
-   plain-version time at those shapes; then the online path on that graph
-   and final partition: an ``OnlineTaper`` over four ticks of mixed
+   plain-version time at those shapes; then the sharded field on that
+   graph, each evaluation bitwise path 1's ``cuda`` field on the same
+   partition: S=1 on an NCCL group in this process at the hash start and
+   at the final partition, then 4 gloo ranks on the card at the final
+   partition (partition map, sliced exchange, two evaluations a rank), with
+   each evaluation's wall, exchange and ``vm_step`` device time, the halo
+   bytes a depth and the halo ratio, the device memory before and after,
+   and the kernel at shard 0's shapes (alpha the shard's rows and its
+   halo); then the online path on that graph and final partition: an ``OnlineTaper`` over four ticks of mixed
    mutations (n/2000 new vertices and m/2000 churned edges a tick) with
    only the topology trigger live, so each invocation is mutation-local
    (3 iterations at most); per tick the host times of the batch,
@@ -96,8 +109,9 @@ bound (each input byte once) it shows how much of a kernel's gap is the
 graph's randomness.  Each path runs with every kernel's launch count set to
 0 just before it and read just after; a path that launched none of its
 kernels fails.  The line
-before the last is the ``kernels`` JSON record (``vm_step`` on three paths:
-the provgen invocation, the online path and the placement); the last line is
+before the last is the ``kernels`` JSON record (``vm_step`` on four paths:
+the provgen invocation, the sharded field, the online path and the
+placement); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -151,6 +165,15 @@ ONLINE_MAX_ITERS = 3
 #: the caching allocator counts a whole block as allocated, and leaves a
 #: large block unsplit when less than 1 MiB of it would remain
 ONLINE_MEM_SLACK = 1 << 20
+#: the sharded field: gloo ranks sharing the card in the N=2000 phase and
+#: on the full-size path (NCCL refuses two ranks on one card), the full-size
+#: path's shard map and exchange, and its evaluations per rank count
+SHARDED_RANKS = 4
+SHARDED_MAPS = ("stripe", "partition", "bfs")
+SHARDED_EXCHANGES = ("sliced", "psum")
+SHARDED_FULL = ("partition", "sliced")
+SHARDED_FULL_EVALS = 2
+FIELD_NAMES = ("alpha", "pr", "edge_mass", "extro_mass", "extroversion", "ext_to")
 #: kernel vs plain tolerance (float32; the sums run in different orders)
 RTOL, ATOL = 1e-5, 1e-6
 #: H100 SXM data-sheet peaks (NVIDIA H100 data sheet, dense, without
@@ -376,23 +399,30 @@ def _vm_plain(args):
 
     alpha, par, val, csr, w, row_label = args
     row_ptr, src = csr.row_ptr, csr.src
-    n = alpha.shape[0]
-    dst = torch.repeat_interleave(torch.arange(n, device=alpha.device),
+    n_out = row_ptr.shape[0] - 1
+    dst = torch.repeat_interleave(torch.arange(n_out, device=alpha.device),
                                   (row_ptr[1:] - row_ptr[:-1]).long())
-    return vm_step_reference(alpha, par, val, src, dst, w, row_label[dst], n)
+    return vm_step_reference(alpha, par, val, src, dst, w, row_label[dst], n_out)
 
 
 def _vm_bound(args):
-    """(bound ms, by, bytes, FLOP, local edges) of one ``vm_step`` launch:
-    every input read once and the output written once; per local edge and
-    trie column one gather-multiply, one scale and one add."""
+    """(bound ms, by, bytes, FLOP, local edges, alpha bytes) of one
+    ``vm_step`` launch: every input read once and the output written once
+    (n_out rows); of alpha only the rows that live edges (w != 0) gather,
+    which leaves out a shard's halo rows that only cut edges read; per local
+    edge and trie column one gather-multiply, one scale and one add."""
+    import torch
+
     alpha, par, val, csr, w, row_label = args
-    n, N = alpha.shape
+    N = alpha.shape[1]
+    n_out = csr.row_ptr.shape[0] - 1
     L, E = par.shape[0], csr.src.shape[0]
-    nz = int((w != 0).sum())
-    bytes_moved = 4 * ((n + 1) + 2 * E + n + 2 * n * N + 2 * L * N)
+    live = w != 0
+    nz = int(live.sum())
+    alpha_bytes = 4 * N * int(torch.unique(csr.src[live]).numel())
+    bytes_moved = 4 * ((n_out + 1) + 2 * E + n_out + n_out * N + 2 * L * N) + alpha_bytes
     flops = 3 * nz * N
-    return (*_bound(bytes_moved, flops), bytes_moved, flops, nz)
+    return (*_bound(bytes_moved, flops), bytes_moved, flops, nz, alpha_bytes)
 
 
 def _yardstick_text(gather_bytes, other_bytes, **times):
@@ -861,6 +891,113 @@ def online_2000(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the sharded field at N=2000, on gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+def _field_digest(fld):
+    """sha256 of each output of an extroversion field (dtype, shape, bytes)."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    for name in FIELD_NAMES:
+        a = np.ascontiguousarray(getattr(fld, name))
+        out[name] = hashlib.sha256(
+            f"{a.dtype}{a.shape}".encode() + a.tobytes()).hexdigest()
+    return out
+
+
+def _sharded_2000_rank(rank, n_ranks, cases):
+    """One rank of the N=2000 phase: fig7 through ``cuda_sharded``
+    (partition map, sliced exchange), then one field evaluation per shard
+    map and exchange at the hash start.  The workload comes as the parent's
+    compiled trie, so trie columns match the parent's fields."""
+    import torch
+    from repro_torch.core.taper import Taper, TaperConfig
+    from repro_torch.core.visitor import extroversion_field
+    from repro_torch.kernels.vm_step.ops import vm_step
+
+    vm_step.launches = 0
+    out = {}
+    for name, g, start, arrays in cases:
+        rep = Taper(g, 8, TaperConfig(max_iterations=8, seed=0,
+                                      field_backend="cuda_sharded",
+                                      shard_map_source="partition",
+                                      halo_exchange="sliced"),
+                    device="cuda").invoke(start, arrays)
+        fields, transport = {}, None
+        for source in SHARDED_MAPS:
+            for exchange in SHARDED_EXCHANGES:
+                pre = {}
+                fields[source, exchange] = _field_digest(extroversion_field(
+                    g, arrays, start, 8, _precomputed=pre, backend="cuda_sharded",
+                    device="cuda", shard_map_source=source, halo_exchange=exchange))
+                transport = pre["_shard_exchange"]["transport"]
+        out[name] = dict(parts=rep.parts, halo=rep.halo_stats[-1], fields=fields,
+                         transport=transport)
+    torch.cuda.synchronize()
+    return out, vm_step.launches
+
+
+def sharded_2000(torch, device):
+    """fig7 at N=2000 with the sharded field on SHARDED_RANKS gloo ranks that
+    share the card: the reference's final ipt exactly, the same partitions on
+    every rank, and each shard map and exchange bitwise the cuda field."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core.tpstry import TPSTry
+    from repro_torch.core.visitor import extroversion_field
+    from repro_torch.graphs.generators import musicbrainz_like, provgen_like
+    from repro_torch.graphs.partition import hash_partition
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.workload.executor import QueryExecutor
+
+    t0 = time.perf_counter()
+    cases, want, workloads = [], {}, {}
+    for name, gen, seed, w in (
+            ("provgen", provgen_like, 11, _workload(PQ, PQ_FREQ)),
+            ("musicbrainz", musicbrainz_like, 13, _workload(MQ, MQ_FREQ))):
+        g = gen(2000, avg_degree=6.0, seed=seed)
+        start = hash_partition(g.n, 8, seed=1)
+        arrays = TPSTry.from_workload(w).compile(g.label_names)
+        cases.append((name, g, start, arrays))
+        workloads[name] = w
+        want[name] = _field_digest(extroversion_field(g, arrays, start, 8,
+                                                      backend="cuda", device=device))
+    with tempfile.TemporaryDirectory() as work:
+        results = run_ranks(_sharded_2000_rank, SHARDED_RANKS, work, args=(cases,))
+    launches = sum(r[1] for r in results)
+    for name, g, _, _ in cases:
+        ranks = [r[0][name] for r in results]
+        parts = ranks[0]["parts"]
+        check(all(len(r["parts"]) == len(parts) and all(
+            np.array_equal(a, b) for a, b in zip(r["parts"], parts)) for r in ranks),
+            f"sharded N=2000 {name}: the ranks' partitions differ")
+        ex = QueryExecutor(g)
+        series = [round(ex.workload_ipt(workloads[name], p)) for p in parts]
+        halo = ranks[0]["halo"]
+        log(f"[sharded2000] {name} S={SHARDED_RANKS} gloo ranks on the card "
+            f"({ranks[0]['transport']}), partition map, sliced exchange: "
+            f"iterations={len(parts) - 1} ipt={series} reference final "
+            f"{FIG7_FINAL[name]}; halo {halo['halo_bytes_per_depth']} B a depth, "
+            f"ratio {halo['halo_ratio']:.4f}")
+        check(series[-1] == FIG7_FINAL[name],
+              f"sharded N=2000 {name}: final ipt {series[-1]}, reference "
+              f"{FIG7_FINAL[name]}")
+        for key in ranks[0]["fields"]:
+            same = all(r["fields"][key] == want[name] for r in ranks)
+            log(f"[sharded2000] {name} {key[0]}/{key[1]}: every rank's "
+                f"cuda_sharded field == cuda field bitwise: {same}")
+            check(same, f"sharded N=2000 {name} {key}: differs from the cuda field")
+    log(f"[sharded2000] vm_step launches in the ranks: {launches}; phase "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(launches > 0, "sharded N=2000: no vm_step launch")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the main path at full size
 # ---------------------------------------------------------------------------
 
@@ -1024,7 +1161,8 @@ def _vm_at_path_shapes(torch, path, args):
 
     alpha, par, val, csr, wt, row_label = args
     row_ptr, src, plan = csr.row_ptr, csr.src, csr.plan
-    n, N = alpha.shape
+    n_in, N = alpha.shape
+    n = row_ptr.shape[0] - 1                      # output rows
     L, E = par.shape[0], src.shape[0]
     ms = _time_ms(torch, lambda: vm_step(*args), 20)
     plain_ms = _time_ms(torch, lambda: _vm_plain(args), 3)
@@ -1033,10 +1171,10 @@ def _vm_at_path_shapes(torch, path, args):
     err = float((out_k - out_p).abs().max())
     check(bool(torch.allclose(out_k, out_p, rtol=RTOL, atol=ATOL)),
           f"{path}: vm_step kernel disagrees with its plain version")
-    bound_ms, bound_by, bytes_moved, flops, nz = _vm_bound(args)
+    bound_ms, bound_by, bytes_moved, flops, nz, alpha_bytes = _vm_bound(args)
     gathered = _vm_gather_sectors(torch, args)
     # every input but alpha (gathered) read once, the output written once
-    other = bytes_moved - 4 * n * N
+    other = bytes_moved - alpha_bytes
     deg = (row_ptr[1:] - row_ptr[:-1]).long()
     rows = torch.repeat_interleave(torch.arange(n, device=deg.device), deg)
     local_deg = torch.bincount(rows[wt != 0], minlength=n)
@@ -1045,13 +1183,167 @@ def _vm_at_path_shapes(torch, path, args):
         f"({nz / n:.2f} local); {ms * 1e6 / max(nz, 1):.3f} ns per local edge; "
         f"{plan.runs.shape[0] - 1} runs, {plan.long_rows.shape[0]} rows on the "
         f"long-row path")
-    log(f"[{path}] vm_step at n={n} E={E} N={N} L={L} (local edges {nz}): kernel "
+    halo = f" (alpha {n_in} rows: the shard's and its halo)" if n_in != n else ""
+    halo += f", live edges read {alpha_bytes // (4 * N)} alpha rows,"
+    log(f"[{path}] vm_step at n={n}{halo} E={E} N={N} L={L} (local edges {nz}): kernel "
         f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
         f"{bound_by} ({bytes_moved} B, {flops} FLOP), max_abs_err {err:.3e} "
         f"bitwise={bool(torch.equal(out_k, out_p))}; "
         f"{_yardstick_text(gathered, other, kernel=ms)}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 err=err)
+
+
+# ---------------------------------------------------------------------------
+# phase 5a: the sharded field at full size
+# ---------------------------------------------------------------------------
+
+
+def _sharded_evals(torch, g, arrays, parts, pre, reps=1, **kw):
+    """``cuda_sharded`` evaluations of ``g`` at each partition of ``parts``
+    (``reps`` each): per evaluation its digest, host wall time, exchange
+    time, ``vm_step`` launches and their device time (CUDA events)."""
+    import repro_torch.core.visitor as visitor
+    from repro_torch.core.visitor import extroversion_field
+    from repro_torch.kernels.vm_step.ops import vm_step
+
+    timer = _KernelTimer(torch, vm_step)
+    visitor.vm_step = timer
+    evals = []
+    try:
+        for part in parts:
+            for _ in range(reps):
+                k0 = len(timer.events)
+                t0 = time.perf_counter()
+                fld = extroversion_field(g, arrays, part, 8, _precomputed=pre,
+                                         backend="cuda_sharded", device="cuda", **kw)
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                evals.append(dict(
+                    digest=_field_digest(fld), wall=wall,
+                    exchange=pre["_shard_exchange"]["seconds"],
+                    launches=len(timer.events) - k0,
+                    kernel_ms=sum(a.elapsed_time(b) for a, b in timer.events[k0:])))
+    finally:
+        visitor.vm_step = vm_step
+    return evals, timer.last_args
+
+
+def _sharded_full_rank(rank, n_ranks, g, part, arrays):
+    """One gloo rank of the full-size path on the card: SHARDED_FULL_EVALS
+    evaluations at path 1's final partition; rank 0 then times the kernel
+    at its shard's shapes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.vm_step.ops import vm_step
+
+    source, exchange = SHARDED_FULL
+    pre = {}
+    mem0 = torch.cuda.memory_allocated()
+    vm_step.launches = 0
+    t0 = time.perf_counter()
+    evals, args = _sharded_evals(torch, g, arrays, [part], pre,
+                                 reps=SHARDED_FULL_EVALS,
+                                 shard_map_source=source, halo_exchange=exchange)
+    launches = vm_step.launches
+    wall = time.perf_counter() - t0
+    mem1 = torch.cuda.memory_allocated()
+    # rank 0 times the kernel alone on the card: the others have finished
+    # their work and wait at the second barrier until it is done
+    torch.cuda.synchronize()
+    dist.barrier()
+    kernel = (_vm_at_path_shapes(torch, f"sharded{n_ranks}", args) if rank == 0
+              else None)
+    dist.barrier()
+    return dict(evals=evals, launches=launches, wall=wall, mem=(mem0, mem1),
+                halo=pre["_halo_stats"], uploads=pre["_shard_uploads"],
+                transport=pre["_shard_exchange"]["transport"], kernel=kernel,
+                shapes=(int(args[0].shape[0]), int(args[3].row_ptr.shape[0] - 1)))
+
+
+def _eval_text(e):
+    return (f"wall {e['wall']:.4f} s, exchange {e['exchange']:.4f} s, vm_step "
+            f"{e['launches']} launches {e['kernel_ms']:.3f} ms")
+
+
+def sharded_full(torch, device, g, part):
+    """The sharded field on path 1's provgen-1M graph, bitwise path 1's cuda
+    field on the same partition: S=1 on an NCCL group in this process at the
+    hash start and at the final partition, then SHARDED_RANKS gloo ranks
+    sharing the card at the final partition (partition map, sliced)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core.tpstry import TPSTry
+    from repro_torch.core.visitor import extroversion_field
+    from repro_torch.graphs.partition import hash_partition
+    from repro_torch.launch.mesh import make_smoke_group, run_ranks
+
+    t_path = time.perf_counter()
+    g = g.copy()                 # path 1's graph stays as the online path wants it
+    w = _workload(PQ, PQ_FREQ)
+    arrays = TPSTry.from_workload(w).compile(g.label_names)
+    part0 = hash_partition(g.n, 8, seed=1)
+    want = [_field_digest(extroversion_field(g, arrays, p, 8, backend="cuda",
+                                             device=device)) for p in (part0, part)]
+    torch.cuda.empty_cache()
+
+    # S=1: an NCCL group of this process
+    group = make_smoke_group(device)
+    pre = {"_group": group}
+    mem0 = torch.cuda.memory_allocated()
+    reset_counts()                                   # the path starts here
+    evals, args1 = _sharded_evals(torch, g, arrays, [part0, part], pre)
+    counts = read_counts("sharded1", ["vm_step"])    # ... S=1 ends here
+    mem1 = torch.cuda.memory_allocated()
+    hs = pre["_halo_stats"]
+    for what, e, d in zip(("hash start", "final partition"), evals, want):
+        same = e["digest"] == d
+        log(f"[sharded1] S=1 ({pre['_shard_exchange']['transport']}), {what}: "
+            f"{_eval_text(e)}; == path 1's cuda field bitwise: {same}")
+        check(same, f"sharded S=1 at the {what}: differs from the cuda field")
+    log(f"[sharded1] halo {hs['halo_bytes_per_depth']} B a depth ({hs['n_frontier']} "
+        f"frontier rows), full field {hs['full_field_bytes_per_depth']} B, ratio "
+        f"{hs['halo_ratio']:.6f}; device memory {mem0} B before, {mem1} B after")
+    shard = pre["_shard_dev"]["shard"]
+    shard_bytes, _ = _live_bytes(torch, shard)
+    del shard
+    del pre, args1
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # S = SHARDED_RANKS gloo ranks sharing the card, at the final partition
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        results = run_ranks(_sharded_full_rank, SHARDED_RANKS, work,
+                            args=(g.copy(), part, arrays))
+    t_ranks = time.perf_counter() - t0
+    r0 = results[0]
+    for rank, r in enumerate(results):
+        for i, e in enumerate(r["evals"]):
+            same = e["digest"] == want[1]
+            log(f"[sharded{SHARDED_RANKS}] rank {rank} evaluation {i} "
+                f"({r['transport']}, {SHARDED_FULL[0]} map, {SHARDED_FULL[1]}): "
+                f"{_eval_text(e)}; == path 1's cuda field bitwise: {same}")
+            check(same, f"sharded S={SHARDED_RANKS} rank {rank}: differs from the "
+                        f"cuda field")
+        log(f"[sharded{SHARDED_RANKS}] rank {rank}: alpha rows {r['shapes'][0]} "
+            f"(its {r['shapes'][1]} and the halo), device memory {r['mem'][0]} B "
+            f"before, {r['mem'][1]} B after; uploads {r['uploads']}")
+    hs = r0["halo"]
+    log(f"[sharded{SHARDED_RANKS}] halo {hs['halo_bytes_per_depth']} B a depth "
+        f"({hs['hot_rows']} hot rows, {hs['sliced_rows']} sliced rows, "
+        f"{hs['n_frontier']} frontier rows), full field "
+        f"{hs['full_field_bytes_per_depth']} B, ratio {hs['halo_ratio']:.6f}; "
+        f"ranks {t_ranks:.2f} s (spawn, graph, packing, evaluations)")
+    launches = counts["vm_step"] + sum(r["launches"] for r in results)
+    check(all(r["launches"] > 0 for r in results), "a sharded rank launched no vm_step")
+    log(f"[sharded] vm_step launches: S=1 {counts['vm_step']}, S={SHARDED_RANKS} "
+        f"{[r['launches'] for r in results]}; the S=1 shard's device inputs "
+        f"{shard_bytes} B; path {time.perf_counter() - t_path:.1f} s")
+    del g
+    return dict(launches=launches, **r0["kernel"])
 
 
 # ---------------------------------------------------------------------------
@@ -2001,7 +2293,9 @@ def main() -> int:
     paper_values(device)
     fig7(torch, device)
     online_2000(torch, device)
+    sharded_2000(torch, device)
     full = full_size(torch, device)
+    sharded = sharded_full(torch, device, full["graph"], full["part"])
     online = online_full(torch, device, full.pop("graph"), full.pop("part"))
     serve = dlrm_serving(torch, device)
     place = row_placement(torch, device)
@@ -2035,6 +2329,16 @@ def main() -> int:
          "max_abs_err": max(errs["vm_step"], online["err"]),
          "ms": online["ms"], "plain_ms": online["plain_ms"],
          "bound_ms": online["bound_ms"], "bound_by": online["bound_by"],
+         "library_ms": None},
+        # the same kernel per shard of the sharded field: alpha holds the
+        # shard's rows and its exchanged halo (times at shard 0's shapes)
+        {"name": "vm_step/sharded", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vm_step.cu",
+         "replaces": "src/repro/kernels/vm_step/kernel.py:26",
+         "launches": sharded["launches"],
+         "max_abs_err": sharded["err"],
+         "ms": sharded["ms"], "plain_ms": sharded["plain_ms"],
+         "bound_ms": sharded["bound_ms"], "bound_by": sharded["bound_by"],
          "library_ms": None},
         {"name": "embedding_bag", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",

@@ -454,6 +454,12 @@ class OnlineTaper:
         n_snap = min(pending.n_snapshot, new_part.shape[0])
         new_part[:n_snap] = report.final_part.astype(np.int32)[:n_snap]
         self.part = new_part  # atomic rebind: serve threads read old or new
+        # off the critical path (the swap is already published): re-deal the
+        # sharded field's vertex layout along the just-committed enhanced
+        # partition, so the next invocation's halo exchange follows it —
+        # no-op unless shard_map_source="partition" and enough vertices
+        # changed shard (Taper.maybe_redeal_shards)
+        self.taper.maybe_redeal_shards(new_part)
         ds = pending.dirty_snapshot
         self._dirty[:ds.shape[0]] &= ~ds
         self._last_total_moves = report.total_moves

@@ -14,14 +14,15 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field as dfield
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from repro_torch.core.rpq import RPQ
 from repro_torch.core.swap import SwapConfig, SwapStats, swap_iteration
 from repro_torch.core.tpstry import TPSTry, TrieArrays
-from repro_torch.core.visitor import ExtroversionResult, extroversion_field
+from repro_torch.core.visitor import (SHARDED_BACKENDS, ExtroversionResult,
+                                      extroversion_field)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import LabelledGraph
 from repro_torch.utils import get_logger
@@ -58,8 +59,23 @@ class TaperConfig:
     dense_ext_to: bool = True
     #: extroversion-field DP engine: "cuda" (the vm_step kernel; CUDA
     #: devices only) or "torch" (the plain fused field); None picks "cuda"
-    #: on a CUDA device and "torch" on the CPU
+    #: on a CUDA device and "torch" on the CPU.  "cuda_sharded" /
+    #: "torch_sharded" run either per shard of a process group, with a halo
+    #: exchange between depths (every rank runs the invocation in full)
     field_backend: Optional[str] = None
+    #: sharded backends only — how vertices are dealt to shards: "stripe"
+    #: (contiguous id ranges), "partition" (dealt along the live TAPER
+    #: partition vector, k -> S folded; OnlineTaper re-deals on commit) or
+    #: "bfs" (locality order for graphs with no partition yet)
+    shard_map_source: str = "stripe"
+    #: sharded backends only — per-depth halo exchange: "sliced" (hot union
+    #: plus per-shard-pair ring slices; bytes scale with what each shard
+    #: reads) or "psum" (one all_reduce of the union frontier)
+    halo_exchange: str = "sliced"
+    #: skip a commit-time shard re-deal when fewer than this fraction of
+    #: vertices would change shard (avoids repacking churn on converged
+    #: partitions)
+    redeal_min_moved_frac: float = 0.01
     star_max: int = 3
     trie_max_len: Optional[int] = None
     seed: int = 0
@@ -90,6 +106,10 @@ class TaperReport:
     #: to the host, so device work is included) and of each swap iteration
     field_seconds: List[float] = dfield(default_factory=list)
     swap_seconds: List[float] = dfield(default_factory=list)
+    #: under a sharded field backend, each evaluation's halo statistics
+    #: (the field's ``_precomputed["_halo_stats"]``: bytes per depth, halo
+    #: ratio, shard map, exchange, shards, depth steps)
+    halo_stats: List[Dict] = dfield(default_factory=list)
 
     @property
     def final_part(self) -> np.ndarray:
@@ -137,6 +157,7 @@ class Taper:
         # (trie, partition) pair can hit, and one ExtroversionResult is
         # O(n*N + m + n*k) floats — don't pin more than one
         self._field_memo: Optional[Tuple[Tuple, ExtroversionResult]] = None
+        self._redeal_counter = 0
 
     def __del__(self):
         # release this instance's snapshot slot on a shared, long-lived trie
@@ -179,6 +200,81 @@ class Taper:
             mask[g.dst[g.edge_indices_of(vs)].astype(np.int64)] = True
         return mask
 
+    @property
+    def _sharded(self) -> bool:
+        return self.config.field_backend in SHARDED_BACKENDS
+
+    def _group_shards(self) -> int:
+        """Shard count of the field's process group: ``_pre["_group"]``'s
+        size, else the default group's (every rank of it), else 1 — the
+        one-rank group the sharded field would make."""
+        import torch.distributed as dist
+
+        group = self._pre.get("_group")
+        if group is not None:
+            return dist.get_world_size(group)
+        return dist.get_world_size() if dist.is_initialized() else 1
+
+    def _seed_shard_order(self, part: np.ndarray) -> None:
+        """Resolve the sticky shard map now (idempotent) so the field memo
+        key is stable from the first evaluation on."""
+        cfg = self.config
+        if (not self._sharded or cfg.shard_map_source == "stripe"
+                or "_shard_order" in self._pre):
+            return
+        from repro_torch.graphs.sharded_packing import compute_shard_order
+
+        self._pre["_shard_order"] = (
+            f"{cfg.shard_map_source}:0",
+            compute_shard_order(self.g, cfg.shard_map_source,
+                                self._group_shards(), part=part))
+
+    def maybe_redeal_shards(self, part: np.ndarray,
+                            n_shards: Optional[int] = None) -> bool:
+        """Refresh the sharded field's shard map along ``part``.
+
+        Applies only under a sharded field backend with
+        ``shard_map_source="partition"``.  Computes the fresh
+        partition-dealt vertex order and installs it in the precompute
+        dict; the next field evaluation re-packs (and re-uploads) along it
+        — callers invoke this *off the invocation's critical path*
+        (``OnlineTaper.commit_invocation`` does, right after the partition
+        swap).  Skipped (returns ``False``) when fewer than
+        ``redeal_min_moved_frac`` of vertices would change shard, so a
+        converged partitioning never thrashes the packing."""
+        cfg = self.config
+        if not self._sharded or cfg.shard_map_source != "partition":
+            return False
+        if n_shards is None:
+            n_shards = self._group_shards()
+        from repro_torch.graphs.sharded_packing import partition_shard_order
+
+        new_pos = partition_shard_order(part, n_shards)
+        cur = self._pre.get("_shard_order")
+        if cur is not None:
+            _, cur_pos = cur
+            n0 = min(cur_pos.shape[0], new_pos.shape[0])
+            # the packing's true per-shard span (block-padded); the live
+            # packing knows it exactly, else reconstruct from the default
+            # block_n the field path uses
+            sdev = self._pre.get("_shard_dev")
+            if sdev is not None and sdev["sp"].n_shards == n_shards:
+                span = sdev["sp"].n_local_pad
+            else:
+                nb = max(1, -(-new_pos.shape[0] // 128))
+                span = -(-nb // n_shards) * 128
+            moved = (float(np.mean(
+                new_pos[:n0] // span != cur_pos[:n0] // span)) if n0 else 1.0)
+            if moved < cfg.redeal_min_moved_frac:
+                return False
+        self._redeal_counter += 1
+        self._pre["_shard_order"] = (
+            f"partition:{self._redeal_counter}", new_pos)
+        self._field_memo = None     # memoed field keyed on the old layout
+        log.info("re-dealt shard map along partition (epoch %d)",
+                 self._redeal_counter)
+        return True
+
     # -- workload handling ---------------------------------------------------
     def build_trie(self, workload: Workload) -> TPSTry:
         return TPSTry.from_workload(
@@ -194,6 +290,9 @@ class Taper:
             trie if isinstance(trie, TrieArrays) else trie.compile(self.g.label_names)
         )
         cfg = self.config
+        # resolve the sticky shard map before keying the memo, so the first
+        # sharded evaluation doesn't memoize under a pre-install key
+        self._seed_shard_order(np.asarray(part))
         # §4.2 lazy re-evaluation: if neither the trie probabilities nor the
         # partition changed since the last evaluation, the field is reused
         # verbatim instead of recomputed
@@ -203,6 +302,7 @@ class Taper:
             arrays.cond_p.tobytes(),
             np.asarray(part, dtype=np.int32).tobytes(),
             cfg.depth_cap, cfg.dense_ext_to, cfg.field_backend,
+            cfg.halo_exchange, self._pre.get("_shard_order", (None,))[0],
             self.k, self.g.version,
         )
         if self._field_memo is not None and self._field_memo[0] == memo_key:
@@ -217,6 +317,8 @@ class Taper:
             dense_ext_to=cfg.dense_ext_to,
             backend=cfg.field_backend,
             device=self.device,
+            shard_map_source=cfg.shard_map_source,
+            halo_exchange=cfg.halo_exchange,
         )
         self._field_memo = (memo_key, fld)
         return fld
@@ -225,6 +327,8 @@ class Taper:
         t0 = time.perf_counter()
         fld = self.field(part, arrays)
         report.field_seconds.append(time.perf_counter() - t0)
+        if self._sharded:
+            report.halo_stats.append(dict(self._pre["_halo_stats"]))
         return fld
 
     def invoke(

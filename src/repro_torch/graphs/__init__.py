@@ -5,6 +5,13 @@ from repro_torch.graphs.partition import (
     fennel_stream_partition,
 )
 from repro_torch.graphs.metrics import edge_cut, partition_balance, partition_sizes
+from repro_torch.graphs.sharded_packing import (
+    ShardedVMPacking,
+    bfs_shard_order,
+    build_sharded_vm_packing,
+    compute_shard_order,
+    partition_shard_order,
+)
 
 __all__ = [
     "AppliedMutation",
@@ -16,4 +23,9 @@ __all__ = [
     "edge_cut",
     "partition_balance",
     "partition_sizes",
+    "ShardedVMPacking",
+    "bfs_shard_order",
+    "build_sharded_vm_packing",
+    "compute_shard_order",
+    "partition_shard_order",
 ]

@@ -457,6 +457,44 @@ class LabelledGraph:
             self._vm_pack_cache["csr"] = entry
         return entry
 
+    def vm_packing_sharded(self, n_shards: int,
+                           cnt: Optional[np.ndarray] = None,
+                           block_n: int = 128, block_e: int = 256,
+                           order: Optional[np.ndarray] = None,
+                           order_token: str = "stripe"):
+        """Cached shard-aware edge packing for the sharded field.
+
+        Returns a :class:`repro_torch.graphs.sharded_packing.ShardedVMPacking`:
+        the ``vm_packing`` destination blocks dealt across ``n_shards``
+        shards along the ``order`` shard map (a vertex -> position
+        permutation; ``None`` = contiguous id stripes), with per-shard
+        local/halo source index maps and both halo-exchange table sets (see
+        that module's docstring).  Cached per ``(n_shards, block_n,
+        block_e)`` and version-keyed like :meth:`vm_packing`; a call with a
+        different ``order_token`` re-deals (rebuilds) the cached entry.
+        :meth:`apply_mutations` patches cached entries per dirty shard
+        (bumping their ``shard_epoch`` counters so device caches re-upload
+        only changed shard slices), evicting only when the mutation
+        outgrows the packing's capacity slack.
+        """
+        if cnt is None:
+            cnt = self.cached_neighbor_label_counts()
+        key = ("sharded", int(n_shards), int(block_n), int(block_e))
+        hit = self._vm_pack_cache.get(key)
+        if hit is not None:
+            cached_cnt, entry = hit
+            if (entry.version == self.version
+                    and entry.order_token == order_token
+                    and (cached_cnt is cnt or np.array_equal(cnt, cached_cnt))):
+                return entry
+        from repro_torch.graphs.sharded_packing import build_sharded_vm_packing
+
+        entry = build_sharded_vm_packing(
+            self, n_shards, cnt, block_n=block_n, block_e=block_e,
+            order=order, order_token=order_token)
+        self._vm_pack_cache[key] = (np.asarray(cnt), entry)
+        return entry
+
     def label_counts(self) -> np.ndarray:
         """(n_labels,) number of vertices per label."""
         return np.bincount(self.labels, minlength=self.n_labels)
@@ -714,26 +752,33 @@ class LabelledGraph:
             rl_in_src * L + rl_in_old,
             rl_in_src * L + rl_in_new,
         ]))
+        # a cached entry is patchable when it was built from the graph's own
+        # counts and the patched graph is symmetric; others (custom cnt, an
+        # asymmetric graph) are evicted and rebuilt lazily on next use
+        patchable = (
+            cnt_new is not None
+            and rev_new is not None
+            and bool((rev_new >= 0).all() if m_new else True)
+        )
         patched_entries = {}
+        sharded_items = []
         for key, hit in self._vm_pack_cache.items():
-            # the graph's counts are patched above; the dst-sorted CSR
-            # ("csr") is dropped and re-derived from the patched packing
-            if key in ("_default_cnt", "csr"):
+            kind = self._cache_kind(key)
+            if kind in ("counts", "csr"):
+                # the graph's counts are patched above; the dst-sorted CSR
+                # is dropped and re-derived from the patched packing
                 continue
             cached_cnt, entry = hit
-            patchable = (
-                cnt_new is not None
-                and rev_new is not None
-                and (rev_new >= 0 if m_new else np.ones(0, bool)).all()
-                and (cached_cnt is cnt_old
-                     or np.array_equal(cached_cnt, cnt_old))
-            )
-            if patchable:
+            if not (patchable and (cached_cnt is cnt_old
+                                   or np.array_equal(cached_cnt, cnt_old))):
+                continue
+            if kind == "sharded":
+                # patched per dirty shard once the new arrays are committed
+                sharded_items.append((key, entry))
+            else:
                 patched_entries[key] = (cnt_new, self._patch_vm_entry(
                     key, entry, src_new, dst_new, row_ptr_new, labels_final,
                     cnt_new, rev_new, n_new, changed_dsts, changed_pairs))
-            # non-patchable entries (custom cnt, asymmetric graph) are
-            # evicted and rebuilt lazily on next use
 
         # ---- commit ------------------------------------------------------
         self.n = n_new
@@ -746,6 +791,17 @@ class LabelledGraph:
         if cnt_new is not None:
             self._vm_pack_cache["_default_cnt"] = cnt_new
         self.version += 1
+
+        # ---- patch cached sharded packings (dirty shards only) -----------
+        if sharded_items:
+            from repro_torch.graphs.sharded_packing import patch_sharded_vm_packing
+
+            for key, entry in sharded_items:
+                if patch_sharded_vm_packing(entry, self, cnt_new, changed_dsts,
+                                            changed_pairs, n_old, old2new):
+                    self._vm_pack_cache[key] = (cnt_new, entry)
+                # capacity overflow: the entry stays evicted and is rebuilt
+                # from scratch on the next vm_packing_sharded call
 
         applied = AppliedMutation(
             version=self.version,
@@ -771,6 +827,23 @@ class LabelledGraph:
                 compose_mutations(self._mutation_log[0],
                                   self._mutation_log[1])]
         return applied
+
+    @staticmethod
+    def _cache_kind(key) -> str:
+        """The kind of a ``_vm_pack_cache`` key: ``"counts"`` (the graph's
+        own neighbour-label counts), ``"csr"`` (:meth:`vm_csr`),
+        ``"sharded"`` (:meth:`vm_packing_sharded`) or ``"packing"``
+        (:meth:`vm_packing`, keyed ``(block_n, block_e)``)."""
+        if key == "_default_cnt":
+            return "counts"
+        if key == "csr":
+            return "csr"
+        if isinstance(key, tuple) and key and key[0] == "sharded":
+            return "sharded"
+        if (isinstance(key, tuple) and len(key) == 2
+                and all(isinstance(v, int) for v in key)):
+            return "packing"
+        raise KeyError(f"unknown vm packing cache key {key!r}")
 
     def _patch_vm_entry(self, key, entry, src_new, dst_new, row_ptr_new,
                         labels_new, cnt_new, rev_new, n_new,

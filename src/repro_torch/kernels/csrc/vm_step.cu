@@ -411,7 +411,11 @@ cudaError_t resident(const void* kernel, int threads, size_t smem, std::atomic<i
 
 }  // namespace
 
-// Plain C entry point for ctypes.  Pointers are device pointers; par and val
+// Plain C entry point for ctypes.  Pointers are device pointers; alpha is
+// (n_in, N) and out (n_out, N), with n_out = the CSR's rows: alpha may hold
+// more rows than out (a shard's own rows, then the halo rows exchanged from
+// other shards), and the kernels index alpha only by source id, so the row
+// plan and the order of the adds are those of n_in == n_out.  par and val
 // are (L, N) int32 / float32, T's column form; runs and long_rows are the
 // CSR's row plan (n_runs runs, the n_long long rows stored as ~row in runs
 // and listed in long_rows; the short-row kernel leaves exactly those rows to
@@ -420,12 +424,13 @@ cudaError_t resident(const void* kernel, int threads, size_t smem, std::atomic<i
 extern "C" int vm_step_launch(const void* row_ptr, const void* src,
                               const void* w, const void* row_label,
                               const void* alpha, const void* par,
-                              const void* val, void* out, int n, int N, int L,
+                              const void* val, void* out, int n_out, int n_in, int N, int L,
                               const void* runs, int n_runs, const void* long_rows,
                               int n_long, void* stream) {
-  if (n <= 0 || N <= 0 || n_runs <= 0) return static_cast<int>(cudaSuccess);
-  // the short-row kernel keeps source offsets and its task indices in int
-  if (static_cast<long long>(n) * N >= INT_MAX ||
+  if (n_out <= 0 || N <= 0 || n_runs <= 0) return static_cast<int>(cudaSuccess);
+  // the short-row kernel keeps source offsets (src * N < n_in * N) and its
+  // task indices in int
+  if (static_cast<long long>(n_in) * N >= INT_MAX ||
       static_cast<long long>(n_runs) * ((N + 31) / 32) >= INT_MAX / 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* rp = static_cast<const int*>(row_ptr);

@@ -212,6 +212,30 @@ def csr_from_packing(packed: PackedEdges, dst_global: np.ndarray,
                    order=packed.order.astype(np.int64))
 
 
+def csr_from_shard(sp, s: int, exchange: str = "sliced") -> EdgeCSR:
+    """Shard ``s`` of a ``ShardedVMPacking`` as a CSR over its
+    ``n_local_pad`` local rows (local row = the slot's destination block in
+    ``meta`` times ``block_n`` plus ``dst_local``): its real slots
+    (``slot_raw >= 0``), in packed order, which within each destination is
+    ascending source order, as in the global CSR.  Sources index the
+    shard's ``[local rows | exchanged rows]`` buffer through ``src_map``
+    (``exchange="psum"``) or ``src_map_sliced`` (``"sliced"``); ``order``
+    holds each entry's slot in the shard, so per-slot values scatter back."""
+    if exchange not in ("sliced", "psum"):
+        raise ValueError(f"unknown halo exchange {exchange!r}")
+    slots = np.nonzero(sp.slot_raw[s] >= 0)[0]
+    rows = (sp.meta[s, slots // sp.block_e, 0].astype(np.int64) * sp.block_n
+            + sp.dst_local[s, slots])
+    if np.any(np.diff(rows) < 0):
+        raise ValueError(f"csr_from_shard: shard {s}'s slots are not in "
+                         "destination order")
+    row_ptr = np.zeros(sp.n_local_pad + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=sp.n_local_pad), out=row_ptr[1:])
+    src_map = sp.src_map_sliced if exchange == "sliced" else sp.src_map
+    return EdgeCSR(row_ptr=row_ptr.astype(np.int32), src=src_map[s, slots],
+                   order=slots.astype(np.int64))
+
+
 def csr_from_edges(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                    n: int) -> EdgeCSR:
     """The same stable destination sort as :func:`pack_edges`, on the edge

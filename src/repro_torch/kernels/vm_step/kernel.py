@@ -18,7 +18,7 @@ def _launcher():
     from repro_torch.kernels.build import load
 
     fn = load("vm_step").vm_step_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -29,14 +29,16 @@ def vm_step_cuda(alpha: torch.Tensor, par: torch.Tensor, val: torch.Tensor,
                  row_label: torch.Tensor, runs: torch.Tensor,
                  long_rows: torch.Tensor) -> torch.Tensor:
     """Launch the kernel; arguments are checked by ``ops.vm_step``.
-    ``runs`` and ``long_rows`` are the ``ops.RowPlan`` of ``row_ptr``."""
-    n, N = alpha.shape
-    out = torch.empty_like(alpha)
+    ``runs`` and ``long_rows`` are the ``ops.RowPlan`` of ``row_ptr``.
+    The output has ``row_ptr.shape[0] - 1`` rows; ``alpha`` may have more."""
+    n_in, N = alpha.shape
+    n_out = row_ptr.shape[0] - 1
+    out = torch.empty((n_out, N), dtype=alpha.dtype, device=alpha.device)
     with torch.cuda.device(alpha.device):
         err = _launcher()(
             row_ptr.data_ptr(), src.data_ptr(), w.data_ptr(),
             row_label.data_ptr(), alpha.data_ptr(), par.data_ptr(),
-            val.data_ptr(), out.data_ptr(), n, N, par.shape[0],
+            val.data_ptr(), out.data_ptr(), n_out, n_in, N, par.shape[0],
             runs.data_ptr(), runs.shape[0] - 1, long_rows.data_ptr(),
             long_rows.shape[0],
             torch.cuda.current_stream().cuda_stream)

@@ -59,23 +59,29 @@ def _check(alpha, par, val, csr, w, row_label) -> None:
         if t.dtype != dt or t.dim() != ndim:
             raise ValueError(f"vm_step: {name} must be {ndim}-D {dt}, "
                              f"got {t.dim()}-D {t.dtype}")
-    n, N = alpha.shape
+    n_in, N = alpha.shape
+    n_out = csr.row_ptr.shape[0] - 1
     if par.shape != val.shape or par.shape[1] != N:
         raise ValueError(f"vm_step: par {tuple(par.shape)} and val "
                          f"{tuple(val.shape)} must be (L, N), alpha has N={N}")
-    if csr.row_ptr.shape[0] != n + 1 or row_label.shape[0] != n:
-        raise ValueError("vm_step: row_ptr must be (n+1,) and row_label (n,)")
+    if row_label.shape[0] != n_out:
+        raise ValueError(f"vm_step: row_label must have one entry per output "
+                         f"row ({n_out}), got {row_label.shape[0]}")
     if csr.src.shape != w.shape:
         raise ValueError("vm_step: src and w must have one entry per edge")
-    if csr.src_bound > n:
+    if csr.src_bound > n_in:
         raise ValueError(f"vm_step: source id {csr.src_bound - 1} indexes past "
-                         f"alpha's {n} rows")
+                         f"alpha's {n_in} rows")
 
 
 def vm_step(alpha: torch.Tensor, par: torch.Tensor, val: torch.Tensor,
             csr: EdgeCSR, w: torch.Tensor, row_label: torch.Tensor) -> torch.Tensor:
     """``out[v] = sum over CSR row v of (alpha[src_e] @ T[row_label[v]]) * w_e``.
 
+    The output has one row per CSR row (``csr.row_ptr.shape[0] - 1``);
+    ``alpha`` may have more rows than that (a shard's own rows followed by
+    the halo rows exchanged from other shards), and every source must lie
+    below ``alpha.shape[0]``.
     ``par``/``val`` are the trie transition ``T`` in its column form
     (:func:`repro_torch.kernels.vm_step.ref.transition_columns`), ``csr``
     a destination-sorted CSR of tensors (checked and planned when it was
@@ -87,12 +93,12 @@ def vm_step(alpha: torch.Tensor, par: torch.Tensor, val: torch.Tensor,
     ``par`` in ``[0, N)``.
     """
     _check(alpha, par, val, csr, w, row_label)
-    n = alpha.shape[0]
+    n_out = csr.row_ptr.shape[0] - 1
     if alpha.device.type == "cpu":
         dst = torch.repeat_interleave(
-            torch.arange(n), (csr.row_ptr[1:] - csr.row_ptr[:-1]).long())
+            torch.arange(n_out), (csr.row_ptr[1:] - csr.row_ptr[:-1]).long())
         return vm_step_reference(alpha, par, val, csr.src, dst, w,
-                                 row_label[dst], n)
+                                 row_label[dst], n_out)
     if alpha.device.type != "cuda":
         raise ValueError(f"vm_step: no kernel for device {alpha.device}")
     if alpha.numel() >= 2**31 - 1:

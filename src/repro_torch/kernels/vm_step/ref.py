@@ -42,18 +42,20 @@ def transition_columns(trie_parent, trie_label, trie_cond_p, n_labels: int):
 
 
 def vm_step_reference(
-    alpha: torch.Tensor,       # (n, N)
+    alpha: torch.Tensor,       # (n_in, N), n_in may exceed n_out
     par: torch.Tensor,         # (L, N) int: row of each column's nonzero
     val: torch.Tensor,         # (L, N) value of each column's nonzero
     edge_src: torch.Tensor,    # (E,) int
     edge_dst: torch.Tensor,    # (E,) int
     inv_cnt_e: torch.Tensor,   # (E,) 1 / cnt[src, label(dst)], 0 on cut edges
     dst_label: torch.Tensor,   # (E,) int
-    n: int,
+    n_out: int,
 ) -> torch.Tensor:
     """Gather ``alpha[src, par[label]]``, multiply by ``val[label]``, scale,
-    scatter-add by destination: one (E, N) message tensor."""
+    scatter-add by destination into ``(n_out, N)``: one (E, N) message
+    tensor.  ``alpha`` may have more rows than the output (a shard's rows
+    and its halo); sources index ``alpha``, destinations the output."""
     lab = dst_label.long()
     msgs = alpha[edge_src.long()[:, None], par.long()[lab]] * val[lab]
     msgs = msgs * inv_cnt_e[:, None]
-    return scatter_add(msgs, edge_dst, n)
+    return scatter_add(msgs, edge_dst, n_out)

@@ -636,3 +636,70 @@ def test_device_inputs_reupload_once_per_version(card):
     fp = extroversion_field(g, arrays, part, 8, backend="torch", device="cpu")
     for name in ("alpha", "pr", "edge_mass", "extro_mass", "extroversion", "ext_to"):
         assert np.array_equal(getattr(f, name), getattr(fp, name)), name
+
+
+def test_vm_step_kernel_reads_a_halo_extended_input(card):
+    """One shard of a sharded packing: alpha holds the shard's rows and then
+    its exchanged rows (n_in > n_out); the kernel equals the plain version
+    on the CPU bit for bit."""
+    from repro_torch.graphs.partition import metis_like_partition
+    from repro_torch.graphs.sharded_packing import partition_shard_order
+    from repro_torch.kernels.segment_spmm.ops import csr_from_shard
+
+    g = provgen_like(6000, seed=3)
+    par, val = _trie_columns(
+        [(parse_rpq(q), f) for q, f in (("Entity.(Entity)*.Entity", 0.4),
+                                        ("Entity.Activity.(Agent)*", 0.6))],
+        g.label_names)
+    order = partition_shard_order(metis_like_partition(g, 3, seed=0), 3)
+    sp = g.vm_packing_sharded(3, order=order, order_token="partition:0")
+    rng = np.random.default_rng(2)
+    for s in range(3):
+        for exchange in ("sliced", "psum"):
+            csr = csr_from_shard(sp, s, exchange)
+            n_in = int(csr.src_bound) + 5
+            args = [torch.as_tensor(rng.random((n_in, par.shape[1])), dtype=torch.float32),
+                    torch.as_tensor(par), torch.as_tensor(val), csr.to("cpu"),
+                    torch.as_tensor(sp.inv_cnt[s][csr.order]
+                                    * (rng.random(csr.order.shape[0]) < 0.6)).float(),
+                    torch.as_tensor(np.maximum(sp.vlabels[s], 0).astype(np.int32))]
+            assert n_in > sp.n_local_pad
+            want = vm_step(*args)
+            before = vm_step.launches
+            got = vm_step(*(a.to(card) for a in args))
+            torch.cuda.synchronize()
+            assert vm_step.launches == before + 1
+            assert got.shape == (sp.n_local_pad, par.shape[1])
+            assert torch.equal(got.cpu(), want)
+
+
+def test_cuda_sharded_one_rank_equals_cuda(card):
+    """``cuda_sharded`` on a one-rank NCCL group, and on a one-rank gloo
+    group (CUDA tensors staged through pinned host buffers), equals the
+    ``cuda`` field bit for bit under both exchanges and every shard map."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_group
+
+    g = provgen_like(3000, seed=5)
+    w = [(parse_rpq("Entity.(Entity)*.Entity"), 0.6),
+         (parse_rpq("Entity.Activity.(Agent)*"), 0.4)]
+    arrays = TPSTry.from_workload(w).compile(g.label_names)
+    part = hash_partition(g.n, 8, seed=1)
+    fc = extroversion_field(g, arrays, part, 8, backend="cuda", device=card)
+    groups = {"default": make_smoke_group(card), "gloo": dist.new_group([0], backend="gloo")}
+    for name, group in groups.items():
+        for source in ("stripe", "partition", "bfs"):
+            for exchange in ("sliced", "psum"):
+                pre = {"_group": group}
+                before = vm_step.launches
+                fs = extroversion_field(g, arrays, part, 8, _precomputed=pre,
+                                        backend="cuda_sharded", device=card,
+                                        shard_map_source=source,
+                                        halo_exchange=exchange)
+                assert vm_step.launches - before == arrays.max_depth - 1
+                assert ("pinned" in pre["_shard_exchange"]["transport"]) == (
+                    str(dist.get_backend(group)) == "gloo")
+                for f in ("alpha", "pr", "edge_mass", "extro_mass", "extroversion",
+                          "ext_to"):
+                    assert np.array_equal(getattr(fs, f), getattr(fc, f)), (name, f)

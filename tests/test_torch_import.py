@@ -38,3 +38,14 @@ def test_port_sources_name_no_jax_import():
     offenders = [str(p) for p in (SRC / "repro_torch").rglob("*.py")
                  if pat.search(p.read_text())]
     assert offenders == []
+
+
+def test_sharded_slice_imports_without_jax_or_reference():
+    probe = ("import sys, repro_torch.graphs.sharded_packing, repro_torch.launch.mesh, "
+             "repro_torch.core.visitor; print(sorted(m for m in sys.modules "
+             "if m.split('.')[0] in ('jax', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The embedding_bag and float32 attention kernels of this checkout against
-those of another checkout (for example its parent commit), on the GPU, at
-the main path's shapes.
+"""The embedding_bag, float32 attention and vm_step kernels of this checkout
+against those of another checkout (for example its parent commit), on the
+GPU, at the main path's shapes.
 
 Run from the root of a checkout, on the machine with the card:
 
@@ -9,8 +9,9 @@ Run from the root of a checkout, on the machine with the card:
 
 DIR is the root of the other checkout (``git archive`` of a commit unpacked
 into a git-ignored directory such as ``archive/parent``).  Both checkouts'
-``csrc/embedding_bag.cu`` and ``csrc/flash_attention_f32.cu`` are built with
-nvcc (``sm_90a``) into the git-ignored ``kernels/build/compare/``, and each
+``csrc/embedding_bag.cu``, ``csrc/flash_attention_f32.cu`` and
+``csrc/vm_step.cu`` are built with nvcc (``sm_90a``) into the git-ignored
+``kernels/build/compare/``, and each
 kernel is timed in turns (other, this, this, other) with CUDA events over
 back-to-back launches and, for the bag kernel, also as device time per
 launch from a ``torch.profiler`` trace (at serve_p99 the launches are
@@ -22,10 +23,15 @@ host-bound):
       (512 requests: 13,312 bags) and on independent zipf ids over the whole
       table (16,384 x 26 bags of 8), as chip_smoke.py makes them;
   flash_attention_f32 at 4 x 4,096 tokens, 32 query and 8 KV heads of 128,
-      causal, random float32 q, k, v.
+      causal, random float32 q, k, v;
+  vm_step at the provgen invocation's shapes: provgen_like(1,000,000)'s
+      dst-sorted CSR (its row plan), PQ1-4's 23-node trie, random alpha and
+      weights, 57.5% of the edges live (path 1's share), alpha as many rows
+      as the output (the entry point's n_in and n_out, or its one n).
 
-The two bag kernels must agree bit for bit, both attention kernels within
-2e-5 of the plain version.  Prints the card's name and power limit and one
+The two bag kernels and the two vm_step kernels must agree bit for bit
+(vm_step also with its plain version), both attention kernels within 2e-5
+of the plain version.  Prints the card's name and power limit and one
 line per shape; exits non-zero without CUDA or nvcc.
 """
 from __future__ import annotations
@@ -41,7 +47,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/kernels/csrc")
 OUT = ROOT / "src" / "repro_torch" / "kernels" / "build" / "compare"
-KERNELS = ("embedding_bag", "flash_attention_f32")
+KERNELS = ("embedding_bag", "flash_attention_f32", "vm_step")
 
 
 def build(roots):
@@ -89,6 +95,17 @@ def attn_launcher(lib, source, d):
     fn.restype = ctypes.c_int
     scale = (math.log2(math.e) if "scale_log2" in source else 1.0) / math.sqrt(d)
     return fn, planned, scale
+
+
+def vm_launcher(lib, source):
+    """The vm_step entry point, and whether it takes n_out and n_in (an
+    earlier kernel takes one n for both)."""
+    fn = ctypes.CDLL(str(lib)).vm_step_launch
+    split = "int n_out, int n_in" in source
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * (4 if split else 3)
+                   + [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn, split
 
 
 def time_ms(torch, fn, reps):
@@ -242,7 +259,57 @@ def main() -> int:
           f"{3 * flops / 495e12 * 1e3:.4f} ms at the TF32 tensor-core rate (three products), "
           f"{flops / 67e12 * 1e3:.4f} ms at the float32 CUDA-core rate; max_abs_err vs plain "
           f"other {errs['other']:.3e}, this {errs['this']:.3e}; {card}", flush=True)
-    return 0 if max(errs.values()) <= 2e-5 + 2e-5 * float(ref.abs().max()) else 1
+    if max(errs.values()) > 2e-5 + 2e-5 * float(ref.abs().max()):
+        return 1
+    del q, k, v, ref, outs
+    torch.cuda.empty_cache()
+
+    # --- vm_step -----------------------------------------------------------
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.core.tpstry import TPSTry
+    from repro_torch.graphs.generators import provgen_like
+    from repro_torch.kernels.vm_step.ref import transition_columns, vm_step_reference
+
+    g = provgen_like(1_000_000, avg_degree=6.0, seed=11)
+    pq = ["Entity.(Entity)*.Entity", "Agent.Activity.Entity.Entity.Activity.Agent",
+          "(Entity)*.Activity.Entity", "Entity.Activity.(Agent)*"]
+    trie = TPSTry.from_workload([(parse_rpq(q_), f) for q_, f in
+                                 zip(pq, (0.4, 0.2, 0.2, 0.2))]).compile(g.label_names)
+    par, val = (torch.as_tensor(a, device=dev) for a in transition_columns(
+        trie.parent, trie.label, trie.cond_p, trie.n_labels))
+    csr = g.vm_csr().to(dev)
+    n, N, E = g.n, trie.n_nodes, int(csr.src.shape[0])
+    alpha = torch.as_tensor(rng.random((n, N), dtype=np.float32), device=dev)
+    w = rng.random(E, dtype=np.float32) + 0.1
+    w[rng.random(E) >= 0.575] = 0.0
+    w = torch.as_tensor(w, device=dev)
+    row_label = torch.as_tensor(g.labels, device=dev)
+    vm = {tag: vm_launcher(libs[tag, "vm_step"],
+                           (roots[tag] / CSRC / "vm_step.cu").read_text()) for tag in roots}
+    outs = {tag: torch.empty((n, N), device=dev) for tag in roots}
+
+    def step(tag):
+        fn, split = vm[tag]
+        sizes = [n, n, N, trie.n_labels] if split else [n, N, trie.n_labels]
+        err = fn(csr.row_ptr.data_ptr(), csr.src.data_ptr(), w.data_ptr(),
+                 row_label.data_ptr(), alpha.data_ptr(), par.data_ptr(), val.data_ptr(),
+                 outs[tag].data_ptr(), *sizes, csr.plan.runs.data_ptr(),
+                 csr.plan.runs.shape[0] - 1, csr.plan.long_rows.data_ptr(),
+                 csr.plan.long_rows.shape[0], stream)
+        if err:
+            raise SystemExit(f"vm_step ({tag}) launch failed: CUDA error {err}")
+
+    ms = in_turns(torch, {tag: (lambda tag=tag: step(tag)) for tag in roots}, 20)
+    dst = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  (csr.row_ptr[1:] - csr.row_ptr[:-1]).long())
+    plain = vm_step_reference(alpha, par, val, csr.src, dst, w, row_label[dst], n)
+    same = bool(torch.equal(outs["this"], outs["other"]))
+    exact = bool(torch.equal(outs["this"], plain))
+    print(f"[vm_step] provgen n={n} E={E} N={N} (live edges {int((w != 0).sum())}): ms per "
+          f"launch other {ms['other'][0]:.4f} / {ms['other'][1]:.4f}, this "
+          f"{ms['this'][0]:.4f} / {ms['this'][1]:.4f}; this == other bitwise {same}; "
+          f"this == plain bitwise {exact}; {card}", flush=True)
+    return 0 if same and exact else 1
 
 
 if __name__ == "__main__":
