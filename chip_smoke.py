@@ -42,7 +42,18 @@ Phases (any failure exits non-zero and prints no result line):
    pinned host buffers): fig7 through ``cuda_sharded`` (partition map,
    sliced exchange) with the reference's final ipt and the same partitions
    on every rank, and one field per shard map and exchange, each bitwise
-   the ``cuda`` field;
+   the ``cuda`` field; then the serving loop (``serve/``): the inline
+   ``GraphQueryEngine`` over one fixed stream (musicbrainz N=2000, MQ1-3
+   under the drift trigger, two mutation batches) with the ``cuda`` field
+   on the card and the ``torch`` field on the CPU, every request's result,
+   each partition after an invocation and the invocation count equal
+   (4d); the degradation ladder on the card: four injected invocation
+   faults walk ``cuda -> torch``, the ``torch`` rung's field on the card,
+   a healthy commit probes back to ``cuda`` and the next commit launches
+   ``vm_step`` (4e); ``benchmarks/serve_loop.py``'s setting with the
+   ``cuda`` field (musicbrainz 20,000, 600 requests, 64 in flight, a
+   mutation batch every 50), overlapped and then stop-the-world on the same
+   stream, their throughput and latency printed (4f);
 5. path 1, TAPER at the paper's ProvGen scale: one ``Taper.invoke`` on
    ``provgen_like(1_000_000)``, k=8, PQ1-4, kernel field, with per-iteration
    field/kernel/swap times and each evaluation's split (its ``vm_step``
@@ -70,7 +81,20 @@ Phases (any failure exits non-zero and prints no result line):
    against a rebuilt one, bit for bit, the kernel field on the final
    partition repeatable and equal to the plain field, the device memory
    no more than the first tick's plus the graph's growth, and the kernel
-   at the path's last launch's shapes;
+   at the path's last launch's shapes; then serving on path 1's graph and
+   final partition: a ``ServingLoop`` with one worker and overlapped
+   invocations (the ``cuda`` field, launched from the loop's invocation
+   thread; the topology trigger only; snapshots and the WAL in a temporary
+   directory; 5% of requests traced), a feeder keeping 64 PQ1-4 requests in
+   flight and sending one mutation batch (n/2000 new vertices, m/2000
+   churned edges) per invocation, four in all; every request answered,
+   each invocation on the ``cuda`` rung with ``vm_step`` launches and
+   requests served inside its window, its trace's field span on
+   ``cuda``, the batched enumeration against the reference DFS on the
+   final graph, and a restore from the snapshot and WAL bitwise the live
+   loop; throughput in and out of the invocation windows, latency, the
+   invocations' field, swap and commit times, snapshot and WAL bytes,
+   restore time by part, the device's busy share and memory;
 6. path 2, DLRM serving at full ``dlrm-rm2`` width with ``multi_hot=8``
    (33,762,577 x 64 table on the card): 20 ``serve_p99`` and 3
    ``serve_bulk`` requests through ``serve_step``, kernel forward against
@@ -109,9 +133,9 @@ bound (each input byte once) it shows how much of a kernel's gap is the
 graph's randomness.  Each path runs with every kernel's launch count set to
 0 just before it and read just after; a path that launched none of its
 kernels fails.  The line
-before the last is the ``kernels`` JSON record (``vm_step`` on four paths:
-the provgen invocation, the sharded field, the online path and the
-placement); the last line is
+before the last is the ``kernels`` JSON record (``vm_step`` on five paths:
+the provgen invocation, the sharded field, the online path, the serving
+path and the placement); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -174,6 +198,48 @@ SHARDED_EXCHANGES = ("sliced", "psum")
 SHARDED_FULL = ("partition", "sliced")
 SHARDED_FULL_EVALS = 2
 FIELD_NAMES = ("alpha", "pr", "edge_mass", "extro_mass", "extroversion", "ext_to")
+#: serving at N=2000 (phase 4d): rounds of requests through the inline
+#: GraphQueryEngine (MQ1-3, the mix flipping half way), the rounds before
+#: which a mutation batch is queued, and the drift trigger's threshold
+SERVE_2000_ROUNDS = 8
+SERVE_2000_BATCH = 30
+SERVE_2000_MIXES = ((0.6, 0.3, 0.1), (0.1, 0.2, 0.7))
+SERVE_2000_MUTATE_AT = (2, 5)
+#: benchmarks/serve_loop.py's setting on the card (phase 4f)
+SERVE_LOOP_N = 20000
+SERVE_LOOP_REQUESTS = 600
+SERVE_LOOP_MICRO_BATCH = 16
+SERVE_LOOP_QUEUE = 128
+SERVE_LOOP_IN_FLIGHT = 64
+SERVE_LOOP_MUTATE_EVERY = 50
+SERVE_LOOP_WARMUP = 32
+#: serving at provgen 1M (path 5c): mutation batches (one invocation each),
+#: completed requests before each batch, requests in flight and the
+#: micro-batch, the path's cap, the trace sampling rate, the fixed
+#: enumeration check's size and the progress lines' period.  After the
+#: first batch of arrivals every micro-batch holding PQ2 takes 15-20 s,
+#: whatever its size: PQ2's first chunk of 32 start vertices, the newest,
+#: reaches hubs (17,327,460 frontier rows against 183,513 before), and the
+#: duplicates of a query in a micro-batch pay one enumeration.  So a
+#: micro-batch takes all 64 requests in flight (16 would serve a quarter as
+#: many in the same time), and 64 more complete between a commit and the
+#: next batch (400 would take minutes after the first batch)
+SERVE_FULL_BATCHES = 4
+SERVE_FULL_EVERY = 64
+SERVE_FULL_IN_FLIGHT = 64
+SERVE_FULL_MICRO_BATCH = 64
+SERVE_FULL_CAP_S = 240.0
+SERVE_FULL_SAMPLE = 0.05
+SERVE_FULL_ENUM = 64
+SERVE_FULL_LOG_S = 15.0
+#: enumerations of the fixed batch in each arm of the field-beside-serving
+#: measurement (alone, beside field evaluations, beside memoized calls)
+SERVE_FULL_FIELD_REPS = 3
+#: how soon after an invocation's window opens the worker is back in a
+#: micro-batch (it starts the invocation's thread between micro-batches)
+SERVE_FULL_DISPATCH_S = 0.05
+#: how long any one wait of a serving phase may take before it fails
+SERVE_WAIT_S = 120.0
 #: kernel vs plain tolerance (float32; the sums run in different orders)
 RTOL, ATOL = 1e-5, 1e-6
 #: H100 SXM data-sheet peaks (NVIDIA H100 data sheet, dense, without
@@ -245,16 +311,26 @@ def _wrapper(name):
     return getattr(importlib.import_module(module), attr)
 
 
+def _launch_lock():
+    from repro_torch.kernels import LAUNCH_LOCK
+
+    return LAUNCH_LOCK
+
+
 def reset_counts():
-    """Every kernel's launch count to 0: a path starts here."""
-    for name in KERNELS:
-        _wrapper(name).launches = 0
+    """Every kernel's launch count to 0: a path starts here.  The counts
+    are read and written under the wrappers' lock: the serving path
+    launches from its invocation thread."""
+    with _launch_lock():
+        for name in KERNELS:
+            _wrapper(name).launches = 0
 
 
 def read_counts(path, needs):
     """The launch counts just after a path; fails if it launched none of
     the kernels in ``needs``."""
-    counts = {name: _wrapper(name).launches for name in KERNELS}
+    with _launch_lock():
+        counts = {name: _wrapper(name).launches for name in KERNELS}
     log(f"[{path}] kernel launches on the path: {counts}")
     for name in needs:
         check(counts[name] > 0, f"{path}: the path launched no {name} kernel")
@@ -998,6 +1074,287 @@ def sharded_2000(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# phases 4d-4f: the serving loop on the card
+# ---------------------------------------------------------------------------
+
+
+def _wait_tickets(what, tickets, timeout=SERVE_WAIT_S):
+    t_end = time.perf_counter() + timeout
+    for t in tickets:
+        check(t.wait(max(t_end - time.perf_counter(), 0.0)),
+              f"{what}: a request did not complete within {timeout:.0f} s")
+
+
+def _serve_2000_run(backend, device):
+    """The fixed request stream of phase 4d through the inline engine:
+    every RequestResult as (query, n_results, ipt), the partition after
+    each invocation, the invocation count and the final stats."""
+    import numpy as np
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.graphs.partition import hash_partition
+    from repro_torch.serve import GraphQueryEngine, ServeConfig
+    from repro_torch.workload.stream import GraphMutationStream
+
+    g = musicbrainz_like(2000, avg_degree=6.0, seed=13)
+    scratch, batches = g.copy(), []
+    muts = GraphMutationStream("mixed", seed=7, vertices_per_tick=4, edges_per_tick=16)
+    for _ in SERVE_2000_MUTATE_AT:
+        b = muts.next_batch(scratch)
+        scratch.apply_mutations(b)
+        batches.append(b)
+    queries = [parse_rpq(q) for q in MQ]
+    eng = GraphQueryEngine(
+        g, hash_partition(g.n, 8, seed=1), 8,
+        ServeConfig(min_requests_between_invocations=50, drift_threshold=0.2,
+                    max_results_per_query=8,
+                    taper=TaperConfig(max_iterations=4, seed=0, field_backend=backend)),
+        device=device)
+    rng = np.random.default_rng(5)
+    results, parts = [], []
+    for r in range(SERVE_2000_ROUNDS):
+        if r in SERVE_2000_MUTATE_AT:
+            eng.apply_mutations(batches.pop(0))
+        mix = SERVE_2000_MIXES[0 if r < SERVE_2000_ROUNDS // 2 else 1]
+        inv0 = eng.invocations
+        out = eng.serve_batch([queries[i] for i in rng.choice(3, SERVE_2000_BATCH, p=mix)])
+        results += [(x.query, x.n_results, x.ipt) for x in out]
+        if eng.invocations != inv0:
+            parts.append(eng.part.copy())
+    return dict(results=results, parts=parts, invocations=eng.invocations,
+                n=g.n, stats=eng.stats())
+
+
+def serving_2000(torch, device):
+    """The inline GraphQueryEngine over one fixed stream (musicbrainz N=2000
+    seed 13, MQ1-3 under the drift trigger, two mutation batches): the
+    ``cuda`` field on the card and the ``torch`` field on the CPU give the
+    same results, partitions and invocations."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    reset_counts()
+    card = _serve_2000_run("cuda", device)
+    launches = read_counts("serve2000", ["vm_step"])["vm_step"]
+    cpu = _serve_2000_run("torch", "cpu")
+    same_parts = (len(card["parts"]) == len(cpu["parts"]) and all(
+        np.array_equal(a, b) for a, b in zip(card["parts"], cpu["parts"])))
+    log(f"[serve2000] musicbrainz n={card['n']} k=8, {len(card['results'])} requests "
+        f"in {SERVE_2000_ROUNDS} rounds, mutation batches before rounds "
+        f"{SERVE_2000_MUTATE_AT}: invocations cuda {card['invocations']} / CPU torch "
+        f"{cpu['invocations']}, total ipt {sum(r[2] for r in card['results'])} / "
+        f"{sum(r[2] for r in cpu['results'])}; results equal "
+        f"{card['results'] == cpu['results']}, partitions after each invocation "
+        f"equal {same_parts}; cuda field_backend {card['stats']['field_backend']}, "
+        f"vm_step launches {launches}; phase {time.perf_counter() - t0:.2f} s")
+    check(card["invocations"] >= 2, "serve2000: fewer than 2 invocations")
+    check(card["invocations"] == cpu["invocations"], "serve2000: invocation counts differ")
+    check(card["results"] == cpu["results"], "serve2000: request results differ")
+    check(same_parts, "serve2000: partitions after an invocation differ")
+    check(card["stats"]["field_backend"] == "cuda"
+          and card["stats"]["backend_fallbacks"] == 0,
+          "serve2000: the card run left the cuda rung")
+
+
+def ladder_on_card(torch, device):
+    """The degradation ladder on the card (the twin of
+    tests/test_faults.py's fallback test): four injected invocation faults
+    walk ``cuda -> torch``, whose field runs on the card; a healthy commit
+    probes back to ``cuda``, and one more invocation commits there through
+    the kernel."""
+    import repro_torch.core.visitor as visitor
+    from repro_torch.core.online import OnlinePolicy
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.kernels.vm_step.ops import vm_step
+    from repro_torch.serve import ServeLoopConfig, ServingLoop
+    from repro_torch.serve.faults import SITE_INVOCATION, FaultInjector, InjectedFault
+
+    t0 = time.perf_counter()
+    mq1 = parse_rpq(MQ[0])
+    fi = FaultInjector()
+    loop = ServingLoop(
+        musicbrainz_like(300, seed=21), 4,
+        taper_config=TaperConfig(max_iterations=2, field_backend="cuda"),
+        policy=OnlinePolicy(bootstrap_after_ticks=0, cadence=1, min_interval=0,
+                            dirty_fraction=2.0, drift_l1=9e9, ipt_regression=9e9),
+        config=ServeLoopConfig(micro_batch=4, overlap_invocations=False, faults=fi,
+                               invocation_retry_backoff_s=0.0,
+                               backend_fallback_after=2, backend_probe_after=1),
+        device=device)
+    fields = []                               # (backend, device of alpha)
+    field = visitor._field
+
+    def traced_field(*args, **kwargs):
+        out = field(*args, **kwargs)
+        fields.append((args[7], out[0].device))
+        return out
+
+    def pump_until(what, cond):
+        t_end = time.perf_counter() + SERVE_WAIT_S
+        while not cond():
+            check(time.perf_counter() < t_end, f"ladder: {what} within {SERVE_WAIT_S:.0f} s")
+            loop.submit(mq1)
+            try:
+                loop.pump()
+            except InjectedFault:
+                pass                      # the inline drive re-raises it
+
+    visitor._field = traced_field
+    try:
+        fi.arm(SITE_INVOCATION, times=4)
+        pump_until("4 injected faults", lambda: fi.fired_total() >= 4)
+        s = loop.stats()
+        log(f"[ladder] after 4 injected invocation faults: field_backend "
+            f"{s['field_backend']}, backend_fallbacks {s['backend_fallbacks']}, "
+            f"invocation_failures {s['invocation_failures']}, degraded {s['degraded']}, "
+            f"served {s['completed']}")
+        check(s["field_backend"] == "torch" and s["backend_fallbacks"] == 1
+              and s["degraded"] == 1 and s["invocation_failures"] == 4,
+              "ladder: the walk cuda -> torch did not happen as expected")
+        n_fields = len(fields)
+        pump_until("the probe back to cuda", lambda: loop.stats()["backend_recoveries"] >= 1)
+        on_torch = fields[n_fields:]
+        log(f"[ladder] healthy commit on the torch rung: field evaluations "
+            f"{[(b, str(d)) for b, d in on_torch]}")
+        check(on_torch and all(b == "torch" and d.type == "cuda" for b, d in on_torch),
+              "ladder: the torch rung's field did not run on the card")
+        s = loop.stats()
+        check(s["field_backend"] == "cuda" and s["degraded"] == 0,
+              "ladder: the probe did not climb back to cuda")
+        with _launch_lock():
+            l0 = vm_step.launches
+        inv0, n_fields = loop.ot.invocations, len(fields)
+        pump_until("one more commit on cuda", lambda: loop.ot.invocations > inv0)
+        with _launch_lock():
+            l1 = vm_step.launches
+        on_cuda = fields[n_fields:]
+        s = loop.stop()
+    finally:
+        visitor._field = field
+    log(f"[ladder] probe recovered to {s['field_backend']} (backend_recoveries "
+        f"{s['backend_recoveries']}); the next invocation's fields "
+        f"{[(b, str(d)) for b, d in on_cuda]}, vm_step launches {l1 - l0}; "
+        f"phase {time.perf_counter() - t0:.2f} s")
+    check(on_cuda and all(b == "cuda" for b, _ in on_cuda) and l1 > l0,
+          "ladder: the commit after the probe did not run the kernel")
+
+
+def _serve_loop_run(device, overlap, schedule):
+    """One run of benchmarks/serve_loop.py's setting with the ``cuda`` field:
+    warm-up, then SERVE_LOOP_REQUESTS requests with a mutation batch of
+    ``schedule`` every SERVE_LOOP_MUTATE_EVERY; returns (stats, wall,
+    rejections)."""
+    from repro_torch.core.online import OnlinePolicy
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.serve import ServeLoopConfig, ServingLoop
+    from repro_torch.serve.metrics import ServeMetrics
+    from repro_torch.workload.stream import WorkloadStream
+
+    g = musicbrainz_like(SERVE_LOOP_N, avg_degree=6.0, seed=13)
+    loop = ServingLoop(
+        g, 8, taper_config=TaperConfig(max_iterations=3, field_backend="cuda"),
+        policy=OnlinePolicy(bootstrap_after_ticks=0, cadence=6, min_interval=1,
+                            dirty_fraction=0.02, drift_l1=0.6),
+        config=ServeLoopConfig(micro_batch=SERVE_LOOP_MICRO_BATCH,
+                               max_queue_depth=SERVE_LOOP_QUEUE,
+                               overlap_invocations=overlap, batch_wait_s=0.002,
+                               stop_timeout_s=SERVE_WAIT_S),
+        device=device).start()
+    ws = WorkloadStream([parse_rpq(q) for q in MQ], period=6.0, seed=3)
+    rejections = [0]
+
+    def drive(budget, sched):
+        tickets, offered, n_sched = [], 0, len(sched)
+        t_end = time.perf_counter() + SERVE_WAIT_S
+        t0 = time.perf_counter()
+        while offered < budget:
+            check(time.perf_counter() < t_end, "serve_loop: the feeder stalled")
+            pending = sum(1 for t in tickets if not t.done.is_set())
+            chunk = min(budget - offered, max(0, SERVE_LOOP_IN_FLIGHT - pending))
+            if chunk == 0:
+                time.sleep(0.001)
+                continue
+            ws.advance(chunk / 100.0)
+            for q in ws.sample(chunk):
+                while True:
+                    t = loop.submit(q)
+                    if t.accepted:
+                        break
+                    rejections[0] += 1
+                    check(time.perf_counter() < t_end, "serve_loop: admission stalled")
+                    time.sleep(min(t.retry_after_s, 0.02))
+                tickets.append(t)
+            offered += chunk
+            while sched and offered >= (n_sched - len(sched) + 1) * SERVE_LOOP_MUTATE_EVERY:
+                loop.submit_mutations(sched.pop(0))
+        _wait_tickets("serve_loop", tickets)
+        return time.perf_counter() - t0
+
+    try:
+        drive(SERVE_LOOP_WARMUP, [])
+        t_end = time.perf_counter() + SERVE_WAIT_S
+        while loop.invocation_in_flight:
+            check(time.perf_counter() < t_end, "serve_loop: the warm-up invocation stalled")
+            time.sleep(0.005)
+        loop.metrics = ServeMetrics(loop.cfg.metrics_window)
+        wall = drive(SERVE_LOOP_REQUESTS, list(schedule))
+    finally:
+        stats = loop.stop()            # raises past its stop_timeout_s
+    return stats, wall, rejections[0]
+
+
+def serve_loop_setting(torch, device):
+    """benchmarks/serve_loop.py's setting on the card (musicbrainz 20000,
+    micro-batch 16, queue 128, 64 in flight, a mutation batch every 50 of
+    600 requests, the ``cuda`` field): overlapped, then stop-the-world on
+    the same pre-generated stream.  The ratio is printed, not gated."""
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.workload.stream import GraphMutationStream
+
+    t0 = time.perf_counter()
+    # the identical mutation stream for both runs, made on a scratch graph
+    scratch = musicbrainz_like(SERVE_LOOP_N, avg_degree=6.0, seed=13)
+    muts = GraphMutationStream("mixed", seed=7, vertices_per_tick=max(2, scratch.n // 4000),
+                               edges_per_tick=max(8, scratch.m // 4000))
+    schedule = []
+    for _ in range(SERVE_LOOP_REQUESTS // SERVE_LOOP_MUTATE_EVERY):
+        schedule.append(muts.next_batch(scratch))
+        scratch.apply_mutations(schedule[-1])
+    reset_counts()
+    runs = {}
+    for name, overlap in (("async", True), ("sync", False)):
+        stats, wall, rej = _serve_loop_run(device, overlap, schedule)
+        runs[name] = (stats, wall)
+        log(f"[serve_loop] {name}: n={SERVE_LOOP_N} completed {stats['completed']} "
+            f"in {wall:.3f} s, invocations {stats['invocations']} (failures "
+            f"{stats['invocation_failures']}), rejected {rej}, p50 "
+            f"{1e3 * stats['latency_p50_s']:.3f} ms, p99 "
+            f"{1e3 * stats['latency_p99_s']:.3f} ms, ipt/request "
+            f"{stats['ipt_per_request']:.3f}, stall {stats['invocation_stall_s']:.3f} s, "
+            f"overlap {stats['invocation_overlap_s']:.3f} s, served during "
+            f"invocations {stats['completed_during_invocation']}, field_backend "
+            f"{stats['field_backend']}")
+        check(stats["completed"] == SERVE_LOOP_REQUESTS and stats["invocations"] >= 1,
+              f"serve_loop {name}: {stats['completed']} completed, "
+              f"{stats['invocations']} invocations")
+        check(stats["field_backend"] == "cuda" and stats["backend_fallbacks"] == 0
+              and not stats["invocation_error"],
+              f"serve_loop {name}: left the cuda rung ({stats['invocation_error']})")
+    launches = read_counts("serve_loop", ["vm_step"])["vm_step"]
+    a, s = runs["async"][0], runs["sync"]
+    during = a["completed_during_invocation"] / max(a["invocation_overlap_s"], 1e-9)
+    sync_qps = s[0]["completed"] / max(s[1], 1e-9)
+    log(f"[serve_loop] during-invocation qps {during:.1f}, stop-the-world sustained "
+        f"qps {sync_qps:.1f}, ratio {during / max(sync_qps, 1e-9):.3f} (not gated); "
+        f"vm_step launches {launches}; phase {time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the main path at full size
 # ---------------------------------------------------------------------------
 
@@ -1009,9 +1366,10 @@ class _KernelTimer:
 
     def __init__(self, torch, fn):
         self.torch, self.fn, self.events, self.last_args = torch, fn, [], None
-        self.shapes, self.args_by_shape = [], {}
+        self.shapes, self.args_by_shape, self.host_t = [], {}, []
 
     def __call__(self, *args, **kwargs):
+        self.host_t.append(time.perf_counter())
         ev0 = self.torch.cuda.Event(enable_timing=True)
         ev1 = self.torch.cuda.Event(enable_timing=True)
         ev0.record()
@@ -1549,6 +1907,396 @@ def online_full(torch, device, g, part):
         f"{launches}; path {time.perf_counter() - t_path:.1f} s")
     del f1, f2, fpl
     return dict(launches=launches, **_vm_at_path_shapes(torch, "online", timer.last_args))
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: serving on path 1's graph, invocations overlapped with requests
+# ---------------------------------------------------------------------------
+
+
+def _serve_full_feed(loop, g, ws, muts, t_cap):
+    """The feeder: SERVE_FULL_IN_FLIGHT requests outstanding (a rejection
+    retried after its hint), one mutation batch after SERVE_FULL_EVERY
+    completed requests and then after each committed invocation and
+    SERVE_FULL_EVERY more, until SERVE_FULL_BATCHES invocations have
+    committed.  Returns (tickets, rejections, batch send times)."""
+    tickets, outstanding, rejections, sent = [], [], 0, []
+    next_at, seen = SERVE_FULL_EVERY, 0
+    t0 = t_log = time.perf_counter()
+    while True:
+        commits = loop.ot.invocations
+        if time.perf_counter() - t_log >= SERVE_FULL_LOG_S:
+            t_log = time.perf_counter()
+            log(f"[serve] at {t_log - t0:.1f} s: {loop.metrics.completed} requests "
+                f"completed, {len(sent)} batches sent, {commits} commits, invocation in "
+                f"flight {loop.invocation_in_flight}, queue depth {loop.requests.depth()}")
+        check(time.perf_counter() < t_cap,
+              f"serve: not done within the {SERVE_FULL_CAP_S:.0f} s cap ({len(sent)} "
+              f"batches sent, {commits} commits, {loop.metrics.completed} requests "
+              f"completed)")
+        check(commits <= len(sent), "serve: an invocation ran without a batch")
+        outstanding = [t for t in outstanding if not t.done.is_set()]
+        for q in ws.sample(max(0, SERVE_FULL_IN_FLIGHT - len(outstanding))):
+            while True:
+                t = loop.submit(q)
+                if t.accepted:
+                    break
+                rejections += 1
+                check(time.perf_counter() < t_cap, "serve: admission stalled")
+                time.sleep(min(t.retry_after_s, 0.02))
+            tickets.append(t)
+            outstanding.append(t)
+        if commits > seen:                  # the last batch's invocation committed
+            seen, next_at = commits, loop.metrics.completed + SERVE_FULL_EVERY
+        if commits >= SERVE_FULL_BATCHES:
+            return tickets, rejections, sent
+        if len(sent) == commits and loop.metrics.completed >= next_at:
+            # generated against the live graph: the previous batch has been
+            # applied (its invocation committed) and none is pending
+            check(loop.submit_mutations(muts.next_batch(g)) is True,
+                  "serve: ingest rejected a batch")
+            sent.append(time.perf_counter())
+        time.sleep(0.001)
+
+
+def _invocations_from_traces(loop, host_t):
+    """Each committed invocation as its trace shows it: the run's window
+    (from the end of the ``invocation.snapshot`` span to the end of its
+    last field or swap span, on the perf_counter clock), the field and swap
+    spans, the commit span's start, and the kernel launches made inside
+    the window (``host_t``: the host time of each launch), in the order
+    the invocations began."""
+    off = time.perf_counter() - time.monotonic()      # span clock -> perf_counter
+    tracer = loop.obs.tracer
+    out = []
+    for root in tracer.spans(name="invocation"):
+        kids = tracer.spans(trace_id=root["trace_id"])
+        named = {n: [k for k in kids if k["name"] == n] for n in (
+            "invocation.snapshot", "invocation.field", "invocation.swap",
+            "invocation.commit")}
+        run = named["invocation.field"] + named["invocation.swap"]
+        t0 = named["invocation.snapshot"][0]["t1"] + off
+        t1 = max(k["t1"] for k in run) + off
+        commit = named["invocation.commit"]
+        out.append(dict(
+            attrs=root["attrs"], fields=named["invocation.field"],
+            swaps=named["invocation.swap"], t0=t0, t1=t1,
+            t_commit=commit[0]["t0"] + off if commit else float("nan"),
+            launches=sum(t0 <= h <= t1 for h in host_t)))
+    return out
+
+
+def _field_beside_serving(torch, loop, fixed):
+    """The worker's enumeration of the fixed batch alone; beside field
+    evaluations run back to back on another thread (two partitions in turn,
+    so none is memoized: each launches vm_step and copies its results to
+    pageable host memory); and beside back-to-back copies of one field's
+    results from the card to pageable host memory, the copies alone.
+    Returns the enumeration times of each arm, and for the two threads
+    their count of evaluations / copy rounds, mean wall and bytes a round."""
+    import threading
+
+    import numpy as np
+
+    taper, ex = loop.ot.taper, loop.executor
+    arrays = taper.build_trie(loop.ot.sketch.workload(loop.ot.policy.min_freq)).compile(
+        loop.g.label_names)
+    p0 = loop.part
+    p1 = p0.copy()
+    p1[: p1.size // 100] = (p1[: p1.size // 100] + 1) % loop.k
+    fld = taper.field(p0, arrays)                 # warm: the first call is cold
+    outs = [torch.from_numpy(np.ascontiguousarray(getattr(fld, name))).to(taper.device)
+            for name in FIELD_NAMES if getattr(fld, name) is not None]
+    copy_bytes = sum(t.numel() * t.element_size() for t in outs)
+
+    def enum_times():
+        out = []
+        for _ in range(SERVE_FULL_FIELD_REPS):
+            t0 = time.perf_counter()
+            ex.enumerate_paths_many(fixed, max_results=loop.cfg.max_results_per_query,
+                                    part=p0)
+            out.append(time.perf_counter() - t0)
+        return out
+
+    def beside(work):
+        stop, walls = threading.Event(), []
+
+        def body():
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                work(len(walls))
+                walls.append(time.perf_counter() - t0)
+
+        t = threading.Thread(target=body, name="beside-serving", daemon=True)
+        t.start()
+        try:
+            times = enum_times()
+        finally:
+            stop.set()
+            t.join(SERVE_WAIT_S)
+        check(not t.is_alive(), f"serve: the thread beside serving did not stop "
+                                f"within {SERVE_WAIT_S:.0f} s")
+        return times, len(walls), sum(walls) / max(len(walls), 1)
+
+    alone = enum_times()
+    fields = beside(lambda i: taper.field((p0, p1)[i % 2], arrays))
+    copies = beside(lambda i: [t.cpu() for t in outs])
+    torch.cuda.synchronize()
+    return alone, fields, copies, copy_bytes
+
+
+def serving_full(torch, device, g, part):
+    """A ServingLoop on path 1's graph and final partition: one worker,
+    invocations overlapped on their own thread with the kernel field, a
+    feeder keeping requests in flight and sending one mutation batch per
+    invocation; durability and tracing on.  Then every request answered,
+    each invocation on the ``cuda`` rung with vm_step launches and requests
+    served inside its window, the batched enumeration against the
+    reference DFS, the field's effect on the worker, and a restore from the
+    snapshot and WAL bitwise the live loop.  Invocation windows, field and
+    swap times come from the loop's own traces."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import repro_torch.core.visitor as visitor
+    from repro_torch.core.online import OnlinePolicy
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.kernels.vm_step.ops import vm_step
+    from repro_torch.serve import ServeLoopConfig, ServingLoop
+    from repro_torch.serve.snapshot import load_serving_snapshot
+    from repro_torch.workload.stream import GraphMutationStream, WorkloadStream
+
+    t_path = time.perf_counter()
+    queries = [parse_rpq(q) for q in PQ]
+    ws = WorkloadStream(queries, mode="static", static_freqs=PQ_FREQ, seed=3)
+    muts = GraphMutationStream("mixed", seed=7, vertices_per_tick=g.n // 2000,
+                               edges_per_tick=g.m // 2000)
+
+    def policy():
+        # the online path's: the topology trigger only
+        return OnlinePolicy(dirty_fraction=0.01, cadence=10 ** 9, drift_l1=2.0,
+                            ipt_regression=float("inf"))
+
+    def taper_config():
+        return TaperConfig(max_iterations=ONLINE_MAX_ITERS, seed=0, field_backend="cuda")
+
+    snap_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    loop = ServingLoop(g, 8, part=part, taper_config=taper_config(), policy=policy(),
+                       config=ServeLoopConfig(n_workers=1, overlap_invocations=True,
+                                              micro_batch=SERVE_FULL_MICRO_BATCH,
+                                              snapshot_dir=snap_dir, snapshot_keep=2,
+                                              trace_sample_rate=SERVE_FULL_SAMPLE,
+                                              stop_timeout_s=SERVE_WAIT_S),
+                       device=device)
+    n0, m0 = g.n, g.m
+    log(f"[serve] provgen n={n0} m={m0} k=8 from path 1's final partition; "
+        f"ServingLoop(n_workers=1, overlap_invocations=True, micro_batch "
+        f"{loop.cfg.micro_batch}, queue {loop.cfg.max_queue_depth}, field cuda, "
+        f"max_iterations {ONLINE_MAX_ITERS}, topology trigger only, snapshots kept 2, "
+        f"trace sampling {SERVE_FULL_SAMPLE}); feeder: {SERVE_FULL_IN_FLIGHT} in flight "
+        f"over PQ1-4 at {PQ_FREQ}, {SERVE_FULL_BATCHES} batches of "
+        f"{muts.vertices_per_tick} new vertices and {muts.edges_per_tick} churned "
+        f"edges, the first after {SERVE_FULL_EVERY} requests, each later one after "
+        f"a commit and {SERVE_FULL_EVERY} more")
+
+    # the worker's micro-batches (start, end, requests, frontier rows): the
+    # loop traces a micro-batch only when one of its requests is sampled,
+    # so a host timer wraps the batched enumeration; the kernel's launches
+    # are timed by CUDA events (and stamped with the host time they began)
+    batches, enumerate_many = [], loop.executor.enumerate_paths_many
+
+    def timed_batch(queries, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = enumerate_many(queries, *args, **kwargs)
+        stats = kwargs.get("stats") or {}
+        batches.append((t0, time.perf_counter(), len(queries), stats.get("frontier_rows", 0)))
+        return out
+
+    loop.executor.enumerate_paths_many = timed_batch
+    # the traces carry no frontier size: it is read off each invocation's inputs
+    frontiers, begin_invocation = [], loop.ot.begin_invocation
+
+    def begin(reason="manual"):
+        pending = begin_invocation(reason)
+        if pending is not None:
+            frontiers.append(-1 if pending.frontier is None else int(pending.frontier.size))
+        return pending
+
+    loop.ot.begin_invocation = begin
+    timer = _KernelTimer(torch, vm_step)
+    visitor.vm_step = timer
+    try:
+        reset_counts()                              # the path starts here
+        t_start = time.perf_counter()
+        loop.start()
+        try:
+            tickets, rejections, sent = _serve_full_feed(
+                loop, g, ws, muts, t_start + SERVE_FULL_CAP_S)
+            _wait_tickets("serve", tickets)
+        finally:
+            t_served = time.perf_counter()
+            stats = loop.stop(drain=True)           # raises past stop_timeout_s
+        launches = read_counts("serve", ["vm_step"])["vm_step"]  # ... ends here
+    finally:
+        visitor.vm_step = vm_step
+        loop.executor.enumerate_paths_many = enumerate_many
+        loop.ot.begin_invocation = begin_invocation
+    torch.cuda.synchronize()
+    t_stop = time.perf_counter()
+    mem1 = torch.cuda.memory_allocated()
+
+    # every request answered; each invocation committed on the cuda rung
+    done = [t.submitted_s + t.latency_s for t in tickets]
+    lat = np.asarray([t.latency_s for t in tickets])
+    ipt = np.asarray([t.ipt for t in tickets], np.float64)
+    check(all(t.done.is_set() and t.paths is not None for t in tickets)
+          and stats["completed"] == len(tickets),
+          f"serve: {stats['completed']} of {len(tickets)} requests completed")
+    invs = _invocations_from_traces(loop, timer.host_t)
+    check(len(invs) == len(frontiers) == SERVE_FULL_BATCHES
+          and loop.ot.invocations == SERVE_FULL_BATCHES
+          and all(r["attrs"].get("committed") for r in invs),
+          f"serve: {len(invs)} invocation traces, {loop.ot.invocations} commits, "
+          f"{SERVE_FULL_BATCHES} batches")
+    check(stats["backend_fallbacks"] == 0 and stats["field_backend"] == "cuda"
+          and stats["invocation_failures"] == 0 and not stats["invocation_error"],
+          f"serve: left the cuda rung or failed ({stats['invocation_error']})")
+    check(sum(r["launches"] for r in invs) == len(timer.host_t) == launches,
+          f"serve: {len(timer.host_t)} vm_step launches, {launches} counted, "
+          f"{[r['launches'] for r in invs]} inside the invocation windows")
+    in_window, window_s = 0, 0.0
+    for i, r in enumerate(invs):
+        k_in = sum(r["t0"] <= d <= r["t1"] for d in done)
+        win = r["t1"] - r["t0"]
+        busy = sum(max(0.0, min(b[1], r["t1"]) - max(b[0], r["t0"])) for b in batches)
+        # one micro-batch in service over the whole window: it began at the
+        # window's start (the worker takes its next micro-batch as soon as
+        # it has started the invocation's thread) and ended after it
+        spanning = [b for b in batches
+                    if b[0] <= r["t0"] + SERVE_FULL_DISPATCH_S and b[1] >= r["t1"]]
+        in_window += k_in
+        window_s += win
+        backends = sorted({f["attrs"].get("backend") for f in r["fields"]})
+        log(f"[serve] invocation {i} ({r['attrs'].get('reason')}, rung {backends}): window "
+            f"{win:.3f} s, field {sum(f['duration_s'] for f in r['fields']):.3f} s over "
+            f"{len(r['fields'])} evaluations, swap "
+            f"{sum(w['duration_s'] for w in r['swaps']):.3f} s over {len(r['swaps'])} "
+            f"iterations, frontier {frontiers[i]} vertices, "
+            f"{sum(w['attrs'].get('moves', 0) for w in r['swaps'])} moves, vm_step "
+            f"launches {r['launches']}; {k_in} requests completed inside the window, "
+            f"the worker serving {busy:.3f} s of it ({busy / max(win, 1e-9):.3f}); "
+            f"commit latency {r['t_commit'] - r['t1']:.4f} s")
+        check(r["attrs"].get("reason") == "topology" and backends == ["cuda"]
+              and r["launches"] > 0,
+              f"serve: invocation {i} did not run vm_step on the cuda rung")
+        if not k_in and spanning:
+            b = spanning[0]
+            log(f"[serve] invocation {i}: NOT MET: no request completed inside the "
+                f"window; the one worker spent it in one micro-batch of {b[2]} "
+                f"requests ({b[3]} frontier rows, {b[1] - b[0]:.3f} s) that began "
+                f"{b[0] - r['t0']:.4f} s after the window's start and ended "
+                f"{b[1] - r['t1']:.3f} s after its end")
+        # requests complete inside every window, but where one micro-batch
+        # is in service over the whole window: the worker served throughout
+        check(k_in > 0 or spanning,
+              f"serve: no request completed during invocation {i} and the worker "
+              f"was not serving throughout it")
+    wall = t_served - t_start
+    out_s = max(wall - window_s, 1e-9)
+    kern_ms = sum(a.elapsed_time(b) for a, b in timer.events)
+    field_s = sum(f["duration_s"] for r in invs for f in r["fields"])
+    log(f"[serve] {len(tickets)} requests in {wall:.3f} s ({len(tickets) / wall:.1f} qps), "
+        f"{in_window} inside invocation windows ({window_s:.3f} s, "
+        f"{in_window / max(window_s, 1e-9):.1f} qps) and {len(tickets) - in_window} "
+        f"outside ({out_s:.3f} s, {(len(tickets) - in_window) / out_s:.1f} qps); "
+        f"rejections {rejections}; latency p50 {1e3 * np.percentile(lat, 50):.3f} ms, "
+        f"p99 {1e3 * np.percentile(lat, 99):.3f} ms; ipt per request "
+        f"{ipt.mean():.4f}; stall {stats['invocation_stall_s']:.3f} s, overlap "
+        f"{stats['invocation_overlap_s']:.3f} s; n {n0} -> {g.n}, m {m0} -> {g.m}")
+    service = np.asarray([b[1] - b[0] for b in batches])
+    log(f"[serve] {len(batches)} micro-batches: service time mean "
+        f"{service.mean():.4f} s, p50 {np.percentile(service, 50):.4f} s, max "
+        f"{service.max():.4f} s; frontier rows a batch mean "
+        f"{np.mean([b[3] for b in batches]):.0f}, max {max(b[3] for b in batches)}")
+    log(f"[serve] device: vm_step {len(timer.events)} launches {kern_ms:.3f} ms "
+        f"({kern_ms / (1e3 * wall):.6f} of the serving wall busy in the kernel); "
+        f"the field spans {field_s:.3f} s over "
+        f"{sum(len(r['fields']) for r in invs)} evaluations ({field_s / wall:.4f} of "
+        f"the wall, an upper bound of the busy share); device memory allocated "
+        f"{mem0} B before, {mem1} B after")
+    tracer = loop.obs.tracer
+    log(f"[serve] traces: {len(invs)} invocation traces, field spans "
+        f"{[len(r['fields']) for r in invs]}; {tracer.sampled_traces} sampled of "
+        f"{tracer.sampled_traces + tracer.unsampled_traces} traces")
+
+    # the batched enumeration against the reference DFS on the final graph
+    t0 = time.perf_counter()
+    fixed = WorkloadStream(queries, mode="static", static_freqs=PQ_FREQ,
+                           seed=11).sample(SERVE_FULL_ENUM)
+    many = loop.executor.enumerate_paths_many(
+        fixed, max_results=loop.cfg.max_results_per_query, part=loop.part)
+    t_many = time.perf_counter() - t0
+    ref = {q.qhash: loop.executor.enumerate_paths_ref(
+        q, max_results=loop.cfg.max_results_per_query, part=loop.part) for q in queries}
+    same = all(got == ref[q.qhash] for q, got in zip(fixed, many))
+    log(f"[serve] enumerate_paths_many over {SERVE_FULL_ENUM} PQ1-4 requests "
+        f"({t_many:.3f} s) == enumerate_paths_ref (paths and ipt): {same}")
+    check(same, "serve: batched enumeration differs from the reference DFS")
+
+    # the field's effect on the worker: the enumeration beside field
+    # evaluations, and beside the field's copies to pageable memory alone
+    alone, fields, copies, copy_bytes = _field_beside_serving(torch, loop, fixed)
+    a = float(np.median(alone))
+    log(f"[serve] field beside serving: the {SERVE_FULL_ENUM}-request enumeration "
+        f"alone {[round(x, 4) for x in alone]} s; beside {fields[1]} field evaluations "
+        f"(mean {fields[2]:.4f} s each) {[round(x, 4) for x in fields[0]]} s, median "
+        f"x{float(np.median(fields[0])) / a:.3f}; beside {copies[1]} rounds of copying "
+        f"one field's results ({copy_bytes} B) to pageable memory (mean "
+        f"{copies[2]:.4f} s each) {[round(x, 4) for x in copies[0]]} s, median "
+        f"x{float(np.median(copies[0])) / a:.3f}")
+
+    # restore from the snapshot and the WAL: bitwise the live loop
+    loop.snapshot(sync=True)
+    snap = loop._snapshotter
+    snap.wait(timeout=SERVE_WAIT_S)
+    t0 = time.perf_counter()
+    load_serving_snapshot(snap_dir)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = ServingLoop.restore(snap_dir, taper_config=taper_config(),
+                                   policy=policy(), device=device)
+    t_restore = time.perf_counter() - t0
+    res = restored.restore_result
+    rg, a_sk, b_sk = restored.g, loop.ot.sketch, restored.ot.sketch
+    pairs = [("part", loop.part, restored.part), ("labels", g.labels, rg.labels),
+             ("src", g.src, rg.src), ("dst", g.dst, rg.dst),
+             ("row_ptr", g.row_ptr, rg.row_ptr)]
+    t0 = time.perf_counter()
+    pairs += [(f"traversals {q.to_text()}", loop.executor.traversals(q),
+               restored.executor.traversals(q)) for q in queries]
+    t_trav = time.perf_counter() - t0
+    bad = [name for name, a, b in pairs if a.dtype != b.dtype or not np.array_equal(a, b)]
+    sketch_same = (a_sk.counts == b_sk.counts and a_sk._stamp == b_sk._stamp
+                   and a_sk._ticks == b_sk._ticks)
+    log(f"[serve] durability: {snap.saved} snapshots, the last {snap.last_bytes} B "
+        f"published in {snap.last_wall_s:.3f} s (capture {snap.last_capture_s:.3f} s); "
+        f"WAL {snap.journal.appended} records, {snap.journal.appended_bytes} B appended; "
+        f"restore {t_restore:.3f} s: load {t_load:.3f} s, replay {res.replay_wall_s:.3f} s "
+        f"({res.replayed} batches), rebuild {t_restore - t_load - res.replay_wall_s:.3f} s; "
+        f"executor counts for PQ1-4 (both loops) {t_trav:.3f} s; bitwise: "
+        f"graph version {rg.version == g.version}, arrays and counts "
+        f"{not bad} {bad}, sketch {sketch_same}")
+    check(rg.version == g.version and rg.n == g.n and not bad and sketch_same,
+          f"serve: the restored loop differs from the live one ({bad})")
+    restored.stop(drain=False)
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    log(f"[serve] vm_step launches {launches}; path {time.perf_counter() - t_path:.1f} s "
+        f"(serving {wall:.1f} s, stop {t_stop - t_served:.1f} s)")
+    return dict(launches=launches, **_vm_at_path_shapes(torch, "serve", timer.last_args))
 
 
 # ---------------------------------------------------------------------------
@@ -2294,9 +3042,16 @@ def main() -> int:
     fig7(torch, device)
     online_2000(torch, device)
     sharded_2000(torch, device)
+    serving_2000(torch, device)
+    ladder_on_card(torch, device)
+    serve_loop_setting(torch, device)
     full = full_size(torch, device)
     sharded = sharded_full(torch, device, full["graph"], full["part"])
-    online = online_full(torch, device, full.pop("graph"), full.pop("part"))
+    # the serving path starts from path 1's graph, which the online path mutates
+    g_serve = full["graph"].copy()
+    online = online_full(torch, device, full.pop("graph"), full["part"].copy())
+    served = serving_full(torch, device, g_serve, full.pop("part"))
+    del g_serve
     serve = dlrm_serving(torch, device)
     place = row_placement(torch, device)
     gnn = gcn_inference(torch, device)
@@ -2329,6 +3084,17 @@ def main() -> int:
          "max_abs_err": max(errs["vm_step"], online["err"]),
          "ms": online["ms"], "plain_ms": online["plain_ms"],
          "bound_ms": online["bound_ms"], "bound_by": online["bound_by"],
+         "library_ms": None},
+        # the same kernel on the serving path: each overlapped invocation's
+        # field, launched from the loop's invocation thread (times at the
+        # last launch's shapes)
+        {"name": "vm_step/serve", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vm_step.cu",
+         "replaces": "src/repro/kernels/vm_step/kernel.py:26",
+         "launches": served["launches"],
+         "max_abs_err": max(errs["vm_step"], served["err"]),
+         "ms": served["ms"], "plain_ms": served["plain_ms"],
+         "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
          "library_ms": None},
         # the same kernel per shard of the sharded field: alpha holds the
         # shard's rows and its exchanged halo (times at shard 0's shapes)

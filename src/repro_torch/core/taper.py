@@ -29,6 +29,13 @@ from repro_torch.utils import get_logger
 
 log = get_logger("core.taper")
 
+#: extroversion-field DP backends ordered by capability: serving loops
+#: degrade left-to-right on repeated device failure (losing scale, keeping
+#: availability) and probe back right-to-left once the fault clears.  The
+#: bottom rung runs the plain field on the Taper's own device — on the card
+#: when the Taper is on the card
+FIELD_BACKEND_LADDER = ("cuda_sharded", "cuda", "torch")
+
 Workload = Sequence[Tuple[RPQ, float]]
 
 
@@ -158,6 +165,21 @@ class Taper:
         # O(n*N + m + n*k) floats — don't pin more than one
         self._field_memo: Optional[Tuple[Tuple, ExtroversionResult]] = None
         self._redeal_counter = 0
+        # observability (optional; wired by the serving loop): when a
+        # tracer is attached and ``trace_ctx`` is a sampled invocation
+        # trace, field evaluations / swap iterations / shard re-deals emit
+        # spans under it.  Both default to off — a bare Taper pays nothing.
+        self.tracer = None
+        self.trace_ctx = None
+
+    def _span(self, name: str, **attrs):
+        """Open a span on the attached invocation trace (no-op span when
+        no tracer/context is wired)."""
+        if self.tracer is None or self.trace_ctx is None:
+            from repro_torch.obs.trace import NOOP_SPAN
+
+            return NOOP_SPAN
+        return self.tracer.start(name, self.trace_ctx, **attrs)
 
     def __del__(self):
         # release this instance's snapshot slot on a shared, long-lived trie
@@ -271,9 +293,30 @@ class Taper:
         self._pre["_shard_order"] = (
             f"partition:{self._redeal_counter}", new_pos)
         self._field_memo = None     # memoed field keyed on the old layout
+        if self.tracer is not None and self.trace_ctx is not None:
+            self.tracer.event("invocation.redeal", self.trace_ctx,
+                              redeal_epoch=self._redeal_counter,
+                              n_shards=int(n_shards))
         log.info("re-dealt shard map along partition (epoch %d)",
                  self._redeal_counter)
         return True
+
+    def set_field_backend(self, backend: str) -> None:
+        """Switch the extroversion-field DP engine in place.
+
+        The serving loop's graceful-degradation ladder calls this to fall
+        from ``cuda_sharded`` toward ``torch`` on repeated device failure
+        (and to probe back up).  Device-resident caches in ``_pre`` are
+        keyed per backend so they survive the round trip; only the field
+        memo (keyed on the old backend) is dropped.  Every rung runs on the
+        Taper's ``device``: ``torch`` on a CUDA Taper is the plain field on
+        the card."""
+        if backend not in FIELD_BACKEND_LADDER:
+            raise ValueError(f"unknown field backend {backend!r}")
+        if backend == self.config.field_backend:
+            return
+        self.config.field_backend = backend
+        self._field_memo = None
 
     # -- workload handling ---------------------------------------------------
     def build_trie(self, workload: Workload) -> TPSTry:
@@ -307,19 +350,34 @@ class Taper:
         )
         if self._field_memo is not None and self._field_memo[0] == memo_key:
             return self._field_memo[1]
-        fld = extroversion_field(
-            self.g,
-            arrays,
-            part,
-            self.k,
-            depth_cap=cfg.depth_cap,
-            _precomputed=self._pre,
-            dense_ext_to=cfg.dense_ext_to,
-            backend=cfg.field_backend,
-            device=self.device,
-            shard_map_source=cfg.shard_map_source,
-            halo_exchange=cfg.halo_exchange,
-        )
+        with self._span("invocation.field",
+                        backend=cfg.field_backend) as sp:
+            fld = extroversion_field(
+                self.g,
+                arrays,
+                part,
+                self.k,
+                depth_cap=cfg.depth_cap,
+                _precomputed=self._pre,
+                dense_ext_to=cfg.dense_ext_to,
+                backend=cfg.field_backend,
+                device=self.device,
+                shard_map_source=cfg.shard_map_source,
+                halo_exchange=cfg.halo_exchange,
+            )
+            hs = self._pre.get("_halo_stats")
+            if hs:
+                sp.set(halo_bytes_per_depth=hs.get("halo_bytes_per_depth", 0),
+                       halo_ratio=hs.get("halo_ratio", 0.0),
+                       depth_steps=hs.get("depth_steps", 0),
+                       n_shards=hs.get("n_shards", 0))
+                if self.tracer is not None and self.trace_ctx is not None:
+                    # per-depth accounting: one instant marker per DP depth
+                    # step, each carrying the bytes its halo exchange moved
+                    for d in range(int(hs.get("depth_steps", 0))):
+                        self.tracer.event(
+                            "field.depth", self.trace_ctx, depth=d + 1,
+                            halo_bytes=hs.get("halo_bytes_per_depth", 0))
         self._field_memo = (memo_key, fld)
         return fld
 
@@ -411,9 +469,11 @@ class Taper:
                 raise InvocationAborted(
                     f"invocation aborted at iteration {it + 1}")
             t0 = time.perf_counter()
-            new_part, stats = swap_iteration(
-                self.g, part, fld, self.k, cfg.swap_config(), self._rng,
-                candidate_mask=cand_mask)
+            with self._span("invocation.swap", iteration=it + 1) as swap_sp:
+                new_part, stats = swap_iteration(
+                    self.g, part, fld, self.k, cfg.swap_config(), self._rng,
+                    candidate_mask=cand_mask)
+                swap_sp.set(moves=stats.moves)
             report.swap_seconds.append(time.perf_counter() - t0)
             if stats.moves == 0:
                 log.info("iteration %d: no moves, converged", it + 1)

@@ -159,6 +159,25 @@ def partition_shard_order(part: np.ndarray, n_shards: int) -> np.ndarray:
     return pos_of
 
 
+def shard_assignment(part: np.ndarray, n_shards: int,
+                     block_n: int = 128) -> np.ndarray:
+    """Per-vertex shard id under the partition-dealt fold.
+
+    Applies :func:`partition_shard_order` and divides positions by the
+    block-padded per-shard span (the same span arithmetic the packing and
+    ``Taper.maybe_redeal_shards`` use) — the movement-aware k→S fold's
+    answer to "which shard hosts vertex v at S shards", which elastic
+    restore uses to budget how many vertices change shard when a snapshot
+    is brought up at a different S."""
+    part = np.asarray(part, dtype=np.int64).reshape(-1)
+    if part.size == 0:
+        return np.empty(0, dtype=np.int32)
+    pos_of = partition_shard_order(part, n_shards)
+    nb = max(1, -(-part.size // block_n))
+    span = -(-nb // max(int(n_shards), 1)) * block_n
+    return (pos_of // span).astype(np.int32)
+
+
 def bfs_shard_order(g) -> np.ndarray:
     """BFS visitation order from high-degree seeds (``pos_of``).
 

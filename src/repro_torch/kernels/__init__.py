@@ -28,3 +28,17 @@ Kernels (CUDA C++ for ``sm_90a``; each replaces one TPU kernel):
 
 Every TPU kernel of the JAX package has its counterpart here.
 """
+import threading
+
+#: guards every wrapper's launch counter: a kernel may launch from several
+#: threads (the serving loop runs its invocations' fields on a thread of
+#: their own), and a counter read under this lock sees every launch so far
+LAUNCH_LOCK = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel did not build, load or launch.
+
+    Callers that degrade on other faults (the serving loop's backend
+    ladder) let this one through: a broken kernel must fail loudly, never
+    be served around by its plain version."""

@@ -18,6 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+from repro_torch.kernels import KernelError
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -27,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+        raise KernelError("nvcc not found: the CUDA kernels are built on the "
                            "machine with the card, from the CUDA toolkit")
     return path
 
@@ -39,7 +41,7 @@ def _target(src: Path) -> Path:
 
 def build_all() -> Dict[str, Path]:
     """Compile every ``csrc/*.cu`` that has no up-to-date library; returns
-    ``{kernel name: library path}``.  Raises ``RuntimeError`` with the
+    ``{kernel name: library path}``.  Raises ``KernelError`` with the
     compiler's output if any build fails.  ``nvcc``'s ``-Xptxas -v`` report
     (registers, shared memory, spills) is kept beside each library as
     ``<library>.log``."""
@@ -64,7 +66,7 @@ def build_all() -> Dict[str, Path]:
         else:
             os.replace(tmp, lib)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     return libs
 
 
@@ -74,4 +76,7 @@ def load(name: str) -> ctypes.CDLL:
     libs = build_all()
     if name not in libs:
         raise KeyError(f"no CUDA source csrc/{name}.cu")
-    return ctypes.CDLL(str(libs[name]))
+    try:
+        return ctypes.CDLL(str(libs[name]))
+    except OSError as exc:
+        raise KernelError(f"cannot load {libs[name]}: {exc}") from exc

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import KernelError
+
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
@@ -43,5 +45,5 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor, mean: bool,
             table.data_ptr(), ids.data_ptr(), out.data_ptr(), V, d, B, H,
             int(mean), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"embedding_bag kernel launch failed: CUDA error {err}")
+        raise KernelError(f"embedding_bag kernel launch failed: CUDA error {err}")
     return out

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import LAUNCH_LOCK
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_reference
 
 COMBINERS = ("sum", "mean")
@@ -47,7 +48,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
 
     out = embedding_bag_cuda(table, ids, combiner == "mean")
-    embedding_bag.launches += 1
+    with LAUNCH_LOCK:
+        embedding_bag.launches += 1
     return out
 
 

@@ -25,6 +25,8 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import KernelError
+
 
 class TilePlan(NamedTuple):
     bq: int        # q rows per block (two consumer warpgroups of 64)
@@ -96,7 +98,7 @@ def flash_attention_cuda(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.T
             0 if window is None else window, scale_log2,
             torch.cuda.current_stream().cuda_stream)
     if err >= 10000:
-        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {err - 10000}")
+        raise KernelError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {err - 10000}")
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise KernelError(f"{name} kernel launch failed: CUDA error {err}")
     return out

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import LAUNCH_LOCK
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -84,7 +85,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 
     out = flash_attention_cuda(name, q, k, v, causal, window)
-    flash_attention.launches += 1
+    with LAUNCH_LOCK:
+        flash_attention.launches += 1
     return out
 
 

@@ -12,6 +12,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels import KernelError
+
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
@@ -34,5 +36,5 @@ def segment_spmm_cuda(x: torch.Tensor, row_ptr: torch.Tensor,
             row_ptr.data_ptr(), src.data_ptr(), w.data_ptr(), x.data_ptr(),
             out.data_ptr(), n_rows, F, vec, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"segment_spmm kernel launch failed: CUDA error {err}")
+        raise KernelError(f"segment_spmm kernel launch failed: CUDA error {err}")
     return out

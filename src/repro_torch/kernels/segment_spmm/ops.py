@@ -24,6 +24,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from repro_torch.kernels import LAUNCH_LOCK
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
 
 
@@ -297,7 +298,8 @@ def segment_spmm_csr(x: torch.Tensor, csr: EdgeCSR,
     from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
 
     out = segment_spmm_cuda(x, csr.row_ptr, csr.src, w, vector_width(x))
-    segment_spmm_csr.launches += 1
+    with LAUNCH_LOCK:
+        segment_spmm_csr.launches += 1
     return out
 
 

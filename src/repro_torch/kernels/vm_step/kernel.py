@@ -12,6 +12,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels import KernelError
+
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
@@ -43,5 +45,5 @@ def vm_step_cuda(alpha: torch.Tensor, par: torch.Tensor, val: torch.Tensor,
             long_rows.shape[0],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"vm_step kernel launch failed: CUDA error {err}")
+        raise KernelError(f"vm_step kernel launch failed: CUDA error {err}")
     return out

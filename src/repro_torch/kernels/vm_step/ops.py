@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import LAUNCH_LOCK, KernelError
+
 # the dst-sorted CSR serves both CUDA kernels; it lives with the packer
 # (re-exported here, its import path before segment_spmm was ported)
 from repro_torch.kernels.segment_spmm.ops import (  # noqa: F401
@@ -102,12 +104,13 @@ def vm_step(alpha: torch.Tensor, par: torch.Tensor, val: torch.Tensor,
     if alpha.device.type != "cuda":
         raise ValueError(f"vm_step: no kernel for device {alpha.device}")
     if alpha.numel() >= 2**31 - 1:
-        raise ValueError("vm_step: the kernel indexes alpha with int32 offsets")
+        raise KernelError("vm_step: the kernel indexes alpha with int32 offsets")
     from repro_torch.kernels.vm_step.kernel import vm_step_cuda
 
     out = vm_step_cuda(alpha, par, val, csr.row_ptr, csr.src, w, row_label,
                        csr.plan.runs, csr.plan.long_rows)
-    vm_step.launches += 1
+    with LAUNCH_LOCK:
+        vm_step.launches += 1
     return out
 
 

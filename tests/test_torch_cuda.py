@@ -703,3 +703,155 @@ def test_cuda_sharded_one_rank_equals_cuda(card):
                 for f in ("alpha", "pr", "edge_mass", "extro_mass", "extroversion",
                           "ext_to"):
                     assert np.array_equal(getattr(fs, f), getattr(fc, f)), (name, f)
+
+
+# ---------------------------------------------------------------------------
+# the serving loop on the card
+# ---------------------------------------------------------------------------
+
+
+def _serve_policy(**kw):
+    from repro_torch.core.online import OnlinePolicy
+
+    base = dict(bootstrap_after_ticks=0, cadence=1, min_interval=0, dirty_fraction=2.0,
+                drift_l1=9e9, ipt_regression=9e9)
+    base.update(kw)
+    return OnlinePolicy(**base)
+
+
+def test_backend_fallback_and_probe_recovery_on_the_card(card):
+    """The twin of tests/test_faults.py's ladder test: four injected
+    invocation faults walk cuda -> torch (the torch rung's field on the
+    card), one healthy commit probes back to cuda, and the next commit
+    launches the kernel."""
+    import repro_torch.core.visitor as visitor
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.serve import ServeLoopConfig, ServingLoop
+    from repro_torch.serve.faults import SITE_INVOCATION, FaultInjector, InjectedFault
+
+    mq1 = parse_rpq("Area.Artist.(Artist|Label).Area")
+    fi = FaultInjector()
+    loop = ServingLoop(
+        musicbrainz_like(300, seed=21), 4,
+        taper_config=TaperConfig(max_iterations=2, field_backend="cuda"),
+        policy=_serve_policy(),
+        config=ServeLoopConfig(micro_batch=4, overlap_invocations=False, faults=fi,
+                               invocation_retry_backoff_s=0.0, backend_fallback_after=2,
+                               backend_probe_after=1),
+        device=card)
+    seen, field = [], visitor._field
+
+    def traced(*args, **kwargs):
+        out = field(*args, **kwargs)
+        seen.append((args[7], out[0].device.type))
+        return out
+
+    def pump_until(cond):
+        for _ in range(200):
+            if cond():
+                return
+            loop.submit(mq1)
+            try:
+                loop.pump()
+            except InjectedFault:
+                pass
+        raise AssertionError("the loop did not get there in 200 rounds")
+
+    visitor._field = traced
+    try:
+        fi.arm(SITE_INVOCATION, times=4)
+        pump_until(lambda: fi.fired_total() >= 4)
+        s = loop.stats()
+        assert s["field_backend"] == "torch" and s["backend_fallbacks"] == 1
+        assert s["degraded"] == 1 and s["healthy"] == 0
+        assert loop.metrics.invocation_failures == 4
+        n = len(seen)
+        pump_until(lambda: loop.stats()["backend_recoveries"] >= 1)
+        assert seen[n:] and all(s == ("torch", "cuda") for s in seen[n:])
+        s = loop.stats()
+        assert s["field_backend"] == "cuda" and s["degraded"] == 0 and s["healthy"] == 1
+        before, inv = vm_step.launches, loop.ot.invocations
+        pump_until(lambda: loop.ot.invocations > inv)
+        assert vm_step.launches > before
+    finally:
+        visitor._field = field
+    loop.stop()
+
+
+def test_shard_upload_fault_survivable_then_degrades_on_the_card(card):
+    """The twin of tests/test_faults.py's shard-upload test: one failed
+    upload is survivable, a second walks cuda_sharded -> cuda."""
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.graphs.graph import MutationBatch
+    from repro_torch.serve import ServeLoopConfig, ServingLoop
+    from repro_torch.serve.faults import SITE_SHARD_UPLOAD, FaultInjector
+
+    mq1 = parse_rpq("Area.Artist.(Artist|Label).Area")
+    g = musicbrainz_like(300, seed=26)
+    fi = FaultInjector()
+    loop = ServingLoop(
+        g, 4, taper_config=TaperConfig(max_iterations=2, field_backend="cuda_sharded"),
+        policy=_serve_policy(bootstrap_after_ticks=None, cadence=10 ** 9),
+        config=ServeLoopConfig(micro_batch=4, overlap_invocations=False, faults=fi,
+                               invocation_retry_backoff_s=0.0, backend_fallback_after=2),
+        device=card)
+    fi.arm(SITE_SHARD_UPLOAD, times=1)
+    v0, n0 = g.version, g.n
+    assert loop.submit_mutations(MutationBatch(add_vertex_labels=[0],
+                                               add_edges=[(1, n0)])) is True
+    loop.pump()
+    s = loop.stats()
+    assert g.version == v0 + 1 and s["upload_failures"] == 1 and s["degraded"] == 0
+    loop.submit(mq1)
+    assert loop.pump() == 1
+    fi.arm(SITE_SHARD_UPLOAD, times=1)
+    assert loop.submit_mutations(MutationBatch(add_vertex_labels=[0],
+                                               add_edges=[(2, n0 + 1)])) is True
+    loop.pump()
+    s = loop.stats()
+    assert s["upload_failures"] == 2 and s["backend_fallbacks"] == 1
+    assert s["field_backend"] == "cuda" and s["degraded"] == 1
+    loop.submit(mq1)
+    assert loop.pump() == 1
+    loop.stop()
+
+
+def test_overlapped_serving_on_the_card_equals_the_cpu(card):
+    """Overlapped invocations launched from the loop's invocation thread
+    run the kernel, and the partitions they commit equal those of the same
+    inline stream on the CPU's torch field."""
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.graphs.graph import MutationBatch
+    from repro_torch.serve import ServeLoopConfig, ServingLoop
+
+    mq1, mq3 = (parse_rpq(q) for q in ("Area.Artist.(Artist|Label).Area",
+                                       "Artist.Credit.Track.Medium"))
+    parts = {}
+    for name, device, backend in (("card", card, "cuda"), ("cpu", "cpu", "torch")):
+        g = musicbrainz_like(700, seed=5)
+        loop = ServingLoop(
+            g, 4, taper_config=TaperConfig(max_iterations=2, field_backend=backend),
+            policy=_serve_policy(cadence=10 ** 9, dirty_fraction=1e-9),
+            config=ServeLoopConfig(micro_batch=8, overlap_invocations=True), device=device)
+        before = vm_step.launches
+        out = []
+        for step in range(3):
+            for i in range(8):
+                loop.submit(mq1 if i % 3 else mq3)
+            loop.pump()
+            assert loop.invocation_in_flight
+            assert loop._invocation_done.wait(120)
+            loop.pump()                       # commits, then applies ingest
+            out.append(loop.part.copy())
+            loop.submit_mutations(MutationBatch(add_vertex_labels=[step % 3],
+                                                add_edges=[(g.n, step), (7, 11 + step)]))
+            loop.pump()
+        stats = loop.stop()
+        assert stats["invocation_error"] == "" and stats["backend_fallbacks"] == 0
+        assert stats["field_backend"] == backend
+        parts[name] = (out, vm_step.launches - before)
+    assert parts["card"][1] > 0 and parts["cpu"][1] == 0
+    assert all(np.array_equal(a, b) for a, b in zip(parts["card"][0], parts["cpu"][0]))

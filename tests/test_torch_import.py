@@ -49,3 +49,32 @@ def test_sharded_slice_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_serving_slice_imports_without_jax_or_reference():
+    probe = ("import sys, repro_torch.serve, repro_torch.serve.loop, repro_torch.serve.engine, "
+             "repro_torch.serve.snapshot, repro_torch.serve.replication, "
+             "repro_torch.serve.control, repro_torch.serve.faults, repro_torch.obs, "
+             "repro_torch.train.checkpoint, repro_torch.train.elastic, "
+             "repro_torch.utils.timing, repro_torch.workload.executor; "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_chip_smoke_imports_without_jax_or_reference():
+    root = SRC.parent
+    pat = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b)(?!_torch)", re.M)
+    assert not pat.search((root / "chip_smoke.py").read_text())
+    # importing the script (and the port modules its phases import) loads
+    # neither JAX nor the reference package
+    probe = ("import sys; sys.path.insert(0, 'src'); import chip_smoke, repro_torch.serve, "
+             "repro_torch.workload.stream; "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=root, capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
