@@ -53,7 +53,20 @@ Phases (any failure exits non-zero and prints no result line):
    ``vm_step`` (4e); ``benchmarks/serve_loop.py``'s setting with the
    ``cuda`` field (musicbrainz 20,000, 600 requests, 64 in flight, a
    mutation batch every 50), overlapped and then stop-the-world on the same
-   stream, their throughput and latency printed (4f);
+   stream, their throughput and latency printed (4f); then the replicated
+   cluster (``serve/cluster.py``): the four chaos scenarios
+   (``serve/chaos.py``: crash storm, slow follower, flash crowd, partition
+   heal) with their clusters on the card, each green and its digest the
+   JAX package's, its invocations launching ``vm_step`` on the ``cuda``
+   rung (4g); ``benchmarks/cluster_failover.py``'s setting (musicbrainz
+   20,000, heartbeat timeout 0.2 s, the ``cuda`` field): a follower cut
+   off by a link partition heals by tail resync and is then bitwise its
+   primary, a crashed primary's best follower promotes under epoch 2,
+   answers and launches ``vm_step`` at its next invocation, a demoted node
+   rejoined with its memory re-uploads its stale device inputs and
+   evaluates the field bitwise like the promoted node, reads redirect
+   around a crashed follower; the benchmark's three timing targets
+   printed as met or NOT MET (4h);
 5. path 1, TAPER at the paper's ProvGen scale: one ``Taper.invoke`` on
    ``provgen_like(1_000_000)``, k=8, PQ1-4, kernel field, with per-iteration
    field/kernel/swap times and each evaluation's split (its ``vm_step``
@@ -87,14 +100,35 @@ Phases (any failure exits non-zero and prints no result line):
    thread; the topology trigger only; snapshots and the WAL in a temporary
    directory; 5% of requests traced), a feeder keeping 64 PQ1-4 requests in
    flight and sending one mutation batch (n/2000 new vertices, m/2000
-   churned edges) per invocation, four in all; every request answered,
+   churned edges) per invocation, two in all (cut from four to make room
+   for the cluster path); every request answered,
    each invocation on the ``cuda`` rung with ``vm_step`` launches and
    requests served inside its window, its trace's field span on
    ``cuda``, the batched enumeration against the reference DFS on the
    final graph, and a restore from the snapshot and WAL bitwise the live
    loop; throughput in and out of the invocation windows, latency, the
    invocations' field, swap and commit times, snapshot and WAL bytes,
-   restore time by part, the device's busy share and memory;
+   restore time by part, the device's busy share and memory; then the
+   replicated cluster on path 1's graph and final partition: an
+   inline-driven primary ``ServingLoop`` (the ``cuda`` field, topology
+   trigger only) and two followers bootstrapped from its seed snapshot on
+   the card (``ClusterCoordinator``, heartbeat timeout 0.2 s, the default
+   staleness bounds and hedging budgets); a fixed batch of 8 PQ1-4 reads
+   routed; two mutation batches, each invocation committed and shipped,
+   every follower then bitwise the primary (graph arrays, version,
+   partition, dirty bits, invocations, RNG state); a third batch submitted
+   and the primary crashed before it applies; the best follower promoted
+   under epoch 2, bitwise the crashed primary, its first routed read (PQ1)
+   answered, the next batch's invocation on its ``cuda`` rung from cold
+   device inputs (their rebuild's seconds and bytes printed apart), its
+   field tensors on ``cuda:0``; the zombie's snapshot publish fenced; the
+   demoted node rejoined by a full bootstrap; every replica bitwise the
+   promoted primary and the fixed batch routed equal to its own
+   enumeration; per batch the apply, executor patch, follower applies and
+   commit shipping latency, per invocation its field and swap, bootstrap,
+   promotion, first answer and rejoin seconds, read batch times and hedged
+   reads, device memory at five points, WAL and snapshot bytes, and the
+   kernel at the promoted node's last launch's shapes;
 6. path 2, DLRM serving at full ``dlrm-rm2`` width with ``multi_hot=8``
    (33,762,577 x 64 table on the card): 20 ``serve_p99`` and 3
    ``serve_bulk`` requests through ``serve_step``, kernel forward against
@@ -133,9 +167,9 @@ bound (each input byte once) it shows how much of a kernel's gap is the
 graph's randomness.  Each path runs with every kernel's launch count set to
 0 just before it and read just after; a path that launched none of its
 kernels fails.  The line
-before the last is the ``kernels`` JSON record (``vm_step`` on five paths:
+before the last is the ``kernels`` JSON record (``vm_step`` on six paths:
 the provgen invocation, the sharded field, the online path, the serving
-path and the placement); the last line is
+path, the cluster path and the placement); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -213,8 +247,9 @@ SERVE_LOOP_QUEUE = 128
 SERVE_LOOP_IN_FLIGHT = 64
 SERVE_LOOP_MUTATE_EVERY = 50
 SERVE_LOOP_WARMUP = 32
-#: serving at provgen 1M (path 5c): mutation batches (one invocation each),
-#: completed requests before each batch, requests in flight and the
+#: serving at provgen 1M (path 5c): mutation batches (one invocation each;
+#: two, cut from four to make room for the cluster path within the time
+#: limit, each window still checked), completed requests before each batch, requests in flight and the
 #: micro-batch, the path's cap, the trace sampling rate, the fixed
 #: enumeration check's size and the progress lines' period.  After the
 #: first batch of arrivals every micro-batch holding PQ2 takes 15-20 s,
@@ -224,7 +259,7 @@ SERVE_LOOP_WARMUP = 32
 #: micro-batch takes all 64 requests in flight (16 would serve a quarter as
 #: many in the same time), and 64 more complete between a commit and the
 #: next batch (400 would take minutes after the first batch)
-SERVE_FULL_BATCHES = 4
+SERVE_FULL_BATCHES = 2
 SERVE_FULL_EVERY = 64
 SERVE_FULL_IN_FLIGHT = 64
 SERVE_FULL_MICRO_BATCH = 64
@@ -240,6 +275,36 @@ SERVE_FULL_FIELD_REPS = 3
 SERVE_FULL_DISPATCH_S = 0.05
 #: how long any one wait of a serving phase may take before it fails
 SERVE_WAIT_S = 120.0
+#: the chaos scenarios on the card (phase 4g): each one's digest, the JAX
+#: package's (SHA-256 over graph arrays, partition, dirty bits, RNG state,
+#: counters and probe answers; tests/test_torch_chaos.py holds the port's
+#: CPU run to it)
+CHAOS_DIGESTS = {
+    "crash_storm": "4758df45327b1c4f1551edd36bf76eb4ff4d0ea131e77f421f1aa90c1f14a717",
+    "slow_follower": "e5a263a7918521e9a663f23d0d21bfaf684e2f87065982e694c3077f398a1dcb",
+    "flash_crowd": "eeef98ee14101be81ba16b68e496dccfc7ae2667d4e29eb5408f1463bfdc1f83",
+    "partition_heal": "3089839046207db048371c5dd27287e10f10d4cfae832f76e6eaad5da01f95e7",
+}
+#: benchmarks/cluster_failover.py's setting on the card (phase 4h): graph
+#: size, reads a throughput leg, the catch-up tail's batches, the failover
+#: leg's batches, heartbeat timeout, the promotion budget and micro-batch;
+#: its targets: catch-up <= 4x the live apply (+0.25 s), first answer <=
+#: heartbeat + budget, one-down reads >= 0.5x healthy
+CLUSTER_N = 20000
+CLUSTER_READS = 96
+CLUSTER_TAIL = 40
+CLUSTER_FAILOVER_BATCHES = 8
+CLUSTER_HB_S = 0.2
+CLUSTER_PROMOTION_BUDGET_S = 5.0
+CLUSTER_MICRO_BATCH = 16
+#: how long the failover leg waits for the promoted node's first invocation
+CLUSTER_INVOKE_WAIT_S = 60.0
+#: the replicated cluster at provgen 1M (path 5d): mutation batches
+#: committed on the primary before it crashes, the fixed PQ1-4 read batch,
+#: the path's cap
+CLUSTER_FULL_BATCHES = 2
+CLUSTER_FULL_READS = 8
+CLUSTER_FULL_CAP_S = 300.0
 #: kernel vs plain tolerance (float32; the sums run in different orders)
 RTOL, ATOL = 1e-5, 1e-6
 #: H100 SXM data-sheet peaks (NVIDIA H100 data sheet, dense, without
@@ -1355,6 +1420,317 @@ def serve_loop_setting(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# phases 4g-4h: the replicated cluster on the card
+# ---------------------------------------------------------------------------
+
+
+def _replica_state(ot):
+    """What a replica holds equal to its primary: graph arrays, partition,
+    dirty bits; n, version, invocation count and the swap RNG's state."""
+    g = ot.g
+    return ((g.labels, g.src, g.dst, g.row_ptr, ot.part, ot._dirty),
+            (int(g.n), int(g.version), int(ot.invocations),
+             repr(ot.taper._rng.bit_generator.state)))
+
+
+def _same_state(a, b):
+    """Two ``OnlineTaper``s' replicated state bitwise equal."""
+    import numpy as np
+
+    (xa, ma), (xb, mb) = _replica_state(a), _replica_state(b)
+    return ma == mb and all(x.dtype == y.dtype and np.array_equal(x, y)
+                            for x, y in zip(xa, xb))
+
+
+def chaos_on_card(torch, device):
+    """The four chaos scenarios with their clusters on the card: each
+    green (no invariant error, no staleness violation), its digest the
+    JAX package's, its invocations on the ``cuda`` rung launching
+    ``vm_step`` with no ladder step."""
+    import shutil
+    import tempfile
+
+    from repro_torch.serve.chaos import run_scenario
+
+    t_phase = time.perf_counter()
+    for name, digest in CHAOS_DIGESTS.items():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            r = run_scenario(tmp, name, device=device)
+            wall = time.perf_counter() - t0
+            launches = read_counts(f"chaos {name}", ["vm_step"])["vm_step"]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        st = r.stats
+        log(f"[chaos] {name}: {wall:.3f} s; digest {r.digest} (pinned: "
+            f"{'equal' if r.digest == digest else 'DIFFERENT'}); invariant errors "
+            f"{r.invariant_errors}, staleness violations {r.staleness_violations}; "
+            f"failovers {r.failovers}, rejoins {r.rejoins}, epoch {r.epoch}, seq "
+            f"{r.watermark_seq} -> {r.final_seq}, shed raises {r.shed_raises}, breaker "
+            f"trips {r.breaker_trips}, hedged reads {st['hedged_requests']}, faults "
+            f"fired {r.faults_fired}; field_backend {st['field_backend']}, backend "
+            f"fallbacks {st['backend_fallbacks']}; vm_step launches {launches}")
+        check(r.ok, f"chaos {name}: {r.invariant_errors} {r.staleness_violations}")
+        check(r.digest == digest, f"chaos {name}: digest {r.digest}, the JAX package's "
+                                  f"is {digest}")
+        check(st["field_backend"] == "cuda" and st["backend_fallbacks"] == 0
+              and not st["invocation_error"],
+              f"chaos {name}: left the cuda rung ({st['invocation_error']})")
+    log(f"[chaos] phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def _cf_policy(quiet=False):
+    """benchmarks/cluster_failover.py's policies: ``quiet`` freezes
+    invocations after the bootstrap one."""
+    from repro_torch.core.online import OnlinePolicy
+
+    if quiet:
+        return OnlinePolicy(bootstrap_after_ticks=0, cadence=10 ** 9, min_interval=10 ** 9,
+                            dirty_fraction=1.0, drift_l1=9e9, ipt_regression=9e9)
+    return OnlinePolicy(bootstrap_after_ticks=0, cadence=8, min_interval=1,
+                        dirty_fraction=0.05, drift_l1=9e9, ipt_regression=9e9)
+
+
+def _cf_cluster(device, tmp, n_followers=2, faults=None, quiet=False):
+    """The benchmark's inline-driven cluster, the ``cuda`` field on every
+    node."""
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.serve import ClusterConfig, ClusterCoordinator, ServeLoopConfig, ServingLoop
+
+    g = musicbrainz_like(CLUSTER_N, avg_degree=6.0, seed=17)
+    primary = ServingLoop(
+        g, 8, taper_config=TaperConfig(max_iterations=3, field_backend="cuda"),
+        policy=_cf_policy(quiet),
+        config=ServeLoopConfig(micro_batch=CLUSTER_MICRO_BATCH, overlap_invocations=False,
+                               snapshot_dir=tmp, faults=faults,
+                               stop_timeout_s=SERVE_WAIT_S),
+        device=device)
+    return ClusterCoordinator(
+        primary, config=ClusterConfig(n_followers=n_followers,
+                                      heartbeat_timeout_s=CLUSTER_HB_S, faults=faults),
+        policy=_cf_policy(quiet),
+        taper_config=TaperConfig(max_iterations=3, field_backend="cuda"))
+
+
+def _cf_reads(coord, budget, seed, queries=None):
+    """``budget`` routed reads over the MQ mix, 8 at a time; (wall, served)."""
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.workload.stream import WorkloadStream
+
+    ws = WorkloadStream(queries if queries is not None else [parse_rpq(q) for q in MQ],
+                        period=6.0, seed=seed)
+    served = 0
+    t0 = time.perf_counter()
+    while served < budget:
+        ws.advance(0.1)
+        batch = ws.sample(min(8, budget - served))
+        coord.serve(batch, cls="hot")
+        served += len(batch)
+    return time.perf_counter() - t0, served
+
+
+def _cf_tail(coord, n_batches):
+    """The benchmark's mutation tail, made on a scratch copy of the graph."""
+    from repro_torch.workload.stream import GraphMutationStream
+
+    g = coord.primary.g
+    scratch = g.copy()
+    muts = GraphMutationStream(mode="mixed", seed=7, vertices_per_tick=max(2, g.n // 4000),
+                               edges_per_tick=max(8, g.m // 4000))
+    out = []
+    for _ in range(n_batches):
+        out.append(muts.next_batch(scratch))
+        scratch.apply_mutations(out[-1])
+    return out
+
+
+def _met(ok):
+    return "met" if ok else "NOT MET"
+
+
+def cluster_failover_setting(torch, device):
+    """benchmarks/cluster_failover.py's three legs with the ``cuda`` field
+    (musicbrainz 20,000, k=8, heartbeat timeout 0.2 s): a follower cut off
+    by a link partition heals by tail resync and is then bitwise its
+    primary; a crashed primary's best follower promotes under epoch 2,
+    answers, and its next invocation launches ``vm_step`` (and a demoted
+    node rejoined with its memory re-uploads its stale device inputs and
+    evaluates the field bitwise like the promoted node); with one follower
+    crashed, reads redirect.  The benchmark's three timing targets are
+    printed as met / NOT MET, not gated."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.serve.faults import SITE_LINK_PARTITION, FaultInjector
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_failover_")
+    reset_counts()
+    try:
+        # -- leg 1: follower catch-up replay ------------------------------------
+        fi = FaultInjector()
+        coord = _cf_cluster(device, f"{tmp}/catchup", n_followers=1, faults=fi, quiet=True)
+        try:
+            _cf_reads(coord, 16, seed=1)            # the bootstrap invocation fires
+            coord.pump()
+            f = coord.followers[1]
+            f.catch_up()
+            fi.arm(f"{SITE_LINK_PARTITION}:replica-1")
+            tail = _cf_tail(coord, CLUSTER_TAIL)
+            t0 = time.perf_counter()
+            for b in tail:
+                check(coord.submit_mutations(b) is True, "cluster_failover: batch rejected")
+                coord.pump()
+            live_apply_s = time.perf_counter() - t0
+            behind = f.seq_lag
+            check(behind >= CLUSTER_TAIL, "cluster_failover: the follower was not cut off")
+            fi.disarm(f"{SITE_LINK_PARTITION}:replica-1")
+            t0 = time.perf_counter()
+            while f.seq_lag > 0:
+                check(time.perf_counter() - t0 < SERVE_WAIT_S,
+                      "cluster_failover: catch-up did not finish")
+                f.catch_up()
+            catchup_s = time.perf_counter() - t0
+            st = f.stats()
+            same = _same_state(f.ot, coord.primary.ot)
+            log(f"[cluster_failover] catch-up: {behind} batches behind a link partition, "
+                f"live apply {live_apply_s:.3f} s, catch-up {catchup_s:.3f} s "
+                f"({behind / max(catchup_s, 1e-9):.0f} batches/s; target <= 4x live + "
+                f"0.25 s: {_met(catchup_s <= 4.0 * live_apply_s + 0.25)}); tail resyncs "
+                f"{st['tail_resyncs']}, full resyncs {st['full_resyncs']}; follower "
+                f"bitwise the primary: {same}")
+            check(st["tail_resyncs"] >= 1 and st["full_resyncs"] == 0,
+                  "cluster_failover: catch-up went through a snapshot re-fetch")
+            check(same, "cluster_failover: the caught-up follower differs from the primary")
+        finally:
+            coord.stop()
+
+        # -- leg 2: failover to first answer -------------------------------------
+        coord = _cf_cluster(device, f"{tmp}/failover", n_followers=2)
+        try:
+            _cf_reads(coord, 32, seed=2)
+            for b in _cf_tail(coord, CLUSTER_FAILOVER_BATCHES):
+                coord.submit_mutations(b)
+                coord.pump()
+            q0 = parse_rpq(MQ[0])
+            old_slot = coord.primary_slot
+            t0 = time.perf_counter()
+            coord.crash_primary()
+            while coord.failovers == 0:
+                check(time.perf_counter() - t0 < SERVE_WAIT_S,
+                      "cluster_failover: no failover")
+                coord.pump()
+                time.sleep(0.01)
+            detect_promote_s = time.perf_counter() - t0
+            res = coord.serve([q0], cls="hot")
+            first_answer_s = time.perf_counter() - t0
+            promoted = coord.primary
+            check(len(res) == 1 and len(res[0][0]) > 0,
+                  "cluster_failover: empty first answer")
+            check(coord.stats()["cluster_epoch"] == 2 and promoted._epoch == 2,
+                  "cluster_failover: not at epoch 2")
+            check(promoted.ot.taper.device.type == "cuda" and promoted._base_backend == "cuda",
+                  "cluster_failover: the promoted node is not on the cuda rung")
+            # the promoted node's next invocation: reads and the tail's
+            # batches until it runs
+            inv0, ev0 = promoted.ot.invocations, _wrapper("vm_step").launches
+            t1, seed = time.perf_counter(), 20
+            for b in _cf_tail(coord, 100):
+                if promoted.ot.invocations > inv0:
+                    break
+                check(time.perf_counter() - t1 < CLUSTER_INVOKE_WAIT_S,
+                      "cluster_failover: the promoted node did not invoke")
+                coord.submit_mutations(b)
+                _cf_reads(coord, 8, seed=seed)
+                coord.pump()
+                seed += 1
+            promoted_launches = _wrapper("vm_step").launches - ev0
+            pst = promoted.stats()
+            log(f"[cluster_failover] failover: heartbeat timeout {CLUSTER_HB_S} s, "
+                f"detect + promote {detect_promote_s:.3f} s, first answer "
+                f"{first_answer_s:.3f} s ({len(res[0][0])} paths; target <= heartbeat + "
+                f"{CLUSTER_PROMOTION_BUDGET_S:.0f} s: "
+                f"{_met(first_answer_s <= CLUSTER_HB_S + CLUSTER_PROMOTION_BUDGET_S)}); "
+                f"epoch 2, promoted slot {coord.primary_slot}; its next invocation after "
+                f"{time.perf_counter() - t1:.3f} s: {promoted.ot.invocations - inv0} "
+                f"invocations, vm_step launches {promoted_launches}, field_backend "
+                f"{pst['field_backend']}, fallbacks {pst['backend_fallbacks']}")
+            check(promoted.ot.invocations > inv0 and promoted_launches > 0
+                  and pst["field_backend"] == "cuda" and pst["backend_fallbacks"] == 0,
+                  "cluster_failover: the promoted node's invocation did not launch vm_step "
+                  "on the cuda rung")
+            # the demoted node rejoined with its memory: its device inputs are
+            # a stale version's; the next field re-uploads them and equals the
+            # promoted node's bitwise
+            f = coord.rejoin_demoted(slot=old_slot, reuse_state=True)
+            f.catch_up()
+            check(_same_state(f.ot, promoted.ot),
+                  "cluster_failover: the rejoined node differs from the primary")
+            key0 = f.ot.taper._pre.get("_dev_key")
+            arrays = promoted.ot.taper.build_trie(promoted.ot.sketch.workload(
+                promoted.ot.policy.min_freq)).compile(promoted.g.label_names)
+            fa = promoted.ot.taper.field(promoted.ot.part, arrays)
+            fb = f.ot.taper.field(f.ot.part, arrays)
+            key1 = f.ot.taper._pre.get("_dev_key")
+            same = all(np.array_equal(getattr(fa, k), getattr(fb, k)) for k in FIELD_NAMES
+                       if getattr(fa, k) is not None)
+            log(f"[cluster_failover] rejoin with its memory: device inputs at version "
+                f"{None if key0 is None else key0[0]} before, {key1[0]} after "
+                f"(graph version {f.g.version}); its field == the promoted node's "
+                f"bitwise: {same}")
+            check(key0 is not None and key0[0] != f.g.version and key1[0] == f.g.version,
+                  "cluster_failover: the rejoined node did not re-upload its stale inputs")
+            check(same, "cluster_failover: the rejoined node's field differs")
+        finally:
+            coord.stop()
+
+        # -- leg 3: read throughput with one crashed follower -----------------------
+        coord = _cf_cluster(device, f"{tmp}/degraded", n_followers=2, quiet=True)
+        try:
+            _cf_reads(coord, 16, seed=3)            # warm: bootstrap + caches
+            g = coord.primary.g
+            own = coord.router.owners()
+            mix = [parse_rpq(q) for q in MQ]
+            for lab in range(g.n_labels):
+                vs = np.nonzero(g.labels == lab)[0]
+                if vs.size == 0:
+                    continue
+                slot = int(np.argmax(np.bincount(own[vs], minlength=coord.n_replicas)))
+                if slot != coord.primary_slot:
+                    mix.append(parse_rpq(f"{g.label_names[lab]}.{g.label_names[lab]}"))
+            healthy_wall, healthy_served = _cf_reads(coord, CLUSTER_READS, seed=4,
+                                                     queries=mix)
+            by_slot = dict(coord.router.routed_by_slot)
+            victim = max(coord.followers, key=lambda s: by_slot.get(s, 0))
+            check(by_slot.get(victim, 0) > 0,
+                  f"cluster_failover: owner routing sent no read to a follower ({by_slot})")
+            coord.followers[victim].crash()
+            hurt_wall, hurt_served = _cf_reads(coord, CLUSTER_READS, seed=5, queries=mix)
+            healthy_qps = healthy_served / max(healthy_wall, 1e-9)
+            hurt_qps = hurt_served / max(hurt_wall, 1e-9)
+            ratio = hurt_qps / max(healthy_qps, 1e-9)
+            rst = coord.router.stats()
+            log(f"[cluster_failover] degraded reads: healthy {healthy_qps:.1f} qps, one "
+                f"follower down {hurt_qps:.1f} qps, ratio {ratio:.3f} (target >= 0.5: "
+                f"{_met(ratio >= 0.5)}); dead redirects {rst['dead_redirects']}, hedged "
+                f"reads {rst['hedged_requests']}, read failovers {rst['read_failovers']}")
+            check(rst["dead_redirects"] >= 1,
+                  "cluster_failover: no read routed to the crashed follower")
+        finally:
+            coord.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = read_counts("cluster_failover", ["vm_step"])["vm_step"]
+    log(f"[cluster_failover] vm_step launches {launches}; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the main path at full size
 # ---------------------------------------------------------------------------
 
@@ -2300,6 +2676,338 @@ def serving_full(torch, device, g, part):
 
 
 # ---------------------------------------------------------------------------
+# phase 5d: the replicated cluster on path 1's graph
+# ---------------------------------------------------------------------------
+
+
+def _device_names(torch, tensors):
+    """The devices of the tensors (a CSR's with its plan) in a dict."""
+    from repro_torch.kernels.segment_spmm.ops import EdgeCSR
+
+    out = set()
+    for t in tensors.values():
+        parts = ((t.row_ptr, t.src, t.order, t.plan.runs, t.plan.long_rows)
+                 if isinstance(t, EdgeCSR) else (t,))
+        out |= {str(p.device) for p in parts if isinstance(p, torch.Tensor)}
+    return out
+
+
+def cluster_full(torch, device, g, part):
+    """A replicated cluster on path 1's graph and final partition: an
+    inline-driven primary ``ServingLoop`` (the ``cuda`` field, topology
+    trigger only, snapshots and the WAL in a temporary directory) and two
+    WAL-shipped followers bootstrapped from its seed snapshot.  Routed PQ1-4
+    reads; two mutation batches, each follower bitwise the primary after
+    each commit; a third batch dies with the primary, which crashes; the
+    best follower promotes under epoch 2, bitwise the crashed primary,
+    answers, and runs the next batch's invocation on the ``cuda`` rung from
+    cold device inputs; the zombie's snapshot publish is fenced; the demoted
+    node rejoins by a full bootstrap; every replica ends bitwise the
+    promoted primary, and the fixed read batch routed equals its own
+    enumeration."""
+    import gc
+    import shutil
+    import tempfile
+
+    import repro_torch.core.visitor as visitor
+    from repro_torch.core.online import OnlinePolicy, OnlineTaper
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.kernels.vm_step.ops import vm_step
+    from repro_torch.serve import ClusterConfig, ClusterCoordinator, ServeLoopConfig, ServingLoop
+    from repro_torch.serve.replication import FollowerReplica
+    from repro_torch.workload.stream import GraphMutationStream, WorkloadStream
+
+    t_path = time.perf_counter()
+    t_cap = t_path + CLUSTER_FULL_CAP_S
+
+    def within(what):
+        check(time.perf_counter() < t_cap,
+              f"cluster: {what} not done within the {CLUSTER_FULL_CAP_S:.0f} s cap")
+
+    queries = [parse_rpq(q) for q in PQ]
+    fixed = WorkloadStream(queries, mode="static", static_freqs=PQ_FREQ,
+                           seed=11).sample(CLUSTER_FULL_READS)
+    muts = GraphMutationStream("mixed", seed=7, vertices_per_tick=g.n // 2000,
+                               edges_per_tick=g.m // 2000)
+    # the online path's policy: the topology trigger only
+    policy = OnlinePolicy(dirty_fraction=0.01, cadence=10 ** 9, drift_l1=2.0,
+                          ipt_regression=float("inf"))
+    snap_dir = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    mem = []
+
+    def memory(point):
+        torch.cuda.synchronize()
+        mem.append((point, torch.cuda.memory_allocated()))
+
+    # instruments: each device-input rebuild (seconds, bytes), each
+    # invocation's run (node, cold or warm, report, rebuilds, launches),
+    # each follower apply and commit shipping latency, read batch times
+    uploads, invs, applies, reads = [], [], [], []
+    device_inputs, run_invocation = visitor._device_inputs, OnlineTaper.run_invocation
+    timer = _KernelTimer(torch, vm_step)
+
+    def timed_inputs(g_, pre, cnt, lab_vcount, dev, with_csr=True):
+        if pre.get("_dev_key") == (g_.version, dev) and (not with_csr or "csr" in pre["_dev"]):
+            return device_inputs(g_, pre, cnt, lab_vcount, dev, with_csr)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = device_inputs(g_, pre, cnt, lab_vcount, dev, with_csr)
+        torch.cuda.synchronize()
+        uploads.append((time.perf_counter() - t, _live_bytes(torch, out)[0]))
+        return out
+
+    def timed_run(ot, pending, should_abort=None):
+        cold = "_dev" not in ot.taper._pre
+        n_up, n_ev = len(uploads), len(timer.events)
+        t0 = time.perf_counter()
+        rep = run_invocation(ot, pending, should_abort)
+        torch.cuda.synchronize()
+        # the node by its slot, not the node itself: the path's device
+        # memory readings must not count a demoted node held here
+        invs.append(dict(slot=coord.primary_slot if ot is coord.primary.ot else None,
+                         cold=cold, wall=time.perf_counter() - t0, report=rep,
+                         uploads=uploads[n_up:], events=timer.events[n_ev:],
+                         frontier=-1 if pending.frontier is None
+                         else int(pending.frontier.size)))
+        timer.args_by_shape.clear()                 # only the last launch's args
+        return rep
+
+    def watch_follower(f):
+        for kind in ("_apply_group", "_apply_commit"):
+            fn = getattr(f, kind)
+
+            def timed(frame, fn=fn, kind=kind):
+                t0 = time.perf_counter()
+                fn(frame)
+                applies.append((f.name, kind, t0, time.perf_counter()))
+            setattr(f, kind, timed)
+
+    def read(what, qs):
+        t0 = time.perf_counter()
+        out = coord.serve(qs, cls="hot")
+        reads.append((what, len(qs), time.perf_counter() - t0))
+        return out
+
+    def run_batch(i):
+        """One mutation batch through the primary: applied (journaled,
+        shipped), its executor patched, then one PQ1 request a pump until
+        the topology trigger's invocation has committed; the commit shipped
+        to every follower, each then bitwise the primary."""
+        node = coord.primary
+        inv0, n_apply, n_inv = node.ot.invocations, len(applies), len(invs)
+        t0 = time.perf_counter()
+        batch = muts.next_batch(node.g)
+        t1 = time.perf_counter()
+        check(coord.submit_mutations(batch) is True, f"cluster: batch {i} rejected")
+        coord.pump()
+        t2 = time.perf_counter()
+        for q in queries:
+            node.executor.traversals(q)
+        t3 = time.perf_counter()
+        while node.ot.invocations == inv0:
+            within(f"batch {i}'s invocation")
+            node.submit(queries[0])
+            coord.pump()
+        t4 = time.perf_counter()
+        while not all(f.commit_index == coord.hub.stats()["retained_commits"]
+                      and f.applied_seq == node._applied_seq
+                      for f in coord.followers.values()):
+            within(f"batch {i}'s shipping")
+            coord.pump()
+        pub = [t for t in publishes if t >= t3]
+        f_apply = {}
+        for name, kind, a, b in applies[n_apply:]:
+            f_apply.setdefault(name, {}).setdefault(kind, []).append(b - a)
+        ship = [b - pub[0] for _, kind, a, b in applies[n_apply:]
+                if kind == "_apply_commit" and pub]
+        r = invs[n_inv] if len(invs) > n_inv else None
+        same = {f.name: _same_state(f.ot, node.ot) for f in coord.followers.values()}
+        log(f"[cluster] batch {i} on slot {coord.primary_slot}: n={node.g.n} "
+            f"m={node.g.m}; generate {t1 - t0:.3f} s, primary apply (journal, apply, "
+            f"ship) {t2 - t1:.3f} s, executor patch for PQ1-4 {t3 - t2:.3f} s; "
+            f"follower applies "
+            + ", ".join(f"{n} group {sum(v.get('_apply_group', [])):.3f} s commit "
+                        f"{sum(v.get('_apply_commit', [])):.4f} s"
+                        for n, v in sorted(f_apply.items()))
+            + f"; commit shipping latency {[round(x, 4) for x in ship]} s; followers "
+            f"bitwise the primary {same}")
+        check(r is not None and r["slot"] == coord.primary_slot,
+              f"cluster: batch {i}'s invocation did not run on the primary")
+        rep = r["report"]
+        kern = [a.elapsed_time(b) for a, b in r["events"]]
+        log(f"[cluster] invocation {node.ot.invocations} on slot {coord.primary_slot} "
+            f"({'cold' if r['cold'] else 'warm'} device inputs): {r['wall']:.3f} s until "
+            f"{t4 - t3:.3f} s committed; frontier {r['frontier']} vertices, "
+            f"{rep.iterations} iterations, {rep.total_moves} moves; field "
+            f"{[round(x, 4) for x in rep.field_seconds]} s (device inputs rebuilt "
+            f"{[(round(s, 4), b) for s, b in r['uploads']]} s / B), swap "
+            f"{[round(x, 4) for x in rep.swap_seconds]} s; vm_step {len(kern)} launches "
+            f"{sum(kern):.3f} ms")
+        check(len(kern) > 0, f"cluster: batch {i}'s invocation launched no vm_step")
+        check(all(same.values()), f"cluster: a follower differs from the primary after "
+                                  f"batch {i}")
+        return r
+
+    reset_counts()                                  # the path starts here
+    memory("before the cluster")
+    bootstrap = FollowerReplica.bootstrap.__func__
+    boot_s = []
+
+    def timed_bootstrap(cls, *args, **kwargs):
+        t0 = time.perf_counter()
+        f = bootstrap(cls, *args, **kwargs)
+        boot_s.append(time.perf_counter() - t0)
+        return f
+
+    visitor.vm_step, visitor._device_inputs = timer, timed_inputs
+    OnlineTaper.run_invocation = timed_run
+    FollowerReplica.bootstrap = classmethod(timed_bootstrap)
+    coord = old = None
+    try:
+        t0 = time.perf_counter()
+        primary = ServingLoop(
+            g, 8, part=part,
+            taper_config=TaperConfig(max_iterations=ONLINE_MAX_ITERS, seed=0,
+                                     field_backend="cuda"),
+            policy=policy, config=ServeLoopConfig(
+                overlap_invocations=False, snapshot_dir=snap_dir,
+                stop_timeout_s=SERVE_WAIT_S),
+            device=device)
+        t1 = time.perf_counter()
+        coord = ClusterCoordinator(primary, ClusterConfig(n_followers=2,
+                                                          heartbeat_timeout_s=CLUSTER_HB_S))
+        t2 = time.perf_counter()
+        FollowerReplica.bootstrap = classmethod(bootstrap)
+        publishes, publish_commit = [], coord.hub.publish_commit
+
+        def timed_publish(*args, **kwargs):
+            publishes.append(time.perf_counter())
+            return publish_commit(*args, **kwargs)
+
+        coord.hub.publish_commit = timed_publish
+        for f in coord.followers.values():
+            watch_follower(f)
+        memory("after the bootstrap")
+        devices = {f.name: str(f.ot.taper.device) for f in coord.followers.values()}
+        log(f"[cluster] provgen n={g.n} m={g.m} k=8 from path 1's final partition; primary "
+            f"ServingLoop(overlap_invocations=False, field cuda, max_iterations "
+            f"{ONLINE_MAX_ITERS}, topology trigger only) built in {t1 - t0:.3f} s; "
+            f"ClusterCoordinator(n_followers=2, heartbeat_timeout_s={CLUSTER_HB_S}, "
+            f"staleness {coord.cfg.max_staleness_versions}, hedging budgets "
+            f"{coord.cfg.slo_budget_s}) in {t2 - t1:.3f} s: seed snapshot "
+            f"{t2 - t1 - sum(boot_s):.3f} s, follower bootstraps "
+            f"{[round(s, 3) for s in boot_s]} s; followers on {devices}")
+        check(len(boot_s) == 2 and set(devices.values()) == {str(primary.ot.taper.device)},
+              f"cluster: followers on {devices}, the primary on {primary.ot.taper.device}")
+        del primary                                 # the coordinator holds it
+
+        before = read("fixed PQ1-4 batch", fixed)
+        check(len(before) == len(fixed), "cluster: the fixed batch went unanswered")
+        for i in (1, 2):
+            run_batch(i)
+
+        # the primary crashes with a batch submitted but never applied
+        old, old_slot = coord.primary, coord.primary_slot
+        seq, n_old = old._applied_seq, old.g.n
+        check(coord.submit_mutations(muts.next_batch(old.g)) is True,
+              "cluster: the lost batch was rejected")
+        t_crash = time.perf_counter()
+        coord.crash_primary()
+        while coord.failovers == 0:
+            within("the failover")
+            coord.pump()
+            time.sleep(0.01)
+        t_promoted = time.perf_counter()
+        memory("after the failover")
+        promoted = coord.primary
+        first = read("first answer after the crash (PQ1)", [queries[0]])
+        t_first = time.perf_counter()
+        log(f"[cluster] failover: detection + promotion {t_promoted - t_crash:.3f} s "
+            f"(heartbeat timeout {CLUSTER_HB_S} s), first answer "
+            f"{t_first - t_crash:.3f} s ({len(first[0][0])} paths); slot {old_slot} -> "
+            f"{coord.primary_slot} at epoch {promoted._epoch}, seq {promoted._applied_seq} "
+            f"(crashed primary at {seq}), n {promoted.g.n} (crashed primary at {n_old}); "
+            f"promoted loop's rung {promoted._base_backend} on "
+            f"{promoted.ot.taper.device}")
+        check(promoted is not old and promoted._epoch == 2 and coord.hub.current_epoch == 2
+              and promoted._applied_seq == seq and _same_state(promoted.ot, old.ot),
+              "cluster: the promoted node is not bitwise the crashed primary at epoch 2")
+        check(promoted._base_backend == "cuda" and promoted.ot.taper.device.type == "cuda",
+              "cluster: the promoted node is not on the cuda rung")
+        check(len(first) == 1 and len(first[0][0]) > 0, "cluster: empty first answer")
+
+        r = run_batch(3)
+        pst = promoted.stats()
+        on = _device_names(torch, promoted.ot.taper._pre["_dev"])
+        check(r["cold"] and pst["field_backend"] == "cuda"
+              and pst["backend_fallbacks"] == 0 and on == {"cuda:0"},
+              f"cluster: the promoted node's invocation (cold {r['cold']}, rung "
+              f"{pst['field_backend']}, fallbacks {pst['backend_fallbacks']}, field "
+              f"tensors on {on}) is not the cold cuda run on the card")
+
+        # the zombie's snapshot publish is fenced
+        fw0 = old.stats()["fenced_writes"]
+        old.snapshot(sync=True)
+        zst = old.stats()
+        log(f"[cluster] zombie snapshot publish: fenced writes {fw0} -> "
+            f"{zst['fenced_writes']}, its epoch {zst['epoch']}, the cluster's "
+            f"{zst['cluster_epoch']}")
+        check(zst["fenced_writes"] > fw0 and zst["epoch"] == 1 and zst["cluster_epoch"] == 2,
+              "cluster: the zombie's snapshot publish was not fenced")
+
+        # the demoted node rejoins by a full bootstrap from the promoted
+        # node's snapshot
+        wal = (old._journal.appended_bytes, promoted._journal.appended_bytes)
+        snaps = (old._snapshotter.saved, old._snapshotter.last_bytes,
+                 promoted._snapshotter.saved, promoted._snapshotter.last_bytes)
+        old = None
+        t0 = time.perf_counter()
+        f = coord.rejoin_demoted(slot=old_slot, reuse_state=False)
+        t_rejoin = time.perf_counter() - t0
+        gc.collect()                                # the demoted loop's buffers
+        memory("after the rejoin")
+        for f in coord.followers.values():
+            f.catch_up()
+        same = {f.name: (_same_state(f.ot, promoted.ot), str(f.ot.taper.device))
+                for f in coord.followers.values()}
+        log(f"[cluster] rejoin of slot {old_slot} (full bootstrap) {t_rejoin:.3f} s; "
+            f"replicas bitwise the promoted primary, on: {same}")
+        check(all(s for s, _ in same.values())
+              and {d for _, d in same.values()} == {str(promoted.ot.taper.device)},
+              "cluster: a replica differs from the promoted primary")
+        direct = promoted.executor.enumerate_paths_many(
+            fixed, max_results=coord.cfg.max_results_per_query, part=promoted.ot.part)
+        routed = read("fixed PQ1-4 batch", fixed)
+        check(routed == direct, "cluster: routed reads differ from the primary's own")
+        launches = read_counts("cluster", ["vm_step"])["vm_step"]  # ... ends here
+        rst = coord.router.stats()
+    finally:
+        visitor.vm_step, visitor._device_inputs = vm_step, device_inputs
+        OnlineTaper.run_invocation = run_invocation
+        FollowerReplica.bootstrap = classmethod(bootstrap)
+        try:
+            if coord is not None:
+                coord.stop()
+        finally:
+            shutil.rmtree(snap_dir, ignore_errors=True)
+    memory("at the end")
+    log(f"[cluster] reads: "
+        + "; ".join(f"{w} ({n} requests) {s:.3f} s" for w, n, s in reads)
+        + f"; hedged requests {rst['hedged_requests']}, read failovers "
+          f"{rst['read_failovers']}, staleness fallbacks {rst['staleness_fallbacks']}, "
+          f"routed by slot {rst['routed_by_slot']}")
+    log(f"[cluster] WAL appended: crashed primary {wal[0]} B, promoted {wal[1]} B; "
+        f"snapshots: crashed primary {snaps[0]} (last {snaps[1]} B), promoted "
+        f"{snaps[2]} (last {snaps[3]} B); device memory allocated: "
+        + ", ".join(f"{p} {b} B" for p, b in mem))
+    log(f"[cluster] {len(invs)} invocations, vm_step launches {launches}; path "
+        f"{time.perf_counter() - t_path:.1f} s")
+    # the kernel at the promoted node's shapes: its invocation launched last
+    return dict(launches=launches, **_vm_at_path_shapes(torch, "cluster", timer.last_args))
+
+
+# ---------------------------------------------------------------------------
 # phase 6: DLRM serving at full width
 # ---------------------------------------------------------------------------
 
@@ -3045,13 +3753,18 @@ def main() -> int:
     serving_2000(torch, device)
     ladder_on_card(torch, device)
     serve_loop_setting(torch, device)
+    chaos_on_card(torch, device)
+    cluster_failover_setting(torch, device)
     full = full_size(torch, device)
     sharded = sharded_full(torch, device, full["graph"], full["part"])
-    # the serving path starts from path 1's graph, which the online path mutates
-    g_serve = full["graph"].copy()
+    # the serving and cluster paths start from path 1's graph, which the
+    # online path mutates
+    g_serve, g_cluster = full["graph"].copy(), full["graph"].copy()
     online = online_full(torch, device, full.pop("graph"), full["part"].copy())
-    served = serving_full(torch, device, g_serve, full.pop("part"))
+    served = serving_full(torch, device, g_serve, full["part"].copy())
     del g_serve
+    clustered = cluster_full(torch, device, g_cluster, full.pop("part"))
+    del g_cluster
     serve = dlrm_serving(torch, device)
     place = row_placement(torch, device)
     gnn = gcn_inference(torch, device)
@@ -3095,6 +3808,17 @@ def main() -> int:
          "max_abs_err": max(errs["vm_step"], served["err"]),
          "ms": served["ms"], "plain_ms": served["plain_ms"],
          "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
+         "library_ms": None},
+        # the same kernel on the replicated cluster's path: the primary's
+        # invocations and the promoted follower's (times at the promoted
+        # node's last launch's shapes)
+        {"name": "vm_step/cluster", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vm_step.cu",
+         "replaces": "src/repro/kernels/vm_step/kernel.py:26",
+         "launches": clustered["launches"],
+         "max_abs_err": max(errs["vm_step"], clustered["err"]),
+         "ms": clustered["ms"], "plain_ms": clustered["plain_ms"],
+         "bound_ms": clustered["bound_ms"], "bound_by": clustered["bound_by"],
          "library_ms": None},
         # the same kernel per shard of the sharded field: alpha holds the
         # shard's rows and its exchanged halo (times at shard 0's shapes)

@@ -25,3 +25,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def same_device(a: DeviceLike, b: DeviceLike) -> bool:
+    """Whether ``a`` and ``b`` name one device (``None`` is ``"cuda"``; a
+    CUDA device without an index is the current one)."""
+
+    def key(d):
+        d = torch.device("cuda" if d is None else d)
+        if d.type == "cuda" and d.index is None:
+            return d.type, (torch.cuda.current_device()
+                            if torch.cuda.is_available() else 0)
+        return d.type, d.index
+
+    return key(a) == key(b)

@@ -89,7 +89,7 @@ rebuild.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -176,6 +176,24 @@ def shard_assignment(part: np.ndarray, n_shards: int,
     nb = max(1, -(-part.size // block_n))
     span = -(-nb // max(int(n_shards), 1)) * block_n
     return (pos_of // span).astype(np.int32)
+
+
+def majority_owner(owner_of: np.ndarray, vertices: np.ndarray) -> int:
+    """Majority vote of ``owner_of`` over ``vertices`` (ties break to the
+    lowest owner id; no vertices → owner 0).
+
+    The cluster router's query→replica fold: with ``owner_of =``
+    :func:`shard_assignment` ``(part, n_replicas)`` — the same
+    partition-dealt span arithmetic ``ShardedVMPacking.owner_of`` uses on
+    device — a query routes to the replica owning most of its start
+    vertices, so most of its first-hop frontier is owner-local and the
+    cross-replica ipt the router accounts stays the partition-quality
+    signal the paper's serving metric wants."""
+    v = np.asarray(vertices, dtype=np.int64).reshape(-1)
+    if v.size == 0:
+        return 0
+    counts = np.bincount(np.asarray(owner_of, dtype=np.int64)[v])
+    return int(np.argmax(counts))
 
 
 def bfs_shard_order(g) -> np.ndarray:
@@ -285,6 +303,10 @@ class ShardedVMPacking:
     def h_pad(self) -> int:
         return int(self.frontier.shape[0])
 
+    def owner_of(self, v) -> np.ndarray:
+        """Shard owning vertex id ``v`` (through the shard map)."""
+        return self.pos_of[np.asarray(v)] // self.n_local_pad
+
     @property
     def hot_pad(self) -> int:
         return int(self.hot_local_idx.shape[1])
@@ -313,6 +335,27 @@ class ShardedVMPacking:
                                    itemsize: int = 4) -> int:
         """Bytes an all-gather of the full field would move instead."""
         return n * n_trie * itemsize
+
+    def exchange_metrics(self, n_trie: int, n: int,
+                         itemsize: int = 4) -> Dict[str, float]:
+        """Numeric exchange-footprint summary for the metrics registry's
+        ``collect()`` protocol: per-depth bytes under both exchange modes,
+        the full-field baseline, and the live packing geometry."""
+        full = self.full_field_bytes_per_depth(n, n_trie, itemsize)
+        return {
+            "n_shards": self.n_shards,
+            "n_local_pad": self.n_local_pad,
+            "n_frontier": self.n_frontier,
+            "hot_rows": self.hot_pad,
+            "sliced_rows": self.hot_pad + int(self.round_cap[1:].sum()),
+            "halo_bytes_psum": self.halo_bytes_per_depth(
+                n_trie, itemsize, exchange="psum"),
+            "halo_bytes_sliced": self.halo_bytes_per_depth(
+                n_trie, itemsize, exchange="sliced"),
+            "full_field_bytes": full,
+            "shard_epoch_max": int(self.shard_epoch.max())
+            if self.n_shards else 0,
+        }
 
     def scatter_slot_values(self, values: np.ndarray, m: int,
                             dtype=np.float32) -> np.ndarray:

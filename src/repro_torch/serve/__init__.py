@@ -1,9 +1,18 @@
-"""Single-node graph-query serving on the port: the admission queue, the
-ingest queue, the overlapped-invocation loop, its control loops, fault
-sites, WAL and snapshots, and the synchronous engine facade.  The field
-runs on the card unless the caller passes ``device="cpu"``.  Replication
-hubs, the cluster and chaos scenarios come with the cluster slice."""
+"""Graph-query serving on the port: the admission queue, the ingest
+queue, the overlapped-invocation loop, its control loops, fault sites, WAL
+and snapshots, the synchronous engine facade, and the replicated cluster —
+WAL-shipped followers, epoch fencing, failover, owner-routed reads — with
+its chaos scenarios.  The field runs on the card unless the caller passes
+``device="cpu"``; a cluster's followers live on its primary's device."""
 from repro_torch.obs import FlightRecorder, Observability, Registry, Tracer
+from repro_torch.serve.chaos import (
+    ChaosHarness,
+    ChaosReport,
+    Scenario,
+    run_scenario,
+    scenario,
+)
+from repro_torch.serve.cluster import ClusterConfig, ClusterCoordinator, ClusterRouter
 from repro_torch.serve.control import (
     Breaker,
     BrownoutController,
@@ -23,7 +32,14 @@ from repro_torch.serve.ingest import IngestQueue, coalesce_mutations
 from repro_torch.serve.loop import ServeLoopConfig, ServingLoop
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.queueing import Rejection, RequestQueue, ServeTicket
-from repro_torch.serve.replication import FencedWrite, JournalGap
+from repro_torch.serve.replication import (
+    FencedWrite,
+    FollowerReplica,
+    Frame,
+    JournalGap,
+    ReplicationHub,
+    ShipChannel,
+)
 from repro_torch.serve.snapshot import (
     MutationJournal,
     RestoreResult,
@@ -37,14 +53,24 @@ from repro_torch.serve.snapshot import (
 __all__ = [
     "Breaker",
     "BrownoutController",
+    "ChaosHarness",
+    "ChaosReport",
+    "ClusterConfig",
+    "ClusterCoordinator",
+    "ClusterRouter",
     "ControlConfig",
     "HedgeController",
+    "Scenario",
     "WindowedQuantile",
+    "run_scenario",
+    "scenario",
     "serve_pressure",
     "FaultInjector",
     "FaultSpec",
     "FencedWrite",
     "FlightRecorder",
+    "FollowerReplica",
+    "Frame",
     "GraphQueryEngine",
     "Observability",
     "Registry",
@@ -54,6 +80,7 @@ __all__ = [
     "JournalGap",
     "MutationJournal",
     "Rejection",
+    "ReplicationHub",
     "RequestQueue",
     "RequestResult",
     "RestoreResult",
@@ -63,6 +90,7 @@ __all__ = [
     "ServeTicket",
     "ServingLoop",
     "ServingSnapshotter",
+    "ShipChannel",
     "apply_journal_group",
     "capture_serving_state",
     "coalesce_mutations",

@@ -855,3 +855,105 @@ def test_overlapped_serving_on_the_card_equals_the_cpu(card):
         parts[name] = (out, vm_step.launches - before)
     assert parts["card"][1] > 0 and parts["cpu"][1] == 0
     assert all(np.array_equal(a, b) for a, b in zip(parts["card"][0], parts["cpu"][0]))
+
+
+#: the crash-storm scenario's digest (the JAX package's, and the CPU's)
+CRASH_STORM_DIGEST = "4758df45327b1c4f1551edd36bf76eb4ff4d0ea131e77f421f1aa90c1f14a717"
+
+
+def test_chaos_scenario_on_the_card_equals_the_cpu(card, tmp_path):
+    """The crash-storm scenario with its cluster on the card: green, its
+    invocations launch ``vm_step`` on the ``cuda`` rung, and its digest is
+    the CPU run's (and the reference's)."""
+    from repro_torch.serve.chaos import run_scenario
+
+    digests = {}
+    for name, device in (("card", card), ("cpu", "cpu")):
+        before = vm_step.launches
+        r = run_scenario(tmp_path / name, "crash_storm", device=device)
+        assert r.ok, (r.invariant_errors, r.staleness_violations)
+        assert r.stats["backend_fallbacks"] == 0
+        digests[name] = (r.digest, vm_step.launches - before)
+    assert digests["card"][1] > 0 and digests["cpu"][1] == 0
+    assert digests["card"][0] == digests["cpu"][0] == CRASH_STORM_DIGEST
+
+
+def test_failover_drill_on_the_card_equals_the_cpu(card, tmp_path):
+    """A cluster on the card keeps every node there; after a primary crash
+    the promoted follower runs its next invocation on the ``cuda`` rung,
+    and the promoted state, routed reads and rejoined node equal the same
+    drill on the CPU."""
+    import time
+
+    from repro_torch.core.online import OnlinePolicy
+    from repro_torch.core.taper import TaperConfig
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.graphs.graph import MutationBatch
+    from repro_torch.serve import (ClusterConfig, ClusterCoordinator, ServeLoopConfig,
+                                   ServingLoop)
+
+    mq1, mq3 = (parse_rpq(q) for q in ("Area.Artist.(Artist|Label).Area",
+                                       "Artist.Credit.Track.Medium"))
+
+    def policy():
+        return OnlinePolicy(bootstrap_after_ticks=0, cadence=6, min_interval=0,
+                            dirty_fraction=0.02, drift_l1=9e9, ipt_regression=9e9)
+
+    def drive(coord, rounds, seed):
+        rng = np.random.default_rng(seed)
+        n = coord.primary.g.n
+        for i in range(rounds):
+            coord.serve([mq1 if i % 3 else mq3], cls="hot")
+            if rng.random() < 0.5:
+                coord.submit_mutations(MutationBatch(
+                    add_vertex_labels=[int(rng.integers(0, 4))],
+                    add_edges=[(int(rng.integers(0, n)), n)]))
+                n += 1
+            coord.pump()
+
+    def state(ot):
+        return [ot.g.labels, ot.g.src, ot.g.dst, ot.g.row_ptr, ot.part, ot._dirty,
+                ot.g.version, ot.invocations, ot.taper._rng.bit_generator.state]
+
+    out = {}
+    for name, device in (("card", card), ("cpu", "cpu")):
+        primary = ServingLoop(
+            musicbrainz_like(400, seed=7), 4, taper_config=TaperConfig(max_iterations=2),
+            policy=policy(), config=ServeLoopConfig(
+                micro_batch=8, overlap_invocations=False, snapshot_dir=str(tmp_path / name)),
+            device=device)
+        coord = ClusterCoordinator(primary, ClusterConfig(n_followers=2,
+                                                          heartbeat_timeout_s=0.05),
+                                   policy(), TaperConfig(max_iterations=2))
+        try:
+            kind = torch.device(device).type
+            assert {f.ot.taper.device.type for f in coord.followers.values()} == {kind}
+            drive(coord, 18, seed=3)
+            old_slot = coord.primary_slot
+            coord.crash_primary()
+            time.sleep(0.06)
+            coord.pump()
+            assert coord.failovers == 1 and coord.primary._epoch == 2
+            assert coord.primary.ot.taper.device.type == kind
+            promoted = state(coord.primary.ot)
+            routed = coord.serve([mq1, mq3], cls="hot")
+            before = vm_step.launches
+            inv0 = coord.primary.ot.invocations
+            drive(coord, 12, seed=4)
+            assert coord.primary.ot.invocations > inv0
+            launches = vm_step.launches - before
+            f = coord.rejoin_demoted(slot=old_slot, reuse_state=False)
+            assert f.ot.taper.device.type == kind
+            f.catch_up()
+            st = coord.stats()
+            assert st["backend_fallbacks"] == 0
+            out[name] = (promoted, routed, state(f.ot), state(coord.primary.ot), launches,
+                         st["field_backend"])
+        finally:
+            coord.stop()
+    card_out, cpu_out = out["card"], out["cpu"]
+    assert card_out[4] > 0 and cpu_out[4] == 0
+    assert (card_out[5], cpu_out[5]) == ("cuda", "torch")
+    for a, b in zip(card_out[:4], cpu_out[:4]):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y

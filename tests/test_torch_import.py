@@ -65,6 +65,19 @@ def test_serving_slice_imports_without_jax_or_reference():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_cluster_slice_imports_without_jax_or_reference():
+    probe = ("import sys, repro_torch.serve.replication, repro_torch.serve.cluster, "
+             "repro_torch.serve.chaos, repro_torch.graphs.sharded_packing, "
+             "repro_torch.device; from repro_torch.serve import ClusterCoordinator, "
+             "ChaosHarness, FollowerReplica, ReplicationHub, run_scenario; "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_chip_smoke_imports_without_jax_or_reference():
     root = SRC.parent
     pat = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\b)(?!_torch)", re.M)
@@ -72,7 +85,7 @@ def test_chip_smoke_imports_without_jax_or_reference():
     # importing the script (and the port modules its phases import) loads
     # neither JAX nor the reference package
     probe = ("import sys; sys.path.insert(0, 'src'); import chip_smoke, repro_torch.serve, "
-             "repro_torch.workload.stream; "
+             "repro_torch.serve.cluster, repro_torch.serve.chaos, repro_torch.workload.stream; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=root, capture_output=True,
                          text=True, timeout=120, env=dict(os.environ))

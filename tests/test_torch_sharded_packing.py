@@ -55,6 +55,11 @@ def _same_packing(sp, rsp_):
             assert (sp.halo_bytes_per_depth(n_trie, exchange=ex)
                     == rsp_.halo_bytes_per_depth(n_trie, exchange=ex))
     assert sp.full_field_bytes_per_depth(777, 9) == rsp_.full_field_bytes_per_depth(777, 9)
+    for n_trie, n in ((5, 900), (23, 1234)):
+        assert sp.exchange_metrics(n_trie, n) == rsp_.exchange_metrics(n_trie, n)
+    verts = np.arange(sp.pos_of.shape[0])
+    assert _eq(sp.owner_of(verts), rsp_.owner_of(verts))
+    assert sp.owner_of(int(verts[-1])) == rsp_.owner_of(int(verts[-1]))
     vals = np.random.default_rng(0).random(sp.slot_raw.shape).astype(np.float32)
     m = int((sp.slot_raw >= 0).sum())
     assert _eq(sp.scatter_slot_values(vals, m), rsp_.scatter_slot_values(vals, m))
