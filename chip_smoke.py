@@ -100,8 +100,8 @@ Phases (any failure exits non-zero and prints no result line):
    thread; the topology trigger only; snapshots and the WAL in a temporary
    directory; 5% of requests traced), a feeder keeping 64 PQ1-4 requests in
    flight and sending one mutation batch (n/2000 new vertices, m/2000
-   churned edges) per invocation, two in all (cut from four to make room
-   for the cluster path); every request answered,
+   churned edges) per invocation, one in all (cut from four to make room
+   for the cluster and MoE paths); every request answered,
    each invocation on the ``cuda`` rung with ``vm_step`` launches and
    requests served inside its window, its trace's field span on
    ``cuda``, the batched enumeration against the reference DFS on the
@@ -158,7 +158,32 @@ Phases (any failure exits non-zero and prints no result line):
    the same forward through the plain version, and one decode step from its
    cache against the prefill; the float32 kernel's time at 4 x 4,096 with
    its bounds at the TF32 tensor-core and float32 CUDA-core rates and the
-   time of SDPA's memory-efficient back end.
+   time of SDPA's memory-efficient back end;
+10. path 6, ``olmoe-1b-7b`` serving at full width (bf16, random weights
+   from seed 0; 16 layers, 16 / 16 heads of 128 with QK-norm, 64 experts
+   top-8): the same two request sets as path 5, each prefilled through
+   ``forward`` (one ``flash_attention`` launch and one MoE call per layer)
+   and decoded greedily; prefill and per-token decode times, the MoE
+   layers' device time (CUDA events around ``moe.apply_auto``), each
+   layer's dropped fraction, the kernel at both prefill shapes against its
+   plain version and SDPA; then the float32 whole-path gate at 2,048 tokens:
+   every layer's kernel output against the plain attention on its own q, k,
+   v (2e-5), the logits through the kernel against those through the plain
+   version on the rows before the first token routed differently (the
+   count of such tokens per layer printed), and a decode step against the
+   prefill of one more token where both route and keep every token alike
+   (which case happened printed);
+11. path 7, TAPER expert placement (``core/expert_placement.py``,
+   ``plan_expert_placement(device="cuda")``): ``benchmarks/expert_placement.py``'s
+   setting (its routing synthesised here draw for draw), equal to
+   ``BENCH_PR10.json``'s numbers, and the routing of path 6's first 2,048
+   prefilled tokens (each layer's top-8 recomputed with ``moe.route`` from
+   that layer's MoE input), 8 devices; each plan's placement, masses,
+   moves and iterations equal to the ``torch`` field's on the CPU, and the
+   kernel at each leg's shapes.
+
+``python3 chip_smoke.py --only moe`` runs the build and paths 6 and 7
+alone and prints no result lines.
 
 The gather yardstick of a ``segment_spmm`` or ``vm_step`` launch counts
 the 32-byte sectors its live edges' gathered rows touch, once per edge,
@@ -167,9 +192,11 @@ bound (each input byte once) it shows how much of a kernel's gap is the
 graph's randomness.  Each path runs with every kernel's launch count set to
 0 just before it and read just after; a path that launched none of its
 kernels fails.  The line
-before the last is the ``kernels`` JSON record (``vm_step`` on six paths:
-the provgen invocation, the sharded field, the online path, the serving
-path, the cluster path and the placement); the last line is
+before the last is the ``kernels`` JSON record (``vm_step`` on seven
+paths: the provgen invocation, the sharded field, the online path, the
+serving path, the cluster path, the row placement and the expert
+placement; ``flash_attention`` at qwen3's two shapes and olmoe's
+4 x 4,096); the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -248,8 +275,9 @@ SERVE_LOOP_IN_FLIGHT = 64
 SERVE_LOOP_MUTATE_EVERY = 50
 SERVE_LOOP_WARMUP = 32
 #: serving at provgen 1M (path 5c): mutation batches (one invocation each;
-#: two, cut from four to make room for the cluster path within the time
-#: limit, each window still checked), completed requests before each batch, requests in flight and the
+#: one, cut from four to make room within the time limit for the cluster
+#: path (to two) and the MoE paths (to one; with two the whole script
+#: took 974.6 s on an H100), its window still checked), completed requests before each batch, requests in flight and the
 #: micro-batch, the path's cap, the trace sampling rate, the fixed
 #: enumeration check's size and the progress lines' period.  After the
 #: first batch of arrivals every micro-batch holding PQ2 takes 15-20 s,
@@ -259,7 +287,7 @@ SERVE_LOOP_WARMUP = 32
 #: micro-batch takes all 64 requests in flight (16 would serve a quarter as
 #: many in the same time), and 64 more complete between a commit and the
 #: next batch (400 would take minutes after the first batch)
-SERVE_FULL_BATCHES = 2
+SERVE_FULL_BATCHES = 1
 SERVE_FULL_EVERY = 64
 SERVE_FULL_IN_FLIGHT = 64
 SERVE_FULL_MICRO_BATCH = 64
@@ -268,8 +296,9 @@ SERVE_FULL_SAMPLE = 0.05
 SERVE_FULL_ENUM = 64
 SERVE_FULL_LOG_S = 15.0
 #: enumerations of the fixed batch in each arm of the field-beside-serving
-#: measurement (alone, beside field evaluations, beside memoized calls)
-SERVE_FULL_FIELD_REPS = 3
+#: measurement (alone, beside field evaluations, beside memoized calls);
+#: one, cut from three with the batches above
+SERVE_FULL_FIELD_REPS = 1
 #: how soon after an invocation's window opens the worker is back in a
 #: micro-batch (it starts the invocation's thread between micro-batches)
 SERVE_FULL_DISPATCH_S = 0.05
@@ -347,6 +376,18 @@ QWEN_SETS = {"4x4096": (4, 4096, 16), "1x32768": (1, 32768, 8)}
 #: logits through the kernel against those through the plain version
 LM_GATE_TOKENS = 2048
 LM_RTOL, LM_ATOL = 1e-4, 1e-4
+#: olmoe-1b-7b serving: request sets (batch, prompt tokens, greedy decode
+#: steps), qwen3's
+OLMOE_SETS = {"4x4096": (4, 4096, 16), "1x32768": (1, 32768, 8)}
+OLMOE_WARMUP_TOKENS = 256
+#: expert placement: benchmarks/expert_placement.py's setting (experts,
+#: layers, top-k, tokens, devices; seed 0) and what BENCH_PR10.json's
+#: derived string gives for it; the olmoe leg's tokens (the first of the
+#: 4 x 4,096 prefill) and devices
+PLACE_BENCH = dict(n_experts=64, n_layers=8, top_k=4, n_tokens=2048, n_devices=8)
+PLACE_BENCH_PR10 = dict(before=199753.0, after=156865.0, moves=475, iterations=4)
+PLACE_OLMOE_TOKENS = 2048
+PLACE_DEVICES = 8
 #: the kernels' wrappers, by the name of their launch counter
 KERNELS = {
     "vm_step": ("repro_torch.kernels.vm_step.ops", "vm_step"),
@@ -856,6 +897,9 @@ def _attn_cases():
         (1, 700, 650, 1, 1, 64, True, 129, "bfloat16"),
         (2, 1000, 1111, 2, 4, 256, False, 300, "bfloat16"),
         (1, 1100, 1100, 2, 4, 128, False, 1, "bfloat16"),
+        # olmoe's group 1 at D=128 (H = KV = 16)
+        (1, 1024, 1024, 16, 1, 128, True, None, "bfloat16"),
+        (2, 333, 333, 16, 1, 128, True, None, "float32"),
     ]
     rng = np.random.default_rng(500)
     drawn = [(int(rng.integers(1, 4)), int(rng.integers(1, 301)), int(rng.integers(1, 301)),
@@ -3444,7 +3488,7 @@ def _sdpa_ms(torch, q, k, v, out_k):
     return ms, diff
 
 
-def _attn_at_path_shape(torch, args, reps, time_f32=False):
+def _attn_at_path_shape(torch, args, reps, time_f32=False, tag="qwen3"):
     """Kernel, plain version and SDPA on one captured layer's q, k, v; the
     kernel against the plain version; the bound of the work.  The same q,
     k, v in float32 go through the float32 kernel, which ``time_f32`` also
@@ -3487,7 +3531,7 @@ def _attn_at_path_shape(torch, args, reps, time_f32=False):
         cuda_core32, _ = _bound(bytes32, flops, PEAK_F32_FLOPS)
         f32 = dict(ms=ms32, plain_ms=plain32, bound_ms=bound32, bound_by=by32,
                    library_ms=lib32, err=err32)
-        log(f"[qwen3] flash_attention_f32 at B={B} S={S} H={H} KV={k.shape[2]} D={D} "
+        log(f"[{tag}] flash_attention_f32 at B={B} S={S} H={H} KV={k.shape[2]} D={D} "
             f"float32 (the same q/k/v): kernel {ms32:.4f} ms ({flops / ms32 / 1e9:.2f} "
             f"TFLOP/s, {ms32 / lib32:.3f}x SDPA's time), plain {plain32:.4f} ms, SDPA "
             f"(memory-efficient back end) {lib32:.4f} ms (max diff to the kernel "
@@ -3502,7 +3546,7 @@ def _attn_at_path_shape(torch, args, reps, time_f32=False):
     library_ms, lib_diff = _sdpa_ms(torch, q, k, v, out_k)
     bytes_moved = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     bound_ms, bound_by = _bound(bytes_moved, flops, PEAK_BF16_FLOPS)
-    log(f"[qwen3] flash_attention at B={B} S={S} H={H} KV={k.shape[2]} D={D} "
+    log(f"[{tag}] flash_attention at B={B} S={S} H={H} KV={k.shape[2]} D={D} "
         f"{str(q.dtype).split('.')[-1]} (one layer's q/k/v): kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.2f} TFLOP/s, {ms / library_ms:.3f}x SDPA's time, "
         f"{bound_ms / ms:.3f} of the bound), plain {plain_ms:.4f} ms, SDPA "
@@ -3711,6 +3755,464 @@ def qwen3_serving(torch, device):
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 10: olmoe-1b-7b serving at full width (the MoE slice)
+# ---------------------------------------------------------------------------
+
+
+class _MoeRecorder:
+    """Wraps ``moe.apply_auto`` where the transformer calls it: CUDA events
+    around every call and each call's aux values; while ``capture`` is set,
+    each call's router weights and its first ``capture`` tokens; with
+    ``track``, each call's routing and kept assignments."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn = torch, fn
+        self.events, self.aux, self.inputs, self.routes = [], [], [], []
+        self.capture, self.track = 0, False
+
+    def __call__(self, fp, x, cfg):
+        from repro_torch.models import moe
+
+        if self.capture:
+            self.inputs.append((fp["router"]["w"], x[:self.capture].clone()))
+        if self.track:
+            r = moe.route(fp, x, cfg)
+            self.routes.append((r.experts, moe.kept(r.experts, cfg)))
+        ev0 = self.torch.cuda.Event(enable_timing=True)
+        ev1 = self.torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out, aux = self.fn(fp, x, cfg)
+        ev1.record()
+        self.events.append((ev0, ev1))
+        self.aux.append(aux)
+        return out, aux
+
+    def ms(self, first, last):
+        """Device ms of calls ``first:last`` (synchronise first)."""
+        return [a.elapsed_time(b) for a, b in self.events[first:last]]
+
+    def dropped(self, first, last):
+        return [float(a["moe_dropped_frac"]) for a in self.aux[first:last]]
+
+
+def _assigned(torch, experts, keep, E):
+    """(T, E) matrices of the assignments and of the kept assignments."""
+    T = experts.shape[0]
+    a = torch.zeros((T, E), dtype=torch.bool, device=experts.device)
+    k = torch.zeros_like(a)
+    a.scatter_(1, experts, True)
+    k.scatter_(1, experts, keep)
+    return a, k
+
+
+def _routing_diff(torch, routes_a, routes_b, E, rows=None):
+    """Per layer, the tokens whose expert set or kept assignments differ
+    between two flows over the same tokens (``rows`` of each: the first
+    rows of the longer flow), and the first such token over all layers
+    (the token count if none)."""
+    per_layer, first = [], None
+    for (ea, ka), (eb, kb) in zip(routes_a, routes_b):
+        n = rows or ea.shape[0]
+        aa, ak = _assigned(torch, ea[:n], ka[:n], E)
+        ba, bk = _assigned(torch, eb[:n], kb[:n], E)
+        bad = ((aa != ba).any(1) | (ak != bk).any(1)).nonzero().flatten()
+        per_layer.append(int(bad.numel()))
+        if bad.numel():
+            first = int(bad[0]) if first is None else min(first, int(bad[0]))
+    n = rows or routes_a[0][0].shape[0]
+    return per_layer, (n if first is None else first)
+
+
+def olmoe_serving(torch, device):
+    """olmoe-1b-7b at full width (bf16, random weights from seed 0): the
+    4 x 4,096 and 1 x 32,768 requests prefilled through ``forward`` (one
+    ``flash_attention`` launch per layer; the MoE FFN on the batch's tokens)
+    and decoded greedily; the kernel at both prefill shapes; the float32
+    whole-path gate.  Returns the records, and the routing of the first
+    ``PLACE_OLMOE_TOKENS`` prefilled tokens (T, L, K) with the expert count."""
+    import repro_torch.models.transformer as tf
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import moe
+
+    torch.cuda.empty_cache()
+    cfg = get_config("olmoe-1b-7b")
+    L, V, E, K = cfg.n_layers, cfg.vocab, cfg.moe.n_experts, cfg.moe.top_k
+    t0 = time.perf_counter()
+    params = tf.init(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[olmoe] {cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.n_heads} query / "
+        f"{cfg.n_kv_heads} KV heads of {cfg.d_head} (QK-norm), {E} experts top-{K} of "
+        f"d_ff {cfg.moe.d_expert_ff} (capacity factor {cfg.moe.capacity_factor}), vocab "
+        f"{V}, {cfg.dtype}: {n_params} parameters ({n_params * 2 / 1e9:.2f} GB), "
+        f"initialised on the card in {time.perf_counter() - t0:.2f} s; requests "
+        f"{', '.join(f'{B} x {S} tokens + {n} decode steps' for B, S, n in OLMOE_SETS.values())}")
+    requests = {name: torch.as_tensor(next(TokenPipeline(V, B, S, seed=0))["tokens"],
+                                      device=device)
+                for name, (B, S, _) in OLMOE_SETS.items()}
+
+    # one short prefill first, outside the path's window: the first MoE
+    # call and attention launch otherwise carry the libraries' set-up
+    # (0.46 s and 11 ms on an H100)
+    tf.forward(params, requests["4x4096"][:1, :OLMOE_WARMUP_TOKENS], cfg)
+    torch.cuda.synchronize()
+    timer = _KernelTimer(torch, flash_attention)
+    rec = _MoeRecorder(torch, tf.moe_lib.apply_auto)
+    tf.flash_attention, tf.moe_lib.apply_auto = timer, rec
+    served = {}
+    try:
+        reset_counts()                              # the path starts here
+        for name, (B, S, steps) in OLMOE_SETS.items():
+            torch.cuda.reset_peak_memory_stats()
+            first_a, first_m = len(timer.events), len(rec.events)
+            rec.capture = PLACE_OLMOE_TOKENS if name == "4x4096" else 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, aux, pre = tf.forward(params, requests[name], cfg, return_cache=True)
+            nxt = logits[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            rec.capture = 0
+            check(logits.shape == (B, S, V) and _all_finite(torch, logits),
+                  f"olmoe {name}: prefill logits of shape {tuple(logits.shape)} or "
+                  f"non-finite")
+            del logits
+            prefill_moe = (first_m, len(rec.events))
+            cache = tf.init_cache(cfg, B, S + steps + 1, device=device)
+            cache["k"][:, :, :S] = pre["k"]
+            cache["v"][:, :, :S] = pre["v"]
+            cache["pos"] = pre["pos"]
+            del pre
+            generated, step_s = [nxt], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                logits, cache = tf.decode_step(params, cache, nxt, cfg)
+                nxt = logits[:, -1:].argmax(-1)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                check(logits.shape == (B, 1, V) and bool(torch.isfinite(logits).all()),
+                      f"olmoe {name}: decode logits of shape {tuple(logits.shape)} or "
+                      f"non-finite")
+                generated.append(nxt)
+            decode_moe = (prefill_moe[1], len(rec.events))
+            toks = torch.cat(generated, dim=1)
+            check(bool(((toks >= 0) & (toks < V)).all()), f"olmoe {name}: token ids")
+            prof = _profile_step(torch, lambda: tf.decode_step(params, cache, nxt, cfg))
+            torch.cuda.synchronize()
+            served[name] = dict(
+                prefill_s=t_prefill, step_s=step_s, prof=prof,
+                launches=len(timer.events) - first_a,
+                moe_calls=prefill_moe[1] - prefill_moe[0],
+                moe_ms=rec.ms(*prefill_moe), aux={k: float(v) for k, v in aux.items()},
+                dropped=rec.dropped(*prefill_moe), decode_dropped=rec.dropped(*decode_moe),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                first_tokens=toks[0, :8].tolist())
+            del cache, logits
+        counts = read_counts("olmoe", ["flash_attention"])  # ... and ends here
+    finally:
+        tf.flash_attention, tf.moe_lib.apply_auto = flash_attention, rec.fn
+    torch.cuda.synchronize()
+    # the routing of the first prefilled tokens, recomputed layer by layer
+    # from each layer's MoE input and router weights
+    routing = torch.stack([moe.route({"router": {"w": w}}, x, cfg.moe).experts
+                           for w, x in rec.inputs], dim=1).cpu().numpy()
+    check(routing.shape == (PLACE_OLMOE_TOKENS, L, K), f"olmoe routing {routing.shape}")
+    per_launch = timer.ms_by_shape()
+    for name, (B, S, steps) in OLMOE_SETS.items():
+        st = served[name]
+        ms = per_launch[((B, S, cfg.n_heads, cfg.d_head), (B, S, cfg.n_kv_heads, cfg.d_head),
+                         (B, S, cfg.n_kv_heads, cfg.d_head))]
+        dec = sorted(st["step_s"])
+        log(f"[olmoe] {name}: prefill {st['prefill_s']:.3f} s ({B * S / st['prefill_s']:.0f} "
+            f"tokens/s; flash_attention {sum(ms):.1f} ms over {st['launches']} launches, "
+            f"{min(ms):.3f}-{max(ms):.3f} ms each; the MoE layers {sum(st['moe_ms']):.1f} ms "
+            f"over {st['moe_calls']} calls, {min(st['moe_ms']):.3f}-{max(st['moe_ms']):.3f} "
+            f"ms each, CUDA events around moe.apply_auto); decode {steps} greedy steps, per "
+            f"step (batch {B}) s {[round(x, 4) for x in st['step_s']]}, median "
+            f"{dec[len(dec) // 2] * 1e3:.2f} ms; peak memory {st['peak_gb']:.2f} GB; "
+            f"first tokens of request 0 {st['first_tokens']}")
+        log(f"[olmoe] {name}: prefill aux (mean over layers) {st['aux']}; "
+            f"moe_dropped_frac per layer {[round(x, 4) for x in st['dropped']]}; decode "
+            f"steps' per layer: min {min(st['decode_dropped']):.4f} max "
+            f"{max(st['decode_dropped']):.4f} (capacity {moe.capacity_of(B, cfg.moe)} a "
+            f"step at batch {B}); {device_line()}")
+        pr = st["prof"]
+        busy = ("not traced (the trace holds no device event)" if pr["busy_ms"] is None
+                else f"{pr['busy_ms']:.3f} ms, {100 * pr['busy_ms'] / pr['wall_ms']:.2f}% "
+                     f"of the traced step")
+        log(f"[olmoe] {name}: one decode step under torch.profiler: {pr['wall_ms']:.2f} ms, "
+            f"{pr['host_ops']} top-level aten ops, {pr['device_ops']} device operations; "
+            f"device busy {busy}")
+        check(st["launches"] == L, f"olmoe {name}: {st['launches']} flash_attention "
+                                   f"launches in one prefill, want {L}")
+        check(st["moe_calls"] == L, f"olmoe {name}: {st['moe_calls']} MoE calls in one "
+                                    f"prefill, want {L}")
+        check(abs(st["aux"]["moe_dropped_frac"] - sum(st["dropped"]) / L) < 1e-6,
+              f"olmoe {name}: the forward's dropped fraction is not the layers' mean")
+    check(counts["flash_attention"] == L * len(OLMOE_SETS),
+          "olmoe: one flash_attention launch per layer per prefill")
+    check(all(counts[n] == 0 for n in counts if n != "flash_attention"),
+          "olmoe serving launched another kernel")
+
+    records = {}
+    for name, (B, S, _) in OLMOE_SETS.items():
+        key = [k for k in timer.args_by_shape if k[0] == (B, S, cfg.n_heads, cfg.d_head)][0]
+        records[name] = dict(launches=served[name]["launches"],
+                             **_attn_at_path_shape(torch, timer.args_by_shape[key],
+                                                   3 if S > 8192 else 10, tag="olmoe"))
+    del timer, rec, params, requests
+    torch.cuda.empty_cache()
+    records["gate"] = _olmoe_f32_gate(torch, device, cfg)
+    return records, (routing, E)
+
+
+def _olmoe_f32_gate(torch, device, cfg):
+    """The whole-path gate in float32 at full width, B=1,
+    ``LM_GATE_TOKENS`` tokens: every layer's kernel output against the
+    plain attention on that layer's own q, k, v (2e-5); the forward through
+    the kernel against the forward through the plain version, held on the
+    rows before the first token whose routing (expert set or kept
+    assignments, any layer) differs between the two (routing flips where a
+    token's k-th and (k+1)-th probabilities are closer than their float32
+    rounding; attention is causal and capacity ranks count only earlier
+    tokens, so earlier rows are untouched); and a decode step from the
+    prefill's cache against the prefill of one more token, held only where
+    both flows route and keep every token alike (the decode step's capacity
+    is that of its batch of 1, the prefill's that of 2,049 tokens)."""
+    import dataclasses
+
+    import repro_torch.models.transformer as tf
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    L, V, E = cfg.n_layers, cfg.vocab, cfg.moe.n_experts
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tf.init(cfg32, seed=0, device=device)
+    toks = torch.as_tensor(next(TokenPipeline(V, 1, LM_GATE_TOKENS + 1, seed=1))["tokens"],
+                           device=device)
+    prompt = toks[:, :LM_GATE_TOKENS]
+    layer_errs = []
+
+    def checked(q, k, v, causal=True, window=None):
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_reference(q, k, v, causal, window)
+        rtol, atol = ATTN_TOL["float32"]
+        layer_errs.append((float((out - ref).abs().max()),
+                           bool(torch.allclose(out, ref, rtol=rtol, atol=atol))))
+        return out
+
+    def plain(q, k, v, causal=True, window=None):
+        return flash_attention_reference(q, k, v, causal, window)
+
+    rec = _MoeRecorder(torch, tf.moe_lib.apply_auto)
+    rec.track = True
+    tf.moe_lib.apply_auto = rec
+    try:
+        tf.flash_attention = checked
+        reset_counts()                              # the float32 forward starts here
+        logits_k, _, pre = tf.forward(params, prompt, cfg32, return_cache=True)
+        launches = read_counts("olmoe float32", ["flash_attention"])["flash_attention"]
+        routes_k = rec.routes[:]
+        tf.flash_attention = plain
+        logits_p, _ = tf.forward(params, prompt, cfg32)
+        routes_p = rec.routes[len(routes_k):]
+        tf.flash_attention = flash_attention
+        cache = tf.init_cache(cfg32, 1, LM_GATE_TOKENS + 1, device=device)
+        cache["k"][:, :, :LM_GATE_TOKENS] = pre["k"]
+        cache["v"][:, :, :LM_GATE_TOKENS] = pre["v"]
+        cache["pos"] = pre["pos"]
+        del pre
+        n0 = len(rec.routes)
+        step, _ = tf.decode_step(params, cache, toks[:, LM_GATE_TOKENS:], cfg32)
+        routes_d = rec.routes[n0:]
+        full, _ = tf.forward(params, toks, cfg32)
+        routes_f = rec.routes[n0 + L:]
+    finally:
+        tf.flash_attention, tf.moe_lib.apply_auto = flash_attention, rec.fn
+    torch.cuda.synchronize()
+    check(launches == L, f"olmoe float32: {launches} flash_attention launches, want {L}")
+    worst = max(e for e, _ in layer_errs)
+    log(f"[olmoe] float32 gate, every layer's kernel output vs the plain attention on "
+        f"its own q/k/v: max_abs_err per layer {[f'{e:.2e}' for e, _ in layer_errs]}, "
+        f"allclose(rtol, atol = {ATTN_TOL['float32']}) on all {all(ok for _, ok in layer_errs)}")
+    check(len(layer_errs) == L and all(ok for _, ok in layer_errs),
+          "olmoe float32: a layer's kernel output disagrees with the plain attention")
+    per_layer, first = _routing_diff(torch, routes_k, routes_p, E)
+    held = logits_k[:, :first]
+    err = float((held - logits_p[:, :first]).abs().max()) if first else 0.0
+    ok = bool(torch.allclose(held, logits_p[:, :first], rtol=LM_RTOL, atol=LM_ATOL))
+    log(f"[olmoe] whole-path gate, {cfg.name} float32 at full width, B=1 "
+        f"S={LM_GATE_TOKENS}: tokens routed differently through the kernel and the plain "
+        f"attention, per layer {per_layer}; logits held on the first {first} of "
+        f"{LM_GATE_TOKENS} rows: max_abs_err={err:.3e} (max |logit| "
+        f"{float(logits_p.abs().max()):.3f}) allclose(rtol={LM_RTOL}, atol={LM_ATOL})={ok}")
+    check(first > 0 and ok, "olmoe float32 forward through the kernel disagrees with "
+                            "the plain forward")
+    del logits_k, logits_p
+    # the decode step against the 2,049-token prefill: same routing and kept
+    # assignments for the first 2,048 tokens in both prefills, and for the
+    # new token in the step and the prefill's last row
+    _, first_pre = _routing_diff(torch, routes_k, routes_f, E, rows=LM_GATE_TOKENS)
+    last_f = [(e[-1:], k[-1:]) for e, k in routes_f]
+    last_same = _routing_diff(torch, routes_d, last_f, E)[1] == 1
+    last_kept = all(bool(k.all()) for _, k in last_f)
+    held = first_pre == LM_GATE_TOKENS and last_same and last_kept
+    err_d = float((step[:, 0] - full[:, -1]).abs().max())
+    ok_d = bool(torch.allclose(step[:, 0], full[:, -1], rtol=LM_RTOL, atol=LM_ATOL))
+    case = ("held: every token routed and kept alike" if held else
+            f"not held: the 2,048 shared tokens route or keep alike up to token "
+            f"{first_pre}, the new token routed alike {last_same}, kept in full in the "
+            f"prefill {last_kept}")
+    log(f"[olmoe] decode step {LM_GATE_TOKENS} from the prefill cache vs the prefill of "
+        f"{LM_GATE_TOKENS + 1} tokens (float32): {case}; max_abs_err={err_d:.3e} "
+        f"allclose(rtol={LM_RTOL}, atol={LM_ATOL})={ok_d}")
+    check(ok_d or not held, "olmoe decode from the prefill cache disagrees with the "
+                            "prefill where both route alike")
+    del cache, step, full
+    held_nd = _olmoe_decode_without_drops(torch, device, cfg32, params, toks)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, err=worst, routing_diff=per_layer, rows_held=first,
+                decode_held=held, decode_held_no_drops=held_nd)
+
+
+def _olmoe_decode_without_drops(torch, device, cfg32, params, toks):
+    """The decode step against the prefill of one more token with a
+    capacity factor of E / K (every expert has a slot for every token, so
+    capacity no longer follows the batch): held where the step and both
+    prefills route every token alike (a routing flip at a near-tie between
+    the 2,048- and 2,049-row products is printed, not held)."""
+    import dataclasses
+
+    import repro_torch.models.transformer as tf
+
+    moe_nd = dataclasses.replace(cfg32.moe, capacity_factor=cfg32.moe.n_experts
+                                 / cfg32.moe.top_k)
+    cfg_nd = dataclasses.replace(cfg32, moe=moe_nd)
+    L, E = cfg_nd.n_layers, moe_nd.n_experts
+    rec = _MoeRecorder(torch, tf.moe_lib.apply_auto)
+    rec.track = True
+    tf.moe_lib.apply_auto = rec
+    try:
+        _, _, pre = tf.forward(params, toks[:, :LM_GATE_TOKENS], cfg_nd, return_cache=True)
+        cache = tf.init_cache(cfg_nd, 1, LM_GATE_TOKENS + 1, device=device)
+        cache["k"][:, :, :LM_GATE_TOKENS] = pre["k"]
+        cache["v"][:, :, :LM_GATE_TOKENS] = pre["v"]
+        cache["pos"] = pre["pos"]
+        del pre
+        step, _ = tf.decode_step(params, cache, toks[:, LM_GATE_TOKENS:], cfg_nd)
+        full, _ = tf.forward(params, toks, cfg_nd)
+    finally:
+        tf.moe_lib.apply_auto = rec.fn
+    torch.cuda.synchronize()
+    routes_pre, routes_d, routes_f = (rec.routes[:L], rec.routes[L:2 * L],
+                                      rec.routes[2 * L:])
+    dropped = max(float(a["moe_dropped_frac"]) for a in rec.aux)
+    per_layer, first_pre = _routing_diff(torch, routes_pre, routes_f, E,
+                                         rows=LM_GATE_TOKENS)
+    last_same = _routing_diff(torch, routes_d, [(e[-1:], k[-1:]) for e, k in routes_f],
+                              E)[1] == 1
+    held = first_pre == LM_GATE_TOKENS and last_same
+    err = float((step[:, 0] - full[:, -1]).abs().max())
+    ok = bool(torch.allclose(step[:, 0], full[:, -1], rtol=LM_RTOL, atol=LM_ATOL))
+    log(f"[olmoe] decode step {LM_GATE_TOKENS} vs the prefill of {LM_GATE_TOKENS + 1} "
+        f"tokens at capacity factor {moe_nd.capacity_factor:g} (float32; largest dropped "
+        f"fraction {dropped}): shared tokens routed differently per layer {per_layer}, "
+        f"the new token routed alike {last_same}: {'held' if held else 'not held'}; "
+        f"max_abs_err={err:.3e} allclose(rtol={LM_RTOL}, atol={LM_ATOL})={ok}")
+    check(dropped == 0.0, "olmoe: an assignment dropped at capacity factor E / K")
+    check(ok or not held, "olmoe decode from the prefill cache disagrees with the "
+                          "prefill at capacity factor E / K")
+    return held
+
+
+# ---------------------------------------------------------------------------
+# phase 11: TAPER expert placement (vm_step on the co-routing graph)
+# ---------------------------------------------------------------------------
+
+
+def synth_routing(seed: int = 0):
+    """``benchmarks/expert_placement.py``'s routing statistics (latent token
+    clusters), draw for draw: (tokens, layers, top-k) expert ids."""
+    import numpy as np
+
+    T, L, K, E = (PLACE_BENCH[k] for k in ("n_tokens", "n_layers", "top_k", "n_experts"))
+    rng = np.random.default_rng(seed)
+    n_clusters = 16
+    cluster = rng.integers(0, n_clusters, T)
+    pref = rng.integers(0, E, (n_clusters, L, K * 2))
+    ids = np.empty((T, L, K), np.int64)
+    for t in range(T):
+        for l in range(L):
+            pick = rng.choice(pref[cluster[t], l], K, replace=False)
+            explore = rng.random(K) < 0.1
+            ids[t, l] = np.where(explore, rng.integers(0, E, K), pick)
+    return ids
+
+
+def expert_placement_on_card(torch, device, olmoe_routing):
+    """``plan_expert_placement(device="cuda")`` on two legs: the benchmark's
+    setting, and the routing of the olmoe phase's first prefilled tokens;
+    each plan equal to the same plan through the ``torch`` field (on the
+    CPU), the benchmark's also to ``BENCH_PR10.json``'s numbers; the kernel
+    at each leg's last launch's shapes.  ``olmoe_routing``: (expert ids
+    (T, L, K), expert count)."""
+    import numpy as np
+    import repro_torch.core.visitor as visitor
+    from repro_torch.core.expert_placement import plan_expert_placement
+    from repro_torch.kernels.vm_step.ops import vm_step
+
+    legs = {"benchmark": (synth_routing(0), PLACE_BENCH["n_experts"],
+                          PLACE_BENCH["n_devices"]),
+            "olmoe": olmoe_routing + (PLACE_DEVICES,)}
+    plans, timers = {}, {}
+    try:
+        reset_counts()                              # the path starts here
+        for leg, (ids, E, n_dev) in legs.items():
+            timers[leg] = visitor.vm_step = _KernelTimer(torch, vm_step)
+            t0 = time.perf_counter()
+            plans[leg] = plan_expert_placement(ids, E, n_dev, device=device)
+            plans[leg]["seconds"] = time.perf_counter() - t0
+        counts = read_counts("experts", ["vm_step"])  # ... and ends here
+    finally:
+        visitor.vm_step = vm_step
+    torch.cuda.synchronize()
+    records = {}
+    for leg, (ids, E, n_dev) in legs.items():
+        plan = plans[leg]
+        t0 = time.perf_counter()
+        cpu = plan_expert_placement(ids, E, n_dev, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        keys = ("cross_mass_before", "cross_mass_after", "moves", "iterations")
+        same = (np.array_equal(plan["placement"], cpu["placement"])
+                and all(plan[k] == cpu[k] for k in keys))
+        g = plan["graph"]
+        kern = [a.elapsed_time(b) for a, b in timers[leg].events]
+        before, after = plan["cross_mass_before"], plan["cross_mass_after"]
+        log(f"[experts] {leg}: routing {ids.shape} (tokens, layers, top-k) of {E} experts "
+            f"on {n_dev} devices; co-routing graph n={g.n} undirected edges={g.m // 2}; "
+            f"cuda field: before={before:.0f} after={after:.0f} reduction="
+            f"{1 - after / max(before, 1e-9):.1%} moves={plan['moves']} "
+            f"iters={plan['iterations']} in {plan['seconds']:.2f} s (vm_step "
+            f"{sum(kern):.3f} ms over {len(kern)} launches); torch field on the CPU in "
+            f"{t_cpu:.2f} s: placement, masses, moves and iterations equal {same}")
+        check(same, f"experts {leg}: the cuda field's plan differs from the torch field's")
+        if leg == "benchmark":
+            got = dict(before=before, after=after, moves=plan["moves"],
+                       iterations=plan["iterations"])
+            log(f"[experts] benchmark setting vs BENCH_PR10.json's expert_placement/"
+                f"summary (before=199753 after=156865 reduction=21.5% moves=475 "
+                f"iters=4): {got == PLACE_BENCH_PR10}")
+            check(got == PLACE_BENCH_PR10, f"experts: {got} differ from BENCH_PR10.json's")
+        records[leg] = _vm_at_path_shapes(torch, f"experts/{leg}", timers[leg].last_args)
+    return dict(launches=counts["vm_step"], **records["olmoe"],
+                err_all=max(r["err"] for r in records.values()))
+
+
 def _all_finite(torch, t):
     """All of ``t`` finite, checked 1,024 positions at a time (the check of
     a whole 10 GB logits tensor at once takes 25 GB of temporaries)."""
@@ -3743,6 +4245,12 @@ def main() -> int:
     dev_line = device_line()
     log(f"[device] {dev_line}; torch {torch.__version__} cuda {torch.version.cuda}")
     tensor_core_instructions(build_kernels())
+    if sys.argv[1:] == ["--only", "moe"]:
+        # the MoE slice's two phases alone: no result lines
+        olmoe, routing = olmoe_serving(torch, device)
+        expert_placement_on_card(torch, device, routing)
+        log(f"[done] the MoE phases passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     errs = {"vm_step": kernel_sweep(torch), "embedding_bag": bag_sweep(torch),
             "segment_spmm": spmm_sweep(torch), "flash_attention": attention_sweep(torch)}
     plain_repeat(torch)
@@ -3769,6 +4277,8 @@ def main() -> int:
     place = row_placement(torch, device)
     gnn = gcn_inference(torch, device)
     lm = qwen3_serving(torch, device)
+    olmoe, routing = olmoe_serving(torch, device)
+    experts = expert_placement_on_card(torch, device, routing)
     record = {"kernels": [
         # one kernel on two paths, each at its own shapes: the provgen-1M
         # invocation (23-node trie) and the row placement (677-node trie)
@@ -3822,6 +4332,17 @@ def main() -> int:
          "library_ms": None},
         # the same kernel per shard of the sharded field: alpha holds the
         # shard's rows and its exchanged halo (times at shard 0's shapes)
+        # the same kernel placing experts: its launches are both legs' (the
+        # benchmark's setting and olmoe's routing), its times at the olmoe
+        # leg's last launch's shapes
+        {"name": "vm_step/experts", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vm_step.cu",
+         "replaces": "src/repro/kernels/vm_step/kernel.py:26",
+         "launches": experts["launches"],
+         "max_abs_err": max(errs["vm_step"], experts["err_all"]),
+         "ms": experts["ms"], "plain_ms": experts["plain_ms"],
+         "bound_ms": experts["bound_ms"], "bound_by": experts["bound_by"],
+         "library_ms": None},
         {"name": "vm_step/sharded", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vm_step.cu",
          "replaces": "src/repro/kernels/vm_step/kernel.py:26",
@@ -3858,7 +4379,9 @@ def main() -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]}
         for name, r in (("flash_attention", lm["1x32768"]),
-                        ("flash_attention/4k", lm["4x4096"]))
+                        ("flash_attention/4k", lm["4x4096"]),
+                        # olmoe's group 1 (H = KV = 16) at 4 x 4,096
+                        ("flash_attention/olmoe", olmoe["4x4096"]))
     ] + [
         # the float32 (3xTF32) kernel: its launches are the float32
         # full-width forward's, its times at the 4 x 4,096 shape in float32

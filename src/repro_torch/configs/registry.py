@@ -6,6 +6,8 @@ from importlib import import_module
 from typing import List
 
 _ARCH_MODULES = {
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "qwen2.5-14b": "repro_torch.configs.qwen25_14b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",

@@ -132,7 +132,7 @@ def _keys(tree, path: str, want: Set[str]) -> None:
 
 
 def lm_params_from_reference(tree: Mapping, cfg, device: DeviceLike = None) -> Dict:
-    """The port's dense-LM parameters from the reference's
+    """The port's LM parameters from the reference's
     ``models.transformer.init`` pytree for the ``LMConfig`` ``cfg``, copied
     onto ``device`` (default ``"cuda"``, through ``resolve_device``).
 
@@ -140,12 +140,22 @@ def lm_params_from_reference(tree: Mapping, cfg, device: DeviceLike = None) -> D
     ``final_norm.scale``, and ``lm_head`` unless the embeddings are tied;
     ``attn`` holds ``wq, wk, wv, wo``, with ``bq, bk, bv`` when ``cfg`` has
     QKV bias and ``q_norm, k_norm`` when it has QK-norm; ``ffn`` is dense
-    (``gate, up, down``).  Arrays must be float32."""
+    (``gate, up, down``) or, for a MoE ``cfg``, ``router.w, gate, up,
+    down``, with ``shared.{gate, up, down}`` when it has shared experts.
+    Arrays must be float32."""
     _keys(tree, "params", {"embed", "layers", "final_norm"}
           | (set() if cfg.tie_embeddings else {"lm_head"}))
     _keys(tree["layers"], "layers", {"attn", "ffn", "ln1", "ln2"})
     _keys(tree["final_norm"], "final_norm", {"scale"})
-    _keys(tree["layers"]["ffn"], "layers.ffn", {"gate", "up", "down"})
+    ffn = tree["layers"]["ffn"]
+    if cfg.moe:
+        _keys(ffn, "layers.ffn", {"router", "gate", "up", "down"}
+              | ({"shared"} if cfg.moe.n_shared else set()))
+        _keys(ffn["router"], "layers.ffn.router", {"w"})
+        if cfg.moe.n_shared:
+            _keys(ffn["shared"], "layers.ffn.shared", {"gate", "up", "down"})
+    else:
+        _keys(ffn, "layers.ffn", {"gate", "up", "down"})
     _keys(tree["layers"]["attn"], "layers.attn", {"wq", "wk", "wv", "wo"}
           | ({"bq", "bk", "bv"} if cfg.attn_bias else set())
           | ({"q_norm", "k_norm"} if cfg.qk_norm else set()))

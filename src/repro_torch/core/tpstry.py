@@ -178,6 +178,22 @@ class TPSTry:
     def max_depth(self) -> int:
         return max((n.depth for n in self.nodes), default=0)
 
+    def node_by_path(self, symbols: Sequence[str]) -> Optional[_Node]:
+        cur = 0
+        for sym in symbols:
+            cur = self.nodes[cur].children.get(sym)
+            if cur is None:
+                return None
+            cur = int(cur)
+        return self.nodes[cur]
+
+    def prob_of_path(self, symbols: Sequence[str]) -> float:
+        node = self.node_by_path(symbols)
+        return 0.0 if node is None else node.p
+
+    def frequencies(self) -> Dict[str, float]:
+        return dict(self._freqs)
+
     # -- snapshotting (§4.2: lazy VM re-evaluation between iterations) --------
     def snapshot(self, key: Optional[str] = None) -> None:
         """Record the current node probabilities.  ``key`` namespaces the
@@ -263,6 +279,53 @@ class TPSTry:
             is_leaf=is_leaf,
             n_labels=len(label_names),
         )
+
+
+def synthetic_trie(n_labels: int = 12, depth: int = 4, branching: int = 2,
+                   n_first: int = 3, seed: int = 0) -> "TrieArrays":
+    """Deterministic synthetic TrieArrays for dry-runs/benchmarks at
+    production scale (a plausible workload summary without real queries).
+    The arrays follow from the shape arguments alone; ``seed`` is kept for
+    the reference's signature."""
+    parent, label, depth_arr, p = [-1], [-1], [0], [1.0]
+    frontier = []
+    for i in range(min(n_first, n_labels)):
+        parent.append(0)
+        label.append(i)
+        depth_arr.append(1)
+        p.append(1.0 / n_first)
+        frontier.append(len(parent) - 1)
+    for d in range(2, depth + 1):
+        nxt = []
+        for node in frontier:
+            used = set()
+            for b in range(branching):
+                lab = int((label[node] + 1 + b * 3 + d) % n_labels)
+                if lab in used:
+                    continue
+                used.add(lab)
+                parent.append(node)
+                label.append(lab)
+                depth_arr.append(d)
+                p.append(p[node] * (0.5 if branching > 1 else 0.9) * 0.9)
+                nxt.append(len(parent) - 1)
+        frontier = nxt
+    N = len(parent)
+    parent = np.asarray(parent, np.int32)
+    label = np.asarray(label, np.int32)
+    depth_arr = np.asarray(depth_arr, np.int32)
+    p = np.asarray(p, np.float32)
+    child_index = np.full((N, n_labels), -1, np.int32)
+    for i in range(1, N):
+        child_index[parent[i], label[i]] = i
+    is_leaf = (child_index < 0).all(axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cond_p = np.where(parent >= 0,
+                          p / np.maximum(p[np.maximum(parent, 0)], 1e-30),
+                          0.0).astype(np.float32)
+    return TrieArrays(parent=parent, label=label, depth=depth_arr, p=p,
+                      cond_p=cond_p, child_index=child_index,
+                      is_leaf=is_leaf, n_labels=n_labels)
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,9 @@
-"""Decoder-only LM transformer (dense), on tensors: prefill and decode.
+"""Decoder-only LM transformer, on tensors: prefill and decode.
 
-The JAX package's ``models/transformer.py`` for the dense configurations:
-GQA, QK-norm (qwen3, gemma3), QKV bias (qwen2.5) and sliding-window with
-periodic global layers (gemma3).  Parameters are a plain dict of tensors in
+The JAX package's ``models/transformer.py``: GQA, QK-norm (qwen3, gemma3,
+olmoe), QKV bias (qwen2.5), sliding-window with periodic global layers
+(gemma3), and the mixture-of-experts FFN (olmoe, kimi-k2; ``moe.py``) on
+each layer's ``(B·S, d)`` tokens, its aux values averaged over layers.  Parameters are a plain dict of tensors in
 the JAX package's layout, layers stacked along a leading L axis; the layer
 loop is a Python loop over the stack (JAX's ``lax.scan``).  Sharding
 constraints have no counterpart (they are no-ops without a mesh).
@@ -21,8 +22,7 @@ Entry points:
   init_cache(cfg, batch, max_len, ...) -> KV cache {"k", "v", "pos"}
   decode_step(params, cache, tokens, cfg) -> (logits, cache)
 
-The mixture-of-experts FFN (``moe.py``) and training (``loss_fn``,
-``make_train_step``) come with later slices.
+Training (``loss_fn``, ``make_train_step``) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ import torch
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_rope, attention, rms_norm,
                                        rms_norm_nd, swiglu)
 
@@ -42,13 +43,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def _dtype(cfg: LMConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
-
-
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the mixture-of-experts FFN is not ported yet (the MoE "
-            "slice); the port runs the dense configurations")
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +54,6 @@ def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = None) -> Dict:
     """Random parameters from ``seed``, drawn on ``device`` (default CUDA)
     with the JAX package's shapes and scales (normal / sqrt(fan_in); norm
     scales 1, biases 0).  The draws differ from JAX's for the same seed."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     d, H, KV, Dh, F, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -86,11 +79,26 @@ def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = None) -> Dict:
                     bv=const((L, KV * Dh), 0.0))
     if cfg.qk_norm:
         attn.update(q_norm=const((L, Dh), 1.0), k_norm=const((L, Dh), 1.0))
-    ffn = {
-        "gate": nrm((L, d, F), s_d),
-        "up": nrm((L, d, F), s_d),
-        "down": nrm((L, F, d), 1.0 / math.sqrt(F)),
-    }
+    if cfg.moe:
+        E, Fe, Sh = cfg.moe.n_experts, cfg.moe.d_expert_ff, cfg.moe.n_shared
+        ffn = {
+            "router": {"w": nrm((L, d, E), s_d)},
+            "gate": nrm((L, E, d, Fe), s_d),
+            "up": nrm((L, E, d, Fe), s_d),
+            "down": nrm((L, E, Fe, d), 1.0 / math.sqrt(Fe)),
+        }
+        if Sh:
+            ffn["shared"] = {
+                "gate": nrm((L, Sh, d, Fe), s_d),
+                "up": nrm((L, Sh, d, Fe), s_d),
+                "down": nrm((L, Sh, Fe, d), 1.0 / math.sqrt(Fe)),
+            }
+    else:
+        ffn = {
+            "gate": nrm((L, d, F), s_d),
+            "up": nrm((L, d, F), s_d),
+            "down": nrm((L, F, d), 1.0 / math.sqrt(F)),
+        }
     params = {
         "embed": nrm((V, d), 1.0),
         "layers": {"attn": attn, "ffn": ffn, "ln1": const((L, d), 1.0),
@@ -112,10 +120,12 @@ def is_global_layer(cfg: LMConfig) -> List[bool]:
 
 
 def _layer_params(params: Dict, i: int) -> Dict:
-    lay = params["layers"]
-    return {"attn": {k: t[i] for k, t in lay["attn"].items()},
-            "ffn": {k: t[i] for k, t in lay["ffn"].items()},
-            "ln1": lay["ln1"][i], "ln2": lay["ln2"][i]}
+    def at(tree):
+        if isinstance(tree, dict):
+            return {k: at(t) for k, t in tree.items()}
+        return tree[i]
+
+    return at(params["layers"])
 
 
 def _qkv(cfg: LMConfig, h: torch.Tensor, ap: Dict):
@@ -137,11 +147,17 @@ def _qkv(cfg: LMConfig, h: torch.Tensor, ap: Dict):
     return q, k, v
 
 
-def _ffn(cfg: LMConfig, x: torch.Tensor, lp: Dict) -> torch.Tensor:
+def _ffn(cfg: LMConfig, x: torch.Tensor, lp: Dict):
+    """The FFN's output for x (B, S, d) and its aux dict (empty when dense):
+    a MoE configuration routes the ``B·S`` tokens as one batch."""
     h2 = rms_norm({"scale": lp["ln2"]}, x, cfg.norm_eps)
     fp = lp["ffn"]
+    if cfg.moe:
+        B, S, d = h2.shape
+        y, aux = moe_lib.apply_auto(fp, h2.reshape(B * S, d), cfg.moe)
+        return y.reshape(B, S, d), aux
     return swiglu(h2 @ fp["gate"].to(h2.dtype),
-                  h2 @ fp["up"].to(h2.dtype)) @ fp["down"].to(h2.dtype)
+                  h2 @ fp["up"].to(h2.dtype)) @ fp["down"].to(h2.dtype), {}
 
 
 def _head(params: Dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -163,8 +179,8 @@ def _embed(params: Dict, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 
 def _layer(cfg: LMConfig, x: torch.Tensor, lp: Dict, is_glob: bool):
-    """One layer over the whole sequence; returns (x, k, v), k after its
-    rotary embedding (the cache's content)."""
+    """One layer over the whole sequence; returns (x, aux, k, v), k after
+    its rotary embedding (the cache's content)."""
     B, S, _ = x.shape
     h = rms_norm({"scale": lp["ln1"]}, x, cfg.norm_eps)
     q, k, v = _qkv(cfg, h, lp["attn"])
@@ -174,16 +190,17 @@ def _layer(cfg: LMConfig, x: torch.Tensor, lp: Dict, is_glob: bool):
     window = None if is_glob else cfg.sliding_window
     o = flash_attention(q, k, v, causal=True, window=window)
     x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"].to(x.dtype)
-    x = x + _ffn(cfg, x, lp)
-    return x, k, v
+    y, aux = _ffn(cfg, x, lp)
+    return x + y, aux, k, v
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig,
             return_cache: bool = False):
     """Logits (B, S, vocab) for tokens (B, S); with ``return_cache`` also
     the KV cache {"k", "v": (L, B, S, KV, Dh), "pos": S}.  ``aux`` is the
-    JAX package's auxiliary-loss dict, empty for a dense model."""
-    _dense_only(cfg)
+    JAX package's auxiliary-loss dict: empty for a dense model, for a MoE
+    model each of ``moe_aux_loss``, ``moe_z_loss`` and ``moe_dropped_frac``
+    averaged over layers (float32 scalars)."""
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     cache = None
@@ -191,12 +208,16 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig,
         shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
         cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
                  "v": torch.empty(shape, dtype=x.dtype, device=x.device), "pos": S}
+    aux_sum: Dict[str, torch.Tensor] = {}
     for i, glob in enumerate(is_global_layer(cfg)):
-        x, k, v = _layer(cfg, x, _layer_params(params, i), glob)
+        x, aux, k, v = _layer(cfg, x, _layer_params(params, i), glob)
+        for name, value in aux.items():
+            aux_sum[name] = aux_sum[name] + value if name in aux_sum else value
         if cache is not None:
             cache["k"][i], cache["v"][i] = k, v
     logits = _head(params, x, cfg)
-    return (logits, {}, cache) if return_cache else (logits, {})
+    aux = {name: value / cfg.n_layers for name, value in aux_sum.items()}
+    return (logits, aux, cache) if return_cache else (logits, aux)
 
 
 # ---------------------------------------------------------------------------
@@ -214,13 +235,15 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
 
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, cfg: LMConfig):
     """One decode step: tokens (B, 1) -> (logits (B, 1, vocab), cache).
+    A MoE layer routes the step's B tokens as one batch (so with the JAX
+    package's capacity, colliding tokens can be dropped where a prefill
+    kept them).
 
     Writes the new keys and values into ``cache["k"]``/``cache["v"]`` in
     place at ``cache["pos"]`` (the JAX package returns updated copies) and
     returns the cache with ``pos + 1``.  Raises when the cache is full,
     where JAX's ``dynamic_update_slice`` would clamp the write onto the
     last slot."""
-    _dense_only(cfg)
     pos = int(cache["pos"])
     max_len = cache["k"].shape[2]
     if not 0 <= pos < max_len:
@@ -245,6 +268,6 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, cfg: LMConfig):
                       window_dynamic=window_dyn, chunk=cfg.attention_chunk,
                       kv_len=torch.full((B,), pos + 1, device=x.device))
         x = x + o.reshape(B, 1, -1) @ lp["attn"]["wo"].to(x.dtype)
-        x = x + _ffn(cfg, x, lp)
+        x = x + _ffn(cfg, x, lp)[0]
     logits = _head(params, x, cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -744,6 +744,11 @@ class ServingLoop:
         the round."""
         served = self._pump_once(wait_s=wait_s, allow_trigger=True)
         if self._kernel_error is not None:
+            if self._inflight is not None:
+                # the failed run publishes its error before its done flag:
+                # reap it first, so that no invocation is left in flight
+                self._invocation_done.wait()
+                self._commit_if_done()
             raise self._kernel_error
         return served
 

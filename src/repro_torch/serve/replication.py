@@ -3,10 +3,12 @@
 The single-node serving loop is crash-safe (snapshots + mutation WAL),
 but a dead node still means downtime until replay finishes.  This
 module turns the same durability artefacts into *replication*: follower
-replicas that bootstrap exactly the way a restarted node does (snapshot
-fetch + journal tail replay, :func:`repro_torch.serve.snapshot.restore_serving_state`)
-and then stay current by applying the primary's WAL stream as it is
-written, shipped frame-by-frame over an injectable in-memory transport.
+replicas that bootstrap from what a restarted node reads (the latest
+snapshot, :func:`repro_torch.serve.snapshot.restore_serving_state`, then
+the journal's tail, replayed in order with the hub's retained commits so
+that a commit made after the snapshot is adopted at its own seq) and then
+stay current by applying the primary's WAL stream as it is written,
+shipped frame-by-frame over an injectable in-memory transport.
 
 Three frame kinds flow primary → follower over a :class:`ShipChannel`:
 
@@ -644,6 +646,7 @@ class FollowerReplica:
         self.served = 0
         self._gap_polls = 0
         self._desynced = False
+        self._restoring = False
         #: observability hooks (wired by the cluster coordinator): the
         #: tracer joins frame-borne trace ids so a follower's apply shows
         #: up inside the originating ingest/commit trace; the recorder
@@ -670,13 +673,15 @@ class FollowerReplica:
         hub to the live head.  The restored ``OnlineTaper`` lives on
         ``device`` (default ``"cuda"``; pass ``"cpu"`` on the CPU)."""
         res = restore_serving_state(directory, taper_config=taper_config,
-                                    policy=policy, device=device)
+                                    policy=policy, replay=False,
+                                    device=device)
         ci = cls._covered_commit_index(hub, res.ot.invocations,
                                        res.journal_seq)
         f = cls(res.ot, hub, name, directory=directory,
                 taper_config=taper_config, policy=policy,
                 applied_seq=res.journal_seq, commit_index=ci,
                 faults=faults, resync_after_polls=resync_after_polls)
+        f._replay_tail()
         f.catch_up()
         return f
 
@@ -836,16 +841,21 @@ class FollowerReplica:
         return n
 
     def _apply_group(self, f: Frame) -> None:
-        _fire_site(self._faults, SITE_REPLICA_APPLY, self.name)
-        sp = self._join_span("replica.apply", f.payload.get("trace_id"),
-                             seq=int(f.seq))
+        if self._restoring:
+            # the bootstrap's own journal replay: a restore, not a shipped
+            # apply (no fault site, span or count, as in a node's restore)
+            sp = None
+        else:
+            _fire_site(self._faults, SITE_REPLICA_APPLY, self.name)
+            sp = self._join_span("replica.apply", f.payload.get("trace_id"),
+                                 seq=int(f.seq))
         members = _members_from_payload(f.payload["members"])
         outcome = {"mode": f.payload.get("mode", "merged"),
                    "applied": f.payload.get("applied",
                                             [True] * len(members))}
         apply_journal_group(self.ot, members, outcome)
         self.applied_seq = int(f.seq)
-        self.applied_groups += 1
+        self.applied_groups += not self._restoring
         if sp is not None:
             sp.end(members=len(members))
         va = f.payload.get("version_after")
@@ -903,7 +913,8 @@ class FollowerReplica:
                                  applied_seq=self.applied_seq)
         res = restore_serving_state(self.directory,
                                     taper_config=self._taper_config,
-                                    policy=self._policy, device=self.device)
+                                    policy=self._policy, replay=False,
+                                    device=self.device)
         from repro_torch.workload.executor import QueryExecutor
 
         self.ot = res.ot
@@ -914,14 +925,26 @@ class FollowerReplica:
         self._gbuf.clear()
         self._cbuf.clear()
         self._desynced = False
-        # the snapshot + its journal tail land us at the WAL head; pending
-        # commit frames arrive from the hub's retained list
+        self._replay_tail()
+
+    def _replay_tail(self) -> None:
+        """Bring a freshly restored snapshot to the WAL head.  The journal's
+        groups and the hub's retained commits apply in the primary's order
+        through :meth:`_drain`, so a commit made after the snapshot adopts
+        at its own seq.  (Replaying the whole journal first, as a
+        single-node restore does, would grow the graph past it and skip it
+        as covered: the follower would keep the snapshot's partition and
+        dirty bits.)"""
         try:
-            self._ingest_frames(
-                self.hub.tail(self.applied_seq, self.commit_index))
+            frames = self.hub.tail(self.applied_seq, self.commit_index)
         except JournalGap:
-            pass
-        self._drain()
+            frames = []
+        self._restoring = True
+        try:
+            self._ingest_frames(frames)
+            self._drain()
+        finally:
+            self._restoring = False
 
     # -- reads ---------------------------------------------------------------
     def serve(self, queries, max_results: int = 32):

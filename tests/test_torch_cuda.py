@@ -957,3 +957,125 @@ def test_failover_drill_on_the_card_equals_the_cpu(card, tmp_path):
     for a, b in zip(card_out[:4], cpu_out[:4]):
         for x, y in zip(a, b):
             assert np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+
+
+def _moe_case(E=16, K=4, T=300, d=64, seed=11, dtype=torch.float32):
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+
+    cfg = MoEConfig(n_experts=E, top_k=K, d_expert_ff=32, n_shared=1)
+    params = moe.init(d, cfg, dtype=dtype, seed=seed, device="cpu")
+    x = torch.as_tensor(np.random.default_rng(seed).normal(size=(T, d)),
+                        dtype=torch.float32).to(dtype)
+    return cfg, params, x
+
+
+def _to(tree, device):
+    return ({k: _to(v, device) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.to(device))
+
+
+def test_moe_apply_on_the_card_equals_the_cpu(card):
+    """Routing equal to the CPU's, the output within the reference suite's
+    2e-5 (float32), and the dispatch and combine repeating bit for bit over
+    three runs on the card."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models import moe
+
+    resolve_device(card)                           # TF32 off
+    cfg, params, x = _moe_case()
+    on_card = _to(params, card)
+    for capacity in (None, 7):
+        want, want_aux = moe.apply(params, x, cfg, capacity)
+        r_cpu = moe.route(params, x, cfg)
+        r_card = moe.route(on_card, x.to(card), cfg)
+        assert torch.equal(r_card.experts.cpu(), r_cpu.experts)
+        runs = [moe.apply(on_card, x.to(card), cfg, capacity) for _ in range(3)]
+        torch.cuda.synchronize()
+        got, aux = runs[0]
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+        assert float(aux["moe_dropped_frac"]) == float(want_aux["moe_dropped_frac"])
+        assert all(torch.equal(o, got) for o, _ in runs[1:])
+        assert torch.equal(moe.kept(r_card.experts, cfg, capacity).cpu(),
+                           moe.kept(r_cpu.experts, cfg, capacity))
+
+
+def test_moe_bf16_repeats_on_the_card(card):
+    """bf16, olmoe's top-8 of 64 experts over 4,096 tokens: three runs bit
+    for bit equal (no atomics in dispatch or combine)."""
+    from repro_torch.models import moe
+
+    cfg, params, x = _moe_case(E=64, K=8, T=4096, d=256, dtype=torch.bfloat16)
+    on_card, xc = _to(params, card), x.to(card)
+    runs = [moe.apply(on_card, xc, cfg)[0] for _ in range(3)]
+    assert all(torch.equal(o, runs[0]) for o in runs[1:])
+    assert torch.isfinite(runs[0]).all()
+
+
+def test_moe_top_k_ties_on_the_card(card):
+    """Exact ties go to the lower expert id on the card, as on the CPU."""
+    from repro_torch.models import moe
+
+    cfg, params, x = _moe_case(E=8, K=3)
+    w = params["router"]["w"]
+    w[:, 5] = w[:, 2]
+    w[:, 7] = w[:, 1]
+    x[:4] = 0.0                                    # all eight experts tie
+    got = moe.route(_to(params, card), x.to(card), cfg).experts.cpu()
+    assert torch.equal(got, moe.route(params, x, cfg).experts)
+    assert (got[:4] == torch.tensor([0, 1, 2])).all()
+
+
+def test_olmoe_reduced_forward_through_the_kernel(card):
+    """Reduced olmoe-1b-7b (H = KV, QK-norm, MoE FFN) in float32: the forward
+    through the kernel against the forward through the plain attention on
+    the card and against the CPU, one launch per layer, and a decode step."""
+    import repro_torch.models.transformer as tf
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    resolve_device(card)
+    cfg = get_config("olmoe-1b-7b").reduced_for_port()
+    params = tf.init(cfg, seed=0, device="cpu")
+    on_card = _to(params, card)
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 70)))
+    before = flash_attention.launches
+    got, aux, cache = tf.forward(on_card, tokens.to(card), cfg, return_cache=True)
+    assert flash_attention.launches == before + cfg.n_layers
+    tf.flash_attention = lambda q, k, v, causal=True, window=None: (  # noqa: E731
+        flash_attention_reference(q, k, v, causal, window))
+    try:
+        plain, plain_aux = tf.forward(on_card, tokens.to(card), cfg)
+    finally:
+        tf.flash_attention = flash_attention
+    want, want_aux = tf.forward(params, tokens, cfg)
+    for other, other_aux in ((plain.cpu(), plain_aux), (want, want_aux)):
+        torch.testing.assert_close(got.cpu(), other, rtol=1e-4, atol=1e-5)
+        assert float(aux["moe_dropped_frac"]) == float(other_aux["moe_dropped_frac"])
+    full = tf.init_cache(cfg, 2, 71, device=card)
+    full["k"][:, :, :70], full["v"][:, :, :70], full["pos"] = cache["k"], cache["v"], 70
+    nxt = want[:, -1:].argmax(-1)
+    step, _ = tf.decode_step(on_card, full, nxt.to(card), cfg)
+    cpu_cache = tf.init_cache(cfg, 2, 71, device="cpu")
+    _, _, pre = tf.forward(params, tokens, cfg, return_cache=True)
+    cpu_cache["k"][:, :, :70], cpu_cache["v"][:, :, :70], cpu_cache["pos"] = (
+        pre["k"], pre["v"], 70)
+    want_step, _ = tf.decode_step(params, cpu_cache, nxt, cfg)
+    torch.testing.assert_close(step.cpu(), want_step, rtol=1e-4, atol=1e-5)
+
+
+def test_expert_placement_on_the_card_equals_the_cpu(card):
+    """``plan_expert_placement(device="cuda")`` launches ``vm_step`` and
+    gives the ``torch`` field's placement, moves and iterations."""
+    from repro_torch.core.expert_placement import plan_expert_placement
+
+    ids = np.random.default_rng(3).integers(0, 32, (512, 6, 4))
+    before = vm_step.launches
+    on_card = plan_expert_placement(ids, 32, 4, device=card)
+    assert vm_step.launches > before
+    on_cpu = plan_expert_placement(ids, 32, 4, device="cpu")
+    assert np.array_equal(on_card["placement"], on_cpu["placement"])
+    for k in ("cross_mass_before", "cross_mass_after", "moves", "iterations"):
+        assert on_card[k] == on_cpu[k], k

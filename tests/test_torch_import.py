@@ -91,3 +91,19 @@ def test_chip_smoke_imports_without_jax_or_reference():
                          text=True, timeout=120, env=dict(os.environ))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_moe_slice_imports_without_jax_or_reference():
+    probe = ("import sys, repro_torch.models.moe, repro_torch.models.transformer, "
+             "repro_torch.core.expert_placement, repro_torch.core.swap_ref, "
+             "repro_torch.core.tpstry, repro_torch.configs.olmoe_1b_7b, "
+             "repro_torch.configs.kimi_k2_1t_a32b; "
+             "from repro_torch.configs import get_config; "
+             "[get_config(a) for a in ('olmoe-1b-7b', 'kimi-k2-1t-a32b')]; "
+             "from repro_torch.core.tpstry import synthetic_trie; synthetic_trie(); "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

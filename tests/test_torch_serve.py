@@ -1035,6 +1035,23 @@ def test_kernel_error_is_no_ladder_strike(overlap):
         loop.stop()
 
 
+def test_kernel_error_reaps_the_failed_overlapped_run(monkeypatch):
+    """The failed run publishes its error, then logs, then sets its done
+    flag: ``pump()`` raises only after reaping it, however slow the log."""
+    import repro_torch.serve.loop as loop_mod
+
+    log_exception = loop_mod.log.exception
+    monkeypatch.setattr(loop_mod.log, "exception",
+                        lambda *a, **kw: (time.sleep(0.3), log_exception(*a, **kw)))
+    fi = p_faults.FaultInjector()
+    loop = _kernel_fault_loop(fi, True)
+    fi.arm(p_faults.SITE_INVOCATION, times=-1, exc=KernelError)
+    _pump_until_raises(loop, KernelError, PORT.MQ1)
+    assert not loop.invocation_in_flight and fi.fired_total() == 1
+    with pytest.raises(KernelError):
+        loop.stop()
+
+
 def test_injected_fault_walks_the_ladder_where_a_kernel_error_does_not():
     """The same loop under an injected (non-kernel) fault demotes at once."""
     fi = p_faults.FaultInjector()

@@ -1,5 +1,6 @@
-"""The port's dense LM transformer against the JAX package's, for reduced
-qwen3-4b, gemma3-4b and qwen2.5-14b in float32, on the same weights
+"""The port's LM transformer against the JAX package's, for reduced
+qwen3-4b, gemma3-4b, qwen2.5-14b and the mixture-of-experts olmoe-1b-7b and
+kimi-k2-1t-a32b in float32, on the same weights
 (carried by ``repro_torch.convert.lm_params_from_reference``) and the same
 numpy-seeded tokens.  On the CPU, prefill attention takes the
 ``flash_attention`` wrapper's plain version; the kernel itself is checked on
@@ -8,7 +9,13 @@ the card (tests/test_torch_cuda.py).
 The port runs ``reduced_for_port()`` (``reduced()`` with d_head 32, the
 kernel's smallest head size; ``reduced()`` gives 16) and the JAX package
 the same config; gemma3's takes ``global_every=2`` so that one of its two
-layers is global."""
+layers is global.
+
+A MoE model's routing is captured layer by layer on both sides (the JAX
+package's forward runs under ``jax.disable_jit`` so that its layer loop
+hands concrete arrays to the spy) and held equal before any output is
+compared."""
+import contextlib
 import dataclasses
 
 import jax
@@ -26,13 +33,15 @@ from repro.models import layers as r_layers
 from repro.models import transformer as r_tf
 
 import repro_torch.models.transformer as tf
-from repro_torch.configs.base import LM_SHAPES, MoEConfig
+from repro_torch.configs.base import LM_SHAPES
 from repro_torch.configs.registry import get_config, shapes_for
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.data.lm import TokenPipeline
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 
-ARCHS = ["qwen3-4b", "gemma3-4b", "qwen2.5-14b"]
+DENSE_ARCHS = ["qwen3-4b", "gemma3-4b", "qwen2.5-14b"]
+MOE_ARCHS = ["olmoe-1b-7b", "kimi-k2-1t-a32b"]
+ARCHS = DENSE_ARCHS + MOE_ARCHS
 #: float32 on both sides; sums run in other orders (attention: one softmax
 #: block on this side, chunked online softmax on JAX's)
 RTOL, ATOL = 1e-4, 1e-5
@@ -79,47 +88,135 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol, atol=atol)
 
 
+class _Routing:
+    """Each MoE call's top-k experts and aux values, on both sides."""
+
+    def __init__(self):
+        self.port, self.ref = [], []
+
+    def assert_equal(self):
+        assert len(self.port) == len(self.ref)
+        for (pe, pa), (re, ra) in zip(self.port, self.ref):
+            assert np.array_equal(pe, re)                  # routing first
+            assert pa["moe_dropped_frac"] == ra["moe_dropped_frac"]
+
+    @property
+    def dropped(self):
+        """Whether any MoE call dropped an assignment."""
+        return any(float(a["moe_dropped_frac"]) > 0 for _, a in self.port)
+
+
+@contextlib.contextmanager
+def _routing(monkeypatch):
+    """Record every MoE call's routing in both packages; the reference runs
+    un-jitted meanwhile (its layer scan as a Python loop)."""
+    seen = _Routing()
+    port_auto, ref_auto = tf.moe_lib.apply_auto, r_tf.moe_lib.apply_auto
+
+    def port_spy(fp, x, cfg):
+        out, aux = port_auto(fp, x, cfg)
+        seen.port.append((moe.route(fp, x, cfg).experts.numpy(),
+                          {k: float(v) for k, v in aux.items()}))
+        return out, aux
+
+    def ref_spy(fp, x, cfg):
+        out, aux = ref_auto(fp, x, cfg)
+        probs = jax.nn.softmax(
+            (x @ fp["router"]["w"].astype(x.dtype)).astype(jnp.float32), axis=-1)
+        seen.ref.append((np.asarray(jax.lax.top_k(probs, cfg.top_k)[1]),
+                         {k: float(v) for k, v in aux.items()}))
+        return out, aux
+
+    monkeypatch.setattr(tf.moe_lib, "apply_auto", port_spy)
+    monkeypatch.setattr(r_tf.moe_lib, "apply_auto", ref_spy)
+    with jax.disable_jit():
+        yield seen
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_forward_matches_reference(arch):
+def test_forward_matches_reference(arch, monkeypatch):
     rcfg, rparams, pcfg, pparams = _both(arch)
     tokens = _tokens(pcfg, B, S)
-    r_logits, _, r_cache = r_tf.forward(rparams, jnp.asarray(tokens), rcfg,
+    with _routing(monkeypatch) as seen:
+        r_logits, r_aux, r_cache = r_tf.forward(rparams, jnp.asarray(tokens), rcfg,
+                                                return_cache=True)
+        logits, aux, cache = tf.forward(pparams, torch.from_numpy(tokens), pcfg,
                                         return_cache=True)
-    logits, aux, cache = tf.forward(pparams, torch.from_numpy(tokens), pcfg,
-                                    return_cache=True)
-    assert aux == {} and logits.shape == (B, S, pcfg.vocab)
+    seen.assert_equal()
+    assert len(seen.port) == (pcfg.n_layers if pcfg.moe else 0)
+    assert logits.shape == (B, S, pcfg.vocab)
+    assert aux.keys() == r_aux.keys() == (
+        {"moe_aux_loss", "moe_z_loss", "moe_dropped_frac"} if pcfg.moe else set())
     _close(logits, r_logits)
     _close(cache["k"], r_cache["k"])
     _close(cache["v"], r_cache["v"])
     assert cache["pos"] == int(r_cache["pos"]) == S
-    plain, aux = tf.forward(pparams, torch.from_numpy(tokens), pcfg)
-    assert torch.equal(plain, logits) and aux == {}
+    plain, again = tf.forward(pparams, torch.from_numpy(tokens), pcfg)
+    assert torch.equal(plain, logits)
+    assert all(torch.equal(again[k], aux[k]) for k in aux)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_decode_from_empty_cache_matches_reference(arch):
+def test_decode_from_empty_cache_matches_reference(arch, monkeypatch):
     rcfg, rparams, pcfg, pparams = _both(arch, seed=2)
     toks = _tokens(pcfg, B, 3, seed=3)
     r_cache = r_tf.init_cache(rcfg, B, 8)
     cache = tf.init_cache(pcfg, B, 8, device="cpu")
-    for t in range(3):
-        step = toks[:, t:t + 1]
-        r_logits, r_cache = r_tf.decode_step(rparams, r_cache, jnp.asarray(step), rcfg)
-        logits, cache = tf.decode_step(pparams, cache, torch.from_numpy(step), pcfg)
-        assert logits.shape == (B, 1, pcfg.vocab)
-        _close(logits, r_logits)
-        _close(cache["k"], r_cache["k"])
-        _close(cache["v"], r_cache["v"])
-        assert cache["pos"] == int(r_cache["pos"]) == t + 1
+    with _routing(monkeypatch) as seen:
+        for t in range(3):
+            step = toks[:, t:t + 1]
+            r_logits, r_cache = r_tf.decode_step(rparams, r_cache, jnp.asarray(step),
+                                                 rcfg)
+            logits, cache = tf.decode_step(pparams, cache, torch.from_numpy(step), pcfg)
+            seen.assert_equal()
+            assert logits.shape == (B, 1, pcfg.vocab)
+            _close(logits, r_logits)
+            _close(cache["k"], r_cache["k"])
+            _close(cache["v"], r_cache["v"])
+            assert cache["pos"] == int(r_cache["pos"]) == t + 1
+    assert len(seen.port) == (3 * pcfg.n_layers if pcfg.moe else 0)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_to_decode_hand_off(arch):
+def _no_drops(arch):
+    """The MoE configuration with a capacity factor of E / K: every expert
+    has a slot for every token, so no assignment is ever dropped."""
+    rcfg, pcfg = _configs(arch)
+    e, k = pcfg.moe.n_experts, pcfg.moe.top_k
+    return (dataclasses.replace(rcfg, moe=dataclasses.replace(rcfg.moe, capacity_factor=e / k)),
+            dataclasses.replace(pcfg, moe=dataclasses.replace(pcfg.moe, capacity_factor=e / k)))
+
+
+HAND_OFF = ([(a, False) for a in ARCHS] + [(a, True) for a in MOE_ARCHS])
+
+
+@pytest.mark.parametrize("arch,no_drops", HAND_OFF,
+                         ids=[a + ("-no-drops" if n else "") for a, n in HAND_OFF])
+def test_prefill_to_decode_hand_off(arch, no_drops, monkeypatch):
     """Prefill S tokens, copy the cache into an empty one of S + 3 slots and
     decode 3 greedy tokens: the logits and caches match the JAX package's
-    same flow, and each step's logits match the port's own prefill over the
-    tokens so far."""
-    rcfg, rparams, pcfg, pparams = _both(arch, seed=4)
+    same flow (a MoE model's routing equal on both sides), and each step's
+    logits match the port's own prefill over the tokens so far.
+
+    A MoE model's capacity depends on its batch (T = B at a decode step,
+    B·S in the prefill), so a decode step may drop a token's assignment that
+    the prefill kept, or the other way round, in the JAX package as in the
+    port.  The step is held to the prefill's last row only where no MoE call
+    of the flow dropped an assignment; the ``no_drops`` case (capacity
+    factor E / K) always is."""
+    if no_drops:
+        rcfg, pcfg = _no_drops(arch)
+        tree = _tree(rcfg, 4)
+        rparams = jax.tree.map(jnp.asarray, tree)
+        pparams = lm_params_from_reference(tree, pcfg, device="cpu")
+    else:
+        rcfg, rparams, pcfg, pparams = _both(arch, seed=4)
+    with _routing(monkeypatch) as seen:
+        _hand_off(rcfg, rparams, pcfg, pparams, seen)
+    if no_drops:
+        assert not seen.dropped and seen.port
+
+
+def _hand_off(rcfg, rparams, pcfg, pparams, seen):
     tokens = _tokens(pcfg, B, S, seed=5)
     r_logits, _, r_pre = r_tf.forward(rparams, jnp.asarray(tokens), rcfg,
                                       return_cache=True)
@@ -138,12 +235,16 @@ def test_prefill_to_decode_hand_off(arch):
     for _ in range(3):
         r_logits, r_cache = r_tf.decode_step(rparams, r_cache, jnp.asarray(nxt.numpy()), rcfg)
         logits, cache = tf.decode_step(pparams, cache, nxt, pcfg)
+        seen.assert_equal()
         _close(logits, r_logits)
         _close(cache["k"], r_cache["k"])
         _close(cache["v"], r_cache["v"])
         seq = torch.cat([seq, nxt], dim=1)
-        full, _ = tf.forward(pparams, seq, pcfg)
-        _close(logits[:, 0], full[:, -1])
+        n = len(seen.port)
+        full, aux = tf.forward(pparams, seq, pcfg)
+        del seen.port[n:]                        # the port's own prefill
+        if not seen.dropped and float(aux.get("moe_dropped_frac", 0)) == 0:
+            _close(logits[:, 0], full[:, -1])
         nxt = logits.argmax(-1)
     assert cache["pos"] == S + 3
 
@@ -258,11 +359,28 @@ def test_lm_params_from_reference_defaults_to_the_card(monkeypatch):
         lm_params_from_reference(tree, pcfg)
 
 
-def test_mixture_of_experts_waits_for_its_slice():
-    cfg = dataclasses.replace(get_config("qwen3-4b").reduced_for_port(),
-                              moe=MoEConfig(n_experts=4, top_k=2, d_expert_ff=32))
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tf.init(cfg, seed=0, device="cpu")
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_aux_equals_the_reference(arch, monkeypatch):
+    """The aux dict of a MoE forward: each value the reference's mean over
+    layers (dropped fraction exactly, the losses within float32 rounding),
+    with the routing equal layer by layer."""
+    rcfg, rparams, pcfg, pparams = _both(arch, seed=6)
+    tokens = _tokens(pcfg, 3, 24, seed=7)
+    with _routing(monkeypatch) as seen:
+        _, r_aux = r_tf.forward(rparams, jnp.asarray(tokens), rcfg)
+        _, aux = tf.forward(pparams, torch.from_numpy(tokens), pcfg)
+    seen.assert_equal()
+    assert sorted(aux) == sorted(r_aux) == ["moe_aux_loss", "moe_dropped_frac",
+                                            "moe_z_loss"]
+    for k in aux:
+        assert aux[k].dtype == torch.float32 and aux[k].shape == ()
+    assert float(aux["moe_dropped_frac"]) == float(r_aux["moe_dropped_frac"])
+    for k in ("moe_aux_loss", "moe_z_loss"):
+        assert float(aux[k]) == pytest.approx(float(r_aux[k]), rel=1e-5)
+    per_layer = [a for _, a in seen.port]
+    for k in aux:
+        assert float(aux[k]) == pytest.approx(
+            sum(a[k] for a in per_layer) / pcfg.n_layers, rel=1e-6)
 
 
 def test_init_draws_the_reference_shapes_on_the_cpu():
@@ -302,6 +420,32 @@ def test_decode_step_raises_past_the_cache():
 def test_lm_params_from_reference_checks_the_tree(edit, match):
     rcfg, pcfg = _configs("qwen3-4b")
     tree = _tree(rcfg, 0)
+    edit(tree)
+    with pytest.raises(ValueError, match=match):
+        lm_params_from_reference(tree, pcfg, device="cpu")
+
+
+def _ffn_edit(fn):
+    return lambda t: fn(t["layers"]["ffn"])
+
+
+@pytest.mark.parametrize("arch,edit,match", [
+    ("olmoe-1b-7b", _ffn_edit(lambda f: f.pop("router")), "layers.ffn has keys"),
+    ("olmoe-1b-7b", _ffn_edit(lambda f: f.update(shared=f["router"])),
+     "layers.ffn has keys"),
+    ("olmoe-1b-7b", _ffn_edit(lambda f: f["router"].update(b=f["router"]["w"])),
+     "layers.ffn.router has keys"),
+    ("kimi-k2-1t-a32b", _ffn_edit(lambda f: f.pop("shared")), "layers.ffn has keys"),
+    ("kimi-k2-1t-a32b", _ffn_edit(lambda f: f["shared"].pop("down")),
+     "layers.ffn.shared has keys"),
+    ("kimi-k2-1t-a32b", _ffn_edit(lambda f: f.update(gate=f["gate"].astype(np.float64))),
+     "expected float32"),
+])
+def test_lm_params_from_reference_checks_the_moe_tree(arch, edit, match):
+    rcfg, pcfg = _configs(arch)
+    tree = _tree(rcfg, 0)
+    assert lm_params_from_reference(tree, pcfg, device="cpu")["layers"]["ffn"].keys() \
+        == tree["layers"]["ffn"].keys()
     edit(tree)
     with pytest.raises(ValueError, match=match):
         lm_params_from_reference(tree, pcfg, device="cpu")
