@@ -182,8 +182,31 @@ Phases (any failure exits non-zero and prints no result line):
    moves and iterations equal to the ``torch`` field's on the CPU, and the
    kernel at each leg's shapes.
 
+12. path 8, training: first the backward sweep (``flash_attention_bwd.cu``
+   against the plain explicit backward on the forward kernel's output and
+   log-sum-exp: float32 and bf16; causal, window and non-causal; GQA 1-4;
+   Sq != Skv; D 32-256; rows with no valid key, whose dq must be 0); then
+   ``qwen3-4b`` trained at full width through ``launch/train.py``'s code
+   path (``build_trainer``: ``Trainer``, AdamW with float32 state on a
+   cosine schedule, remat per layer, bf16 parameters; 1 x 4,096 tokens from
+   ``TokenPipeline`` seed 0, one warm-up and four timed steps): the loss a
+   step, time a step, tokens/s, the share of the bf16 peak, the forward
+   and backward attention launches a step (72 with remat, 36) and the peak
+   memory; the backward kernel on layer 0's q/k/v against the plain
+   backward, SDPA's backward and its bound; the float32 whole-path gradient
+   gate (the model at full width cut to 2 layers, 2,048 tokens: every
+   gradient leaf through the kernels against the same step through the
+   plain versions); ``dlrm-rm2`` at path 2's width (multi_hot 8), three
+   ``make_train_step`` steps on train_batch click logs, the table's dense
+   gradient from the backward kernel bitwise the plain backward's; the GCN
+   on path 4's graph, three steps, x's gradient through the transposed
+   ``segment_spmm`` bitwise the plain version's; and a ``Trainer`` resume
+   on the card (reduced qwen3-4b, six steps, a failure at step 3,
+   checkpoints every 2) bitwise the uninterrupted run.
+
 ``python3 chip_smoke.py --only moe`` runs the build and paths 6 and 7
-alone and prints no result lines.
+alone, ``--only train`` the build and path 8; neither prints result
+lines.
 
 The gather yardstick of a ``segment_spmm`` or ``vm_step`` launch counts
 the 32-byte sectors its live edges' gathered rows touch, once per edge,
@@ -196,13 +219,15 @@ before the last is the ``kernels`` JSON record (``vm_step`` on seven
 paths: the provgen invocation, the sharded field, the online path, the
 serving path, the cluster path, the row placement and the expert
 placement; ``flash_attention`` at qwen3's two shapes and olmoe's
-4 x 4,096); the last line is
+4 x 4,096; ``flash_attention_f32``; the three backward kernels of path 8);
+the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -388,12 +413,43 @@ PLACE_BENCH = dict(n_experts=64, n_layers=8, top_k=4, n_tokens=2048, n_devices=8
 PLACE_BENCH_PR10 = dict(before=199753.0, after=156865.0, moves=475, iterations=4)
 PLACE_OLMOE_TOKENS = 2048
 PLACE_DEVICES = 8
+#: path 8, training: qwen3-4b at full width through launch/train.py's code
+#: path, batch x tokens (train_4k's sequence length), warm-up and timed
+#: steps; its parameter count with the QK-norm scales
+TRAIN_BATCH, TRAIN_TOKENS = 1, 4096
+TRAIN_WARMUP, TRAIN_STEPS = 1, 4
+QWEN3_4B_PARAMS = 4_411_424_256
+#: the float32 whole-path gradient gate: qwen3-4b at full width cut to
+#: this many layers, its tokens, and the tolerance on every gradient leaf
+#: as a share of the leaf's largest value (float32 sums in other orders;
+#: the forward kernel's three TF32 products carry ~22 bits)
+TRAIN_GATE_LAYERS, TRAIN_GATE_TOKENS = 2, 2048
+TRAIN_GRAD_TOL = 1e-4
+#: the backward kernel against the plain backward on the same inputs, as a
+#: share of the largest plain gradient plus ATTN_BWD_ATOL: float32 sums in
+#: other orders; bf16 gradients rounded once each (one bf16 step of the
+#: largest value)
+ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+ATTN_BWD_ATOL = 1e-6
+#: the forward kernel's row log-sum-exp against the plain forward's, in
+#: nats on the rows with a key (float32 sums of the exponentials in other
+#: orders); both -inf on the rows without one
+ATTN_LSE_TOL = 1e-4
+#: DLRM (path 2's width) and GCN (path 4's graph) training steps
+DLRM_TRAIN_STEPS = 3
+GCN_TRAIN_STEPS = 3
+#: the resume check: steps, the step that fails, the checkpoint period
+RESUME_STEPS, RESUME_FAIL_AT, RESUME_EVERY = 6, 3, 2
 #: the kernels' wrappers, by the name of their launch counter
 KERNELS = {
     "vm_step": ("repro_torch.kernels.vm_step.ops", "vm_step"),
     "embedding_bag": ("repro_torch.kernels.embedding_bag.ops", "embedding_bag"),
     "segment_spmm": ("repro_torch.kernels.segment_spmm.ops", "segment_spmm_csr"),
     "flash_attention": ("repro_torch.kernels.flash_attention.ops", "flash_attention"),
+    "flash_attention/bwd": ("repro_torch.kernels.flash_attention.ops",
+                            "flash_attention_backward"),
+    "embedding_bag/bwd": ("repro_torch.kernels.embedding_bag.ops", "embedding_bag_backward"),
+    "segment_spmm/bwd": ("repro_torch.kernels.segment_spmm.ops", "segment_spmm_csr_backward"),
 }
 
 
@@ -3565,13 +3621,14 @@ def _attn_at_path_shape(torch, args, reps, time_f32=False, tag="qwen3"):
                 library_ms=library_ms, err=err, err32=err32, f32=f32)
 
 
-def _profile_step(torch, fn, top=0):
+def _profile_step(torch, fn, top=0, kernels=0):
     """One call of ``fn`` under ``torch.profiler``: its wall time there
     (host clock, synchronised), the device's busy time (the union of the
     intervals of its kernels, copies and fills), the count of those device
     operations, and of the top-level aten ops the host issued.  The busy
     time is None when the trace holds no device event.  With ``top``, also
-    the ``top`` ops by self host time: (name, ms, calls)."""
+    the ``top`` ops by self host time: (name, ms, calls); with ``kernels``,
+    the ``kernels`` device operations by summed time: (name, ms, count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3592,9 +3649,16 @@ def _profile_step(torch, fn, top=0):
     host_ops = sum(1 for e in events if e.device_type == DeviceType.CPU
                    and e.cpu_parent is None and e.name.startswith("aten::"))
     by_self = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:top]
+    by_kernel = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_kernel.get(e.name[:48], (0.0, 0))
+            by_kernel[e.name[:48]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:kernels]
     return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3 if spans else None,
                 device_ops=len(spans), host_ops=host_ops,
-                top=[(a.key, a.self_cpu_time_total / 1e3, a.count) for a in by_self])
+                top=[(a.key, a.self_cpu_time_total / 1e3, a.count) for a in by_self],
+                kernels=[(name, ms, n) for name, (ms, n) in ranked])
 
 
 def qwen3_serving(torch, device):
@@ -4213,6 +4277,615 @@ def expert_placement_on_card(torch, device, olmoe_routing):
                 err_all=max(r["err"] for r in records.values()))
 
 
+# ---------------------------------------------------------------------------
+# path 8: training (the training slice)
+# ---------------------------------------------------------------------------
+
+
+def _attn_bwd_cases():
+    """Seeded (b, sq, skv, kv, g, d, causal, window, dtype) cases of the
+    backward sweep: causal, window and non-causal masks, GQA 1-4, Sq != Skv
+    both ways, head sizes 32-256, rows with no valid key (window past Skv,
+    window 0 on every row)."""
+    fixed = [
+        (1, 300, 300, 2, 4, 128, True, None),
+        (2, 257, 257, 1, 2, 64, True, 64),
+        (1, 200, 333, 2, 2, 128, False, None),
+        (1, 333, 200, 2, 2, 64, True, None),
+        (1, 150, 100, 2, 2, 64, False, 17),                # rows 116.. see no key
+        (1, 1024, 1024, 8, 4, 128, True, None),            # qwen3's heads
+        (1, 100, 100, 1, 1, 32, False, 1),
+        (1, 129, 129, 2, 1, 256, True, 200),
+        (1, 64, 64, 1, 2, 128, True, 0),                   # no row sees a key
+    ]
+    return [c + (dt,) for dt in ("float32", "bfloat16") for c in fixed]
+
+
+def _lse_check(torch, got, want):
+    """``(max error on the rows with a key, same -inf rows)`` of the
+    forward kernel's log-sum-exp against the plain forward's."""
+    live = torch.isfinite(want)
+    same_mask = bool(torch.equal(torch.isfinite(got), live)) and \
+        bool((got[~live] == -math.inf).all())
+    err = float((got[live] - want[live]).abs().max()) if bool(live.any()) else 0.0
+    return err, same_mask
+
+
+def attention_backward_sweep(torch) -> dict:
+    """The forward kernel's log-sum-exp against the plain forward's, and
+    the backward kernel (``flash_attention_backward`` on the forward
+    kernel's output and log-sum-exp) against the plain explicit backward on
+    the plain forward's output and log-sum-exp, so that a wrong forward
+    log-sum-exp fails too; returns the largest error per dtype."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import (KERNEL_BY_DTYPE,
+                                                         flash_attention_backward)
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_backward_reference,
+                                                         flash_attention_reference)
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (b, sq, skv, kv, g, d, causal, window, dt) in enumerate(_attn_bwd_cases()):
+        rng = np.random.default_rng(700 + i)
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+                       .to(device="cuda", dtype=dtype)
+                       for shape in ((b, sq, kv * g, d), (b, skv, kv, d), (b, skv, kv, d),
+                                     (b, sq, kv * g, d)))
+        o, lse = flash_attention_cuda(KERNEL_BY_DTYPE[dtype], q, k, v, causal, window,
+                                      with_lse=True)
+        got = flash_attention_backward(q, k, v, o, lse, do, causal, window)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_attention_reference(q, k, v, causal, window, return_lse=True)
+        lse_err, lse_mask = _lse_check(torch, lse, lse_ref)
+        want = flash_attention_backward_reference(q, k, v, o_ref, lse_ref, do, causal, window)
+        errs, ok = [], lse_mask and lse_err <= ATTN_LSE_TOL
+        for x, y in zip(got, want):
+            scale = float(y.float().abs().max())
+            err = float((x.float() - y.float()).abs().max())
+            errs.append(err)
+            ok = ok and err <= ATTN_BWD_TOL[dt] * scale + ATTN_BWD_ATOL
+            ok = ok and bool(torch.isfinite(x).all())
+        dead = torch.as_tensor(_keys_per_row(sq, skv, causal, window) == 0).to("cuda")
+        zero = bool((got[0][:, dead] == 0).all())
+        log(f"[train] flash_attention backward B={b} Sq={sq} Skv={skv} H={kv * g} KV={kv} "
+            f"D={d} causal={causal} window={window} {dt}: forward lse max_abs_err "
+            f"{lse_err:.3e} (tolerance {ATTN_LSE_TOL}), -inf rows the plain one's {lse_mask}; "
+            f"max_abs_err dq/dk/dv "
+            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tolerance {ATTN_BWD_TOL[dt]} of the "
+            f"largest plain value + {ATTN_BWD_ATOL}) {ok}; rows without a key "
+            f"{int(dead.sum())}, their dq 0: {zero}")
+        check(ok and zero, f"the flash_attention backward kernel disagrees with the plain "
+                           f"backward on case {i}")
+        worst[dt] = max(worst[dt], *errs)
+    return worst
+
+
+class _Recorder:
+    """Stands in for a kernel wrapper: passes every call through to ``fn``
+    and keeps the last call's arguments (inputs of a backward, for the
+    bitwise check after the path) or, with ``first``, copies of the first
+    call's tensors (the path's shapes for the timings; copies, so that no
+    view keeps its base, and nothing later, alive)."""
+
+    def __init__(self, fn, first=False):
+        self.fn, self.first, self.args = fn, first, None
+
+    def __call__(self, *args, **kwargs):
+        if not self.first:
+            self.args = args
+        elif self.args is None:
+            self.args = tuple(a.detach().clone() if hasattr(a, "detach") else a
+                              for a in args)
+        return self.fn(*args, **kwargs)
+
+    # the wrapper's launch count, read and reset through the stand-in
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+def _attn_bwd_at_path_shape(torch, q, k, v):
+    """The backward kernel on one layer's q, k, v of the training path (the
+    forward kernel's output and log-sum-exp, a seeded output gradient):
+    its time per launch against the plain backward's, SDPA's backward
+    (``enable_gqa=True``, the backward alone timed) and the bound (the
+    backward's five products, 10 D per kept pair and head, at the bf16
+    tensor-core peak; every input read and every gradient written once).
+    Its gradients are held against the plain backward on the plain
+    forward's output and log-sum-exp, and the forward kernel's log-sum-exp
+    against the plain one's."""
+    import numpy as np
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_backward_cuda,
+                                                            flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_backward_reference,
+                                                         flash_attention_reference)
+
+    B, S, H, D = q.shape
+    o, lse = flash_attention_cuda("flash_attention_bf16", q, k, v, True, None, with_lse=True)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, True, None, return_lse=True)
+    lse_err, lse_mask = _lse_check(torch, lse, lse_ref)
+    rng = np.random.default_rng(9)
+    do = torch.as_tensor(rng.normal(size=q.shape), dtype=torch.float32).to(
+        device=q.device, dtype=q.dtype)
+    ms = _time_ms(torch, lambda: flash_attention_backward_cuda(q, k, v, o, lse, do, True, None),
+                  5)
+    plain_ms = _time_ms(torch, lambda: flash_attention_backward_reference(
+        q, k, v, o, lse, do, True, None), 2)
+    got = flash_attention_backward_cuda(q, k, v, o, lse, do, True, None)
+    want = flash_attention_backward_reference(q, k, v, o_ref, lse_ref, do, True, None)
+    errs = [float((x.float() - y.float()).abs().max()) for x, y in zip(got, want)]
+    ok = lse_mask and lse_err <= ATTN_LSE_TOL and all(
+        e <= ATTN_BWD_TOL["bfloat16"] * float(y.float().abs().max()) + ATTN_BWD_ATOL
+        for e, y in zip(errs, want))
+    del got, want, o_ref, lse_ref
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                               enable_gqa=True)
+        library_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 5)
+    del out, qt, kt, vt, dot
+    pairs = int(_keys_per_row(S, S, True, None).sum())
+    flops = 10 * D * pairs * B * H
+    # q, o, dout and lse read, dq written; k, v read, dk, dv written
+    bytes_moved = q.element_size() * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+        + 4 * lse.numel()
+    bound_ms, bound_by = _bound(bytes_moved, flops, PEAK_BF16_FLOPS)
+    log(f"[train] flash_attention backward at B={B} S={S} H={H} KV={k.shape[2]} D={D} bf16 "
+        f"(layer 0's q/k/v of the training path): kernel {ms:.4f} ms a launch "
+        f"({flops / ms / 1e9:.2f} TFLOP/s, {ms / library_ms:.3f}x SDPA's backward, "
+        f"{bound_ms / ms:.4f} of the bound), plain {plain_ms:.4f} ms, SDPA backward "
+        f"(enable_gqa) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({flops} FLOP at the bf16 tensor-core peak, {bytes_moved} B); forward lse vs "
+        f"plain max_abs_err {lse_err:.3e} (tolerance {ATTN_LSE_TOL}); backward on the "
+        f"kernel's o and lse vs the plain backward on the plain o and lse: max_abs_err "
+        f"dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} within "
+        f"{ATTN_BWD_TOL['bfloat16']} of the largest: {ok}; {device_line()}")
+    check(ok, "the flash_attention backward kernel disagrees with the plain backward at "
+              "the training path's shape")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, err=max(errs))
+
+
+def _lm_train_flops(torch, params, cfg, tokens, S):
+    """The model's operations a training step: 6 per parameter of every
+    matrix product per token (forward 2, backward 4; the embedding table is
+    a gather), and the attention's causal pairs at 4 D a pair and head
+    forward and 10 D backward; remat's recomputed forward not counted."""
+    L, H, D = cfg.n_layers, cfg.n_heads, cfg.d_head
+    layers = params["layers"]
+    mats = [layers["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
+        [layers["ffn"][n] for n in ("gate", "up", "down")] + [params["lm_head"]]
+    n_mat = sum(t.numel() for t in mats)
+    pairs = int(_keys_per_row(S, S, True, None).sum())
+    return 6 * n_mat * tokens + 14 * D * pairs * H * L * (tokens // S)
+
+
+def train_lm(torch, device):
+    """qwen3-4b at full width through ``launch/train.py``'s code path
+    (``build_trainer``: ``Trainer``, AdamW on a cosine schedule, remat,
+    in-place updates): TRAIN_WARMUP + TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_TOKENS tokens from ``TokenPipeline`` seed 0."""
+    import tempfile
+
+    import repro_torch.models.transformer as tf
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import build_trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen3-4b")
+    L = cfg.n_layers
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as ckdir:
+        t0 = time.perf_counter()
+        trainer = build_trainer("qwen3-4b", steps=steps, batch=TRAIN_BATCH,
+                                seq_len=TRAIN_TOKENS, full_config=True, ckpt_dir=ckdir,
+                                device=device, checkpoint_every=10 ** 9)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(trainer.params))
+        state_gb = sum(t.numel() * t.element_size() for t in _leaves(trainer.opt_state)) / 1e9
+        log(f"[train] {cfg.name} at full width: {L} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab}: {n_params} bf16 parameters, AdamW state {state_gb:.2f} GB "
+            f"(float32), built in {t_init:.2f} s; remat per layer; batch {TRAIN_BATCH} x "
+            f"{TRAIN_TOKENS} tokens, {TRAIN_WARMUP} warm-up + {TRAIN_STEPS} timed steps")
+        check(n_params == QWEN3_4B_PARAMS, f"qwen3-4b has {n_params} parameters")
+        cap = _Recorder(tf.flash_attention, first=True)
+        tf.flash_attention = cap
+        try:
+            reset_counts()                          # the path starts here
+            out = trainer.run()
+            counts = read_counts("train", ["flash_attention", "flash_attention/bwd"])
+        finally:
+            tf.flash_attention = cap.fn
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in out["metrics"]]
+    times = [m["step_time_s"] for m in out["metrics"]]
+    check(out["final_step"] == steps and all(math.isfinite(x) for x in losses),
+          f"train: losses {losses}")
+    check(counts["flash_attention"] == 2 * L * steps,
+          f"train: {counts['flash_attention']} forward launches, want {2 * L} a step (remat)")
+    check(counts["flash_attention/bwd"] == L * steps,
+          f"train: {counts['flash_attention/bwd']} backward launches, want {L} a step")
+    check(peak_gb < 75.0, f"train: peak memory {peak_gb:.2f} GB")
+    timed = times[TRAIN_WARMUP:]
+    step_s = sum(timed) / len(timed)
+    tokens = TRAIN_BATCH * TRAIN_TOKENS
+    flops = _lm_train_flops(torch, trainer.params, cfg, tokens, TRAIN_TOKENS)
+    log(f"[train] losses per step {[round(x, 5) for x in losses]}; step times (host clock "
+        f"after torch.cuda.synchronize) s {[round(x, 4) for x in times]}; timed steps: "
+        f"{step_s:.4f} s a step, {tokens / step_s:.1f} tokens/s, {flops} model FLOP a step "
+        f"= {flops / step_s / 1e12:.2f} TFLOP/s, {flops / step_s / PEAK_BF16_FLOPS:.4f} of "
+        f"the bf16 tensor-core peak ({PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s); launches a step: "
+        f"flash_attention forward {counts['flash_attention'] // steps}, backward "
+        f"{counts['flash_attention/bwd'] // steps}; torch.cuda.max_memory_allocated "
+        f"{peak_gb:.2f} GB; {device_line()}")
+    # one more step under torch.profiler: the device's busy share and its
+    # time by kernel
+    batch = {k: torch.as_tensor(v, device=device) for k, v in next(trainer.data).items()}
+    prof = _profile_step(torch, lambda: trainer.step_fn(trainer.params, trainer.opt_state,
+                                                        batch), kernels=12)
+    busy = ("not traced (the trace holds no device event)" if prof["busy_ms"] is None
+            else f"{prof['busy_ms']:.1f} ms busy of {prof['wall_ms']:.1f} ms "
+                 f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%)")
+    log(f"[train] one step under torch.profiler: {busy}; device time by kernel (ms, "
+        f"launches): {[(n, round(ms, 2), c) for n, ms, c in prof['kernels']]}")
+    del trainer, out, batch
+    torch.cuda.empty_cache()
+    rec = _attn_bwd_at_path_shape(torch, *cap.args[:3])
+    rec.update(launches=counts["flash_attention/bwd"], step_s=step_s,
+               tokens_s=tokens / step_s, peak_share=flops / step_s / PEAK_BF16_FLOPS,
+               peak_gb=peak_gb, losses=losses)
+    del cap
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _plain_attention(torch):
+    """A differentiable attention from the plain versions alone (the plain
+    forward and the plain explicit backward on the card): the yardstick
+    path of the float32 gradient gate."""
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_backward_reference,
+                                                         flash_attention_reference)
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            o, lse = flash_attention_reference(q, k, v, causal, window, return_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.causal, ctx.window = causal, window
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            grads = flash_attention_backward_reference(q, k, v, o, lse, do.contiguous(),
+                                                       ctx.causal, ctx.window)
+            return (*grads, None, None)
+
+    return lambda q, k, v, causal=True, window=None: Plain.apply(q, k, v, causal, window)
+
+
+def train_f32_gate(torch, device):
+    """qwen3-4b at full width, TRAIN_GATE_LAYERS layers, float32, one batch
+    of TRAIN_GATE_TOKENS tokens with remat: the loss and every gradient leaf
+    through the kernels (the float32 forward kernel and the backward kernel)
+    against the same step through the plain versions."""
+    import dataclasses
+
+    import repro_torch.models.transformer as tf
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.utils import tree
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen3-4b"), dtype="float32",
+                              n_layers=TRAIN_GATE_LAYERS)
+    params = tf.init(cfg, seed=0, device=device)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             next(TokenPipeline(cfg.vocab, 1, TRAIN_GATE_TOKENS, seed=2)).items()}
+    reset_counts()                                  # the kernels' step starts here
+    (loss_k, _), g_k = tf.value_and_grad(params, batch, cfg, remat=True)
+    counts = read_counts("train float32", ["flash_attention", "flash_attention/bwd"])
+    check(counts["flash_attention"] == 2 * TRAIN_GATE_LAYERS
+          and counts["flash_attention/bwd"] == TRAIN_GATE_LAYERS,
+          "train float32: one forward launch a layer and its recompute, one backward")
+    kernel_fn, tf.flash_attention = tf.flash_attention, _plain_attention(torch)
+    try:
+        (loss_p, _), g_p = tf.value_and_grad(params, batch, cfg, remat=True)
+    finally:
+        tf.flash_attention = kernel_fn
+    torch.cuda.synchronize()
+    paths, got = tree.flatten_with_paths(g_k)
+    worst, bad = 0.0, []
+    for path, a, b in zip(paths, got, tree.leaves(g_p)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / max(scale, 1e-30))
+        if not (err <= TRAIN_GRAD_TOL * scale and bool(torch.isfinite(a).all())):
+            bad.append(f"{path}: {err:.3e} of {scale:.3e}")
+    loss_err = abs(float(loss_k) - float(loss_p))
+    log(f"[train] float32 whole-path gradient gate, {cfg.name} at full width with "
+        f"{TRAIN_GATE_LAYERS} layers, B=1 S={TRAIN_GATE_TOKENS}, remat: loss through the "
+        f"kernels {float(loss_k):.6f} vs the plain versions {float(loss_p):.6f}; "
+        f"{len(paths)} gradient leaves, the largest error {worst:.3e} of its leaf's "
+        f"largest |g| (tolerance {TRAIN_GRAD_TOL}); failing leaves {bad}")
+    check(not bad and loss_err <= 1e-5 * abs(float(loss_p)),
+          "train float32: a gradient through the kernels disagrees with the plain one")
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    return dict(err=worst)
+
+
+def train_dlrm(torch, device):
+    """dlrm-rm2 at path 2's width (multi_hot 8), DLRM_TRAIN_STEPS
+    ``make_train_step`` steps on train_batch click logs; the table's dense
+    gradient through the backward kernel bitwise the plain backward's on
+    the same output gradient; the kernel's time, bound, plain and
+    ``F.embedding_bag`` backward times at the path's shapes."""
+    import dataclasses
+
+    import repro_torch.kernels.embedding_bag.ops as bag_ops
+    import repro_torch.models.dlrm as dlrm
+    from repro_torch.configs.base import DLRM_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.recsys import ClickLogPipeline
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+    from repro_torch.kernels.embedding_bag.ref import (bag_gradient,
+                                                       embedding_bag_backward_reference)
+    from repro_torch.optim import AdamW
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("dlrm-rm2"), multi_hot=DLRM_MULTI_HOT)
+    nb = {s.name: s for s in DLRM_SHAPES}["train_batch"].dim("batch")
+    V, d = cfg.total_rows(), cfg.embed_dim
+    params = dlrm.init(cfg, seed=0, device=device)
+    opt = AdamW(learning_rate=1e-3)
+    state = opt.init(params)
+    step = dlrm.make_train_step(cfg, opt)
+    pipe = ClickLogPipeline(cfg, nb, seed=11)
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in next(pipe).items()}
+               for _ in range(DLRM_TRAIN_STEPS)]
+    rec = _Recorder(bag_ops.embedding_bag_backward)
+    bag_ops.embedding_bag_backward = rec
+    times, losses = [], []
+    try:
+        reset_counts()                              # the path starts here
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        counts = read_counts("train dlrm", ["embedding_bag", "embedding_bag/bwd"])
+    finally:
+        bag_ops.embedding_bag_backward = rec.fn
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(counts["embedding_bag"] == DLRM_TRAIN_STEPS
+          and counts["embedding_bag/bwd"] == DLRM_TRAIN_STEPS,
+          "train dlrm: one bag launch and one backward launch a step")
+    check(all(math.isfinite(x) for x in losses), f"train dlrm: losses {losses}")
+    log(f"[train] {cfg.name} multi_hot={cfg.multi_hot}: {DLRM_TRAIN_STEPS} steps of {nb} "
+        f"click logs ({nb * cfg.n_sparse} bags of {cfg.multi_hot}), table {V} x {d} with a "
+        f"dense gradient and float32 AdamW state; losses {[round(x, 5) for x in losses]}; "
+        f"step times s {[round(x, 4) for x in times]}; peak memory {peak_gb:.2f} GB; "
+        f"{device_line()}")
+    del state, batches
+    torch.cuda.empty_cache()
+    g_out, ids, _, combiner = rec.args
+    got = bag_ops.embedding_bag_backward(g_out, ids, V, combiner)
+    want = embedding_bag_backward_reference(g_out, ids, V, combiner)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    log(f"[train] dlrm: the table's gradient through the backward kernel vs the plain "
+        f"backward on the last step's output gradient: bitwise {same}")
+    check(same, "train dlrm: the table's gradient is not the plain backward's bit for bit")
+    err = float((got - want).abs().max())
+    del got, want
+    torch.cuda.empty_cache()
+    # the kernel at the path's shapes: the id-sorted CSR made once, then
+    # the launch alone; beside it the wrapper (sort included), the plain
+    # backward and F.embedding_bag's backward on the same table and ids
+    B, H = ids.shape
+    g = bag_gradient(g_out, H, combiner)
+    row_ptr, bag = bag_ops.slot_csr(ids, V)
+    hot = bag_ops.long_rows(row_ptr)
+    lengths = row_ptr[1:] - row_ptr[:-1]
+    named, longest = int((lengths > 0).sum()), int(lengths.max())
+    del lengths
+    ms = _time_ms(torch, lambda: embedding_bag_backward_cuda(g, row_ptr, bag, hot,
+                                                             bag_ops.LONG_SLOTS), 5)
+    wrapper_ms = _time_ms(torch, lambda: bag_ops.embedding_bag_backward(g_out, ids, V,
+                                                                        combiner), 3)
+    plain_ms = _time_ms(torch, lambda: embedding_bag_backward_reference(g_out, ids, V,
+                                                                        combiner), 1)
+    table = params["embedding"].detach().requires_grad_()
+    out = torch.nn.functional.embedding_bag(ids.long(), table, mode=combiner)
+    library_ms = _time_ms(torch, lambda: torch.autograd.grad(out, table, g_out,
+                                                             retain_graph=True), 3)
+    del out, table
+    bytes_moved = 4 * (B * d + B * H + V * d)
+    bound_ms, bound_by = _bound(bytes_moved, B * H * d)
+    log(f"[train] embedding_bag backward at {B} bags x H={H}, d={d}, V={V}: kernel "
+        f"{ms:.4f} ms a launch ({bound_ms / ms:.3f} of the bound; {named} rows named, "
+        f"{hot.shape[0]} past {bag_ops.LONG_SLOTS} slots on the long-row kernel, the "
+        f"longest summed over {longest} slots in order), through the wrapper with its "
+        f"sort {wrapper_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.embedding_bag backward {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({bytes_moved} B: the dense gradient written "
+        f"once); mean step after the first {sum(times[1:]) / len(times[1:]):.4f} s; "
+        f"{device_line()}")
+    del params, g, row_ptr, bag, hot, rec
+    torch.cuda.empty_cache()
+    return dict(launches=counts["embedding_bag/bwd"], ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, err=err,
+                step_s=sum(times[1:]) / len(times[1:]))
+
+
+def train_gcn(torch, device):
+    """gcn-cora's model on path 4's graph (ogb_products), GCN_TRAIN_STEPS
+    ``make_train_step`` steps; x's gradient through the transposed
+    ``segment_spmm`` bitwise the plain version's on the same output
+    gradient; the backward launch's time, bound, plain time and
+    ``torch.sparse.mm`` over the transpose."""
+    import repro_torch.kernels.segment_spmm.ops as spmm_ops
+    import repro_torch.models.gnn.gcn as gcn
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.graphs import batch_to_device, random_graph_batch
+    from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
+    from repro_torch.models.gnn import api
+    from repro_torch.optim import AdamW
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("gcn-cora")
+    shape = [s for s in GNN_SHAPES if s.name == "ogb_products"][0]
+    batch = batch_to_device(random_graph_batch(cfg, shape, seed=0), device)
+    params = api.init(cfg, shape, seed=0, device=device)
+    csr = gcn.graph_csr(batch)
+    opt = AdamW(learning_rate=1e-2)
+    state = opt.init(params)
+    step = api.make_train_step(cfg, shape, opt, csr=csr)
+    n, E = batch["node_feat"].shape[0], batch["edge_src"].shape[0]
+    rec = _Recorder(spmm_ops.segment_spmm_csr_backward)
+    spmm_ops.segment_spmm_csr_backward = rec
+    times, losses = [], []
+    try:
+        reset_counts()                              # the path starts here
+        for _ in range(GCN_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        counts = read_counts("train gcn", ["segment_spmm", "segment_spmm/bwd"])
+    finally:
+        spmm_ops.segment_spmm_csr_backward = rec.fn
+    check(counts["segment_spmm"] == 2 * GCN_TRAIN_STEPS
+          and counts["segment_spmm/bwd"] == (cfg.n_layers - 1) * GCN_TRAIN_STEPS,
+          "train gcn: two aggregations a step, one backward through the second")
+    check(all(math.isfinite(x) for x in losses), f"train gcn: losses {losses}")
+    log(f"[train] {cfg.name} on {shape.name} (n={n}, E={E}): {GCN_TRAIN_STEPS} steps, "
+        f"losses {[round(x, 5) for x in losses]}, step times s "
+        f"{[round(x, 4) for x in times]} (the first builds the transposed CSR); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {device_line()}")
+    g_out, csr_, w, n_src = rec.args
+    t = csr_.transposed(n_src)
+    w_t = w[t.order].contiguous()
+    got = rec.fn(g_out, csr_, w, n_src)
+    want = segment_spmm_csr_reference(g_out, t.row_ptr, t.src, w_t)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    log(f"[train] gcn: x's gradient through the transposed segment_spmm vs the plain "
+        f"version on the last step's output gradient (F={g_out.shape[1]}): bitwise {same}")
+    check(same, "train gcn: x's gradient is not the plain version's bit for bit")
+    F = g_out.shape[1]
+    vec = spmm_ops.vector_width(g_out)
+    ms = _time_ms(torch, lambda: segment_spmm_cuda(g_out, t.row_ptr, t.src, w_t, vec), 10)
+    plain_ms = _time_ms(torch, lambda: segment_spmm_csr_reference(g_out, t.row_ptr, t.src,
+                                                                  w_t), 2)
+    with warnings.catch_warnings():                 # "beta state" notices
+        warnings.simplefilter("ignore", UserWarning)
+        A_t = torch.sparse_csr_tensor(t.row_ptr, t.src, w_t, size=(n_src, n))
+    library_ms = _time_ms(torch, lambda: torch.sparse.mm(A_t, g_out), 10)
+    live = w_t != 0
+    longest = int((t.row_ptr[1:] - t.row_ptr[:-1]).max())
+    dsts = int(torch.unique(t.src[live]).numel())
+    nnz = int(live.sum())
+    bytes_moved = 4 * ((n_src + 1) + 2 * E + dsts * F + n_src * F)
+    bound_ms, bound_by = _bound(bytes_moved, 2 * nnz * F)
+    log(f"[train] segment_spmm backward at F={F} over the transposed CSR ({n_src} source "
+        f"rows, {E} edges, nonzero weights {nnz}, the longest row {longest}): kernel "
+        f"{ms:.4f} ms "
+        f"({bound_ms / ms:.3f} of the bound), plain {plain_ms:.4f} ms, torch.sparse.mm "
+        f"over the transpose {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({bytes_moved} B); mean step after the first "
+        f"{sum(times[1:]) / len(times[1:]):.4f} s; {device_line()}")
+    del A_t, got, want, params, state, batch, csr, rec, t
+    torch.cuda.empty_cache()
+    return dict(launches=counts["segment_spmm/bwd"], ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, err=err,
+                step_s=sum(times[1:]) / len(times[1:]))
+
+
+def train_resume(torch, device):
+    """``Trainer`` at ``reduced_for_port()`` on the card (launch/train.py's
+    trainer, float32): RESUME_STEPS steps with a checkpoint every
+    RESUME_EVERY; a run that fails at RESUME_FAIL_AT and resumes from its
+    last checkpoint ends with the uninterrupted run's parameters and
+    optimizer state bit for bit."""
+    import tempfile
+
+    from repro_torch.launch.train import build_trainer
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        def trainer(name, fail_at=None):
+            t = build_trainer(steps=RESUME_STEPS, batch=2, seq_len=128,
+                              ckpt_dir=f"{ckdir}/{name}", device=device,
+                              checkpoint_every=RESUME_EVERY)
+            t.cfg.fail_at_step = fail_at
+            return t
+
+        ref = trainer("a")
+        ref.run()
+        crash = trainer("b", RESUME_FAIL_AT)
+        try:
+            crash.run()
+            raise SmokeFailure("train resume: the injected failure did not fire")
+        except RuntimeError as exc:
+            check("injected failure" in str(exc), f"train resume: {exc}")
+        resumed = trainer("b")
+        check(resumed.try_resume(), "train resume: no checkpoint to resume from")
+        start = resumed.step
+        for _ in range(start):                      # the batches before the checkpoint
+            next(resumed.data)
+        resumed.run()
+        leaves_a = list(_leaves({"p": ref.params, "o": ref.opt_state}))
+        leaves_b = list(_leaves({"p": resumed.params, "o": resumed.opt_state}))
+        same = len(leaves_a) == len(leaves_b) and all(
+            bool(torch.equal(a, b)) for a, b in zip(leaves_a, leaves_b))
+    log(f"[train] resume on the card: reduced qwen3-4b, {RESUME_STEPS} steps, checkpoint "
+        f"every {RESUME_EVERY}, failure at step {RESUME_FAIL_AT}, resumed from step {start}: "
+        f"parameters and AdamW state bitwise the uninterrupted run's {same}")
+    check(same, "train resume: the resumed run differs from the uninterrupted one")
+
+
+def train_path(torch, device):
+    """Path 8: the backward sweep, qwen3-4b's training at full width, the
+    float32 gradient gate, DLRM and GCN training steps and the bitwise
+    resume; returns the three backward entries' records."""
+    t0 = time.perf_counter()
+    errs = attention_backward_sweep(torch)
+    lm = train_lm(torch, device)
+    gate = train_f32_gate(torch, device)
+    bag = train_dlrm(torch, device)
+    gnn = train_gcn(torch, device)
+    train_resume(torch, device)
+    lm["err"] = max(lm["err"], errs["bfloat16"], errs["float32"])
+    log(f"[train] path 8 passed in {time.perf_counter() - t0:.1f} s: qwen3-4b "
+        f"{lm['step_s']:.4f} s a step, {lm['tokens_s']:.1f} tokens/s, "
+        f"{lm['peak_share']:.4f} of the bf16 peak, {lm['peak_gb']:.2f} GB; float32 gate "
+        f"{gate['err']:.3e}; dlrm {bag['step_s']:.4f} s a step; gcn {gnn['step_s']:.4f} s "
+        f"a step")
+    return dict(attn=lm, bag=bag, spmm=gnn)
+
+
 def _all_finite(torch, t):
     """All of ``t`` finite, checked 1,024 positions at a time (the check of
     a whole 10 GB logits tensor at once takes 25 GB of temporaries)."""
@@ -4251,6 +4924,11 @@ def main() -> int:
         expert_placement_on_card(torch, device, routing)
         log(f"[done] the MoE phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--only", "train"]:
+        # the training slice's path alone: no result lines
+        train_path(torch, device)
+        log(f"[done] the training path passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     errs = {"vm_step": kernel_sweep(torch), "embedding_bag": bag_sweep(torch),
             "segment_spmm": spmm_sweep(torch), "flash_attention": attention_sweep(torch)}
     plain_repeat(torch)
@@ -4279,6 +4957,8 @@ def main() -> int:
     lm = qwen3_serving(torch, device)
     olmoe, routing = olmoe_serving(torch, device)
     experts = expert_placement_on_card(torch, device, routing)
+    del routing
+    trained = train_path(torch, device)
     record = {"kernels": [
         # one kernel on two paths, each at its own shapes: the provgen-1M
         # invocation (23-node trie) and the row placement (677-node trie)
@@ -4395,6 +5075,24 @@ def main() -> int:
          "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
          "library_ms": f32["library_ms"]}
         for f32 in (lm["4x4096"]["f32"],)
+    ] + [
+        # the training slice's backward kernels, each at its path's shapes:
+        # flash_attention's on qwen3-4b's training step (1 x 4,096), the
+        # bag's on DLRM's train_batch, segment_spmm's (its forward's kernel)
+        # over ogb_products' transposed CSR.  No
+        # Pallas backward exists: each stands in for the device work of
+        # jax.grad through the jnp function named in "replaces"
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
+        for name, source, replaces, r in (
+            ("flash_attention/bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "src/repro/models/layers.py:93", trained["attn"]),
+            ("embedding_bag/bwd", "src/repro_torch/kernels/csrc/embedding_bag_bwd.cu",
+             "src/repro/models/dlrm.py:36", trained["bag"]),
+            ("segment_spmm/bwd", "src/repro_torch/kernels/csrc/segment_spmm.cu",
+             "src/repro/models/gnn/gcn.py:28", trained["spmm"]))
     ]}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(dev_line)

@@ -27,6 +27,17 @@ Kernels (CUDA C++ for ``sm_90a``; each replaces one TPU kernel):
                   ``src/repro/kernels/flash_attention/kernel.py::_attn_kernel``)
 
 Every TPU kernel of the JAX package has its counterpart here.
+
+Training adds backward kernels (the JAX package has none: it takes
+``jax.value_and_grad`` through its plain ``jnp`` functions), each behind a
+``torch.autograd.Function`` in its wrapper, with its own launch count:
+  flash_attention_bwd — dq, dk, dv from the forward kernel's output and row
+                  log-sum-exp (``csrc/flash_attention_bwd.cu``, CUDA cores)
+  embedding_bag_backward — the table's dense gradient over a CSR of the
+                  id-sorted slots (``csrc/embedding_bag_bwd.cu``: a lane
+                  group a row, a block a hot row)
+  segment_spmm_csr_backward — x's gradient, as ``segment_spmm`` over the
+                  transposed CSR (cached on the ``EdgeCSR``)
 """
 import threading
 

@@ -342,8 +342,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
-                            __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int KV,
-                            int causal, int has_window, long long window, float scale_log2) {
+                            __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+                            int Skv, int H, int KV, int causal, int has_window, long long window,
+                            float scale_log2) {
   using P = Plan<D, BK, ST>;
   constexpr int kSwz = P::kSwz, kBoxW = P::kBoxW, kChunks = P::kChunks;
   extern __shared__ uint8_t smem_raw[];
@@ -519,6 +520,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    // the row log-sum-exp, when asked for: ln 2 (m + log2 l), -inf on a
+    // row with no valid key (l = 0)
+    if (lse != nullptr && t == 0 && row[r] < Sq)
+      lse[(static_cast<long long>(b) * H + h) * Sq + row[r]] =
+          l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : -CUDART_INF_F;
     l[r] = fmaxf(l[r], 1e-30f);
   }
   const long long row_stride = static_cast<long long>(H) * D;
@@ -586,9 +592,9 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B, 
 }
 
 template <int D, int BK, int ST>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H,
-           int KV, int causal, int has_window, long long window, float scale_log2,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+           int Skv, int H, int KV, int causal, int has_window, long long window,
+           float scale_log2, cudaStream_t stream) {
   using P = Plan<D, BK, ST>;
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, D, H, Sq, B, P::kBoxW, kBQ, P::kSwz);
@@ -601,8 +607,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const dim3 grid(static_cast<unsigned>(B) * static_cast<unsigned>(H),
                   static_cast<unsigned>((Sq + kBQ - 1) / kBQ));
-  kernel<<<grid, kThreads, P::kSmem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq,
-                                               Skv, H, KV, causal, has_window, window,
+  kernel<<<grid, kThreads, P::kSmem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+                                               Sq, Skv, H, KV, causal, has_window, window,
                                                scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -614,14 +620,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 // (B, Skv, KV, D), 16-byte aligned; D is 32, 64, 128 or 256 and (bk,
 // stages) the tile plan kernel.py's TILE_PLAN gives for it; H is a multiple
 // of KV and Sq / 128 at most 65535.  window is used when has_window is set.
-// scale_log2 is log2(e) / sqrt(D).  The stream is PyTorch's current stream.
-// Returns 0, a cudaError_t, or 10000 + the CUresult of a failed tensor-map
-// encoding.
+// scale_log2 is log2(e) / sqrt(D).  lse, when not null, is a float32 (B,
+// H, Sq) array that receives each row's log-sum-exp of its scaled scores
+// (natural log; -inf on a row with no valid key), which the backward
+// (flash_attention_bwd.cu) reads; the output is the same either way.  The
+// stream is PyTorch's current stream.  Returns 0, a cudaError_t, or 10000 +
+// the CUresult of a failed tensor-map encoding.
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
                                            void* out, int B, int Sq, int Skv, int H, int KV,
                                            int D, int bk, int stages, int causal,
                                            int has_window, long long window, float scale_log2,
-                                           void* stream) {
+                                           void* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (KV <= 0 || H % KV != 0 || Skv <= 0 || Skv > 0x7fffffff - 256 ||
       (Sq + kBQ - 1) / kBQ > 65535)
@@ -629,8 +638,8 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k, const v
   auto st = static_cast<cudaStream_t>(stream);
 #define FA_PLAN(d, b, s)                                                                    \
   if (D == d && bk == b && stages == s)                                                   \
-    return launch<d, b, s>(q, k, v, out, B, Sq, Skv, H, KV, causal, has_window, window,   \
-                           scale_log2, st);
+    return launch<d, b, s>(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H, KV,    \
+                           causal, has_window, window, scale_log2, st);
   FA_PLAN(32, 64, 2)
   FA_PLAN(64, 64, 2)
   FA_PLAN(128, 128, 2)

@@ -81,6 +81,7 @@
 // limit once per device and returns any error.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <atomic>
 #include <cstdint>
@@ -92,6 +93,7 @@ constexpr int kBQ = 16 * kWarps;   // q rows per block
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;
 
 template <int D, int BK, int ST>
@@ -197,9 +199,9 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
 template <int D, int BK, int ST>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-                       int H, int KV, int causal, int has_window, long long window,
-                       float scale_log2) {
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Skv, int H, int KV, int causal,
+                       int has_window, long long window, float scale_log2) {
   using P = Plan<D, BK, ST>;
   constexpr int kNT = BK / 8;     // score n-tiles (8 keys) per kv tile
   constexpr int kMB = D / 32;     // 32-dim blocks of O
@@ -394,6 +396,18 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   cp_async_wait<0>();
 
+  // the row log-sum-exp, when asked for: ln 2 (m + log2 l), -inf on a row
+  // with no valid key (l = 0); m and l are the quad's, in every lane
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long qp = q0 + 16 * warp + g + 8 * r;
+      if (qp < Sq)
+        lse[(static_cast<long long>(b) * H + h) * Sq + qp] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -CUDART_INF_F;
+    }
+  }
+
   // acc[mb][n][2r + c] is row g + 8r, dim 32 mb + 8 t + 4 c + n
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -412,8 +426,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D, int BK, int ST>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Skv, int H, int KV, int causal, int has_window, long long window,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Skv, int H, int KV, int causal, int has_window, long long window,
                    float scale_log2, cudaStream_t stream) {
   using P = Plan<D, BK, ST>;
   auto kernel = flash_attention_kernel<D, BK, ST>;
@@ -432,7 +446,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                   static_cast<unsigned>((Sq + kBQ - 1) / kBQ));
   kernel<<<grid, kThreads, P::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Skv, H, KV, causal, has_window, window, scale_log2);
+      static_cast<float*>(o), lse, Sq, Skv, H, KV, causal, has_window, window, scale_log2);
   return cudaGetLastError();
 }
 
@@ -442,21 +456,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // device arrays in the model's layout, q and out (B, Sq, H, D), k and v
 // (B, Skv, KV, D), 16-byte aligned; (D, bk, stages) is one of the tile plans
 // below (kernel.py's TILE_PLAN_F32), H a multiple of KV, Sq / 64 at most
-// 65535.  window is used when has_window is set.  The stream is PyTorch's
-// current stream.  Returns the cudaError_t of the launch.
+// 65535.  window is used when has_window is set.  lse, when not null, is a
+// float32 (B, H, Sq) array that receives each row's log-sum-exp of its
+// scaled scores (natural log; -inf on a row with no valid key), which the
+// backward (flash_attention_bwd.cu) reads; the output is the same either
+// way.  The stream is PyTorch's current stream.  Returns the cudaError_t of
+// the launch.
 extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v,
                                           void* out, int B, int Sq, int Skv, int H, int KV,
                                           int D, int bk, int stages, int causal,
                                           int has_window, long long window,
-                                          float scale_log2, void* stream) {
+                                          float scale_log2, void* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (KV <= 0 || H % KV != 0 || Skv < 0 || (Sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
 #define FA32_PLAN(d, b, s)                                                                  \
   if (D == d && bk == b && stages == s)                                                   \
-    return static_cast<int>(launch<d, b, s>(q, k, v, out, B, Sq, Skv, H, KV, causal,      \
-                                            has_window, window, scale_log2, st));
+    return static_cast<int>(launch<d, b, s>(q, k, v, out, static_cast<float*>(lse), B, Sq,  \
+                                            Skv, H, KV, causal, has_window, window,       \
+                                            scale_log2, st));
   FA32_PLAN(32, 64, 2)
   FA32_PLAN(64, 64, 2)
   FA32_PLAN(128, 32, 2)

@@ -1,9 +1,11 @@
-"""ctypes binding of the hand-written CUDA ``embedding_bag`` kernel.
+"""ctypes bindings of the hand-written CUDA ``embedding_bag`` kernels.
 
-The kernel (``kernels/csrc/embedding_bag.cu``) replaces the TPU kernel
-``src/repro/kernels/embedding_bag/kernel.py::_bag_kernel``; see the source
-for its design.  The shared library is built from the checkout at first
-use (``kernels/build.py``) and launched on PyTorch's current stream.
+The forward (``kernels/csrc/embedding_bag.cu``) replaces the TPU kernel
+``src/repro/kernels/embedding_bag/kernel.py::_bag_kernel``; the backward
+(``kernels/csrc/embedding_bag_bwd.cu``, the table's dense gradient)
+replaces none: the JAX package differentiates its ``jnp`` bag.  See each
+source for its design.  The shared libraries are built from the checkout at
+first use (``kernels/build.py``) and launched on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -46,4 +48,33 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor, mean: bool,
             int(mean), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise KernelError(f"embedding_bag kernel launch failed: CUDA error {err}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    from repro_torch.kernels.build import load
+
+    fn = load("embedding_bag_bwd").embedding_bag_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def embedding_bag_backward_cuda(g: torch.Tensor, row_ptr: torch.Tensor, bag: torch.Tensor,
+                                long_rows: torch.Tensor, long_slots: int) -> torch.Tensor:
+    """Launch the backward kernels; the (V + 1) ``row_ptr``, ``bag`` and
+    ``long_rows`` (the rows with more than ``long_slots`` slots) come from
+    ``ops.embedding_bag_backward``.  Returns the dense (V, d) gradient."""
+    V, d = row_ptr.shape[0] - 1, g.shape[1]
+    out = torch.empty((V, d), dtype=torch.float32, device=g.device)
+    vec = 4 if d % 4 == 0 and g.data_ptr() % 16 == 0 else 1
+    with torch.cuda.device(g.device):
+        err = _bwd_launcher()(
+            g.data_ptr(), row_ptr.data_ptr(), bag.data_ptr(), long_rows.data_ptr(),
+            long_rows.shape[0], out.data_ptr(), V, d, vec, long_slots,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise KernelError(f"embedding_bag_bwd kernel launch failed: CUDA error {err}")
     return out

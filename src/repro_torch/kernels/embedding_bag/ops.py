@@ -1,14 +1,18 @@
-"""Wrapper of the ``embedding_bag`` kernel: argument checks, the launch
-count, and the choice between the kernel (CUDA tensors) and its plain
-version (CPU tensors)."""
+"""Wrapper of the ``embedding_bag`` kernel and of its backward: argument
+checks, the launch counts, and the choice between the kernels (CUDA
+tensors) and their plain versions (CPU tensors)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import LAUNCH_LOCK
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_reference
+from repro_torch.kernels.embedding_bag.ref import (
+    bag_gradient, embedding_bag_backward_reference, embedding_bag_reference)
 
 COMBINERS = ("sum", "mean")
+#: the backward's rows with more slots than this go to its long-row kernel
+#: (a block a row, the row's gathers staged in shared memory)
+LONG_SLOTS = 4096
 
 
 def _check(table: torch.Tensor, ids: torch.Tensor, combiner: str) -> None:
@@ -31,16 +35,7 @@ def _check(table: torch.Tensor, ids: torch.Tensor, combiner: str) -> None:
                          "bags and columns")
 
 
-def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
-                  combiner: str = "sum") -> torch.Tensor:
-    """``(B, d)`` bag sums (or means, over all H slots) of ``table`` rows.
-
-    ``table`` is ``(V, d)`` float32 and ``ids`` ``(B, H)`` int32 global row
-    ids; an id outside ``[0, V)`` (for example a -1 pad) adds nothing.
-    CUDA tensors go to the hand-written kernel (``csrc/embedding_bag.cu``),
-    CPU tensors to the plain version.
-    """
-    _check(table, ids, combiner)
+def _forward(table: torch.Tensor, ids: torch.Tensor, combiner: str) -> torch.Tensor:
     if table.device.type == "cpu":
         return embedding_bag_reference(table, ids, combiner)
     if table.device.type != "cuda":
@@ -53,5 +48,105 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+class _EmbeddingBag(torch.autograd.Function):
+    """The bag kernel and, for the table's gradient,
+    ``embedding_bag_backward`` as one differentiable function; the ids
+    take no gradient."""
+
+    @staticmethod
+    def forward(ctx, table, ids, combiner):
+        ctx.save_for_backward(ids)
+        ctx.V, ctx.combiner = table.shape[0], combiner
+        return _forward(table, ids, combiner)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        (ids,) = ctx.saved_tensors
+        return embedding_bag_backward(g_out, ids, ctx.V, ctx.combiner), None, None
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  combiner: str = "sum") -> torch.Tensor:
+    """``(B, d)`` bag sums (or means, over all H slots) of ``table`` rows.
+
+    ``table`` is ``(V, d)`` float32 and ``ids`` ``(B, H)`` int32 global row
+    ids; an id outside ``[0, V)`` (for example a -1 pad) adds nothing.
+    CUDA tensors go to the hand-written kernel (``csrc/embedding_bag.cu``),
+    CPU tensors to the plain version.  When autograd records and the table
+    requires grad, the output has a ``grad_fn`` whose backward is
+    ``embedding_bag_backward`` (a dense ``(V, d)`` table gradient).
+    """
+    _check(table, ids, combiner)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbeddingBag.apply(table, ids, combiner)
+    return _forward(table, ids, combiner)
+
+
 #: kernel launches since the last reset (CPU calls do not count)
 embedding_bag.launches = 0
+
+
+def embedding_bag_backward(g_out: torch.Tensor, ids: torch.Tensor, V: int,
+                           combiner: str = "sum") -> torch.Tensor:
+    """The table's dense ``(V, d)`` gradient of ``embedding_bag`` for the
+    output gradient ``g_out`` (B, d): row r sums, in slot order (b, h) from
+    0, the ``bag_gradient`` (``g_out``, divided by H for ``mean``) of every
+    slot whose id is r; ids outside ``[0, V)`` add nothing; rows no id
+    names are 0.
+
+    On CUDA tensors the sums run in the hand-written backward kernel
+    (``csrc/embedding_bag_bwd.cu``) over a CSR whose rows are table rows and
+    whose entries are the valid slots' bags, sorted stably by id (a
+    ``torch.sort`` before the launch): each table row is owned and written
+    once, by a lane group or, past ``LONG_SLOTS`` slots, by a block that
+    stages the row's gathers in shared memory; empty rows are 0; no
+    atomics.  CPU tensors go to the plain version."""
+    B, H = ids.shape
+    if g_out.shape != (B, g_out.shape[1]) or g_out.dim() != 2 or g_out.device != ids.device:
+        raise ValueError(f"embedding_bag_backward: g_out must be ({B}, d) on the ids' "
+                         f"device, got {tuple(g_out.shape)} on {g_out.device}")
+    if combiner not in COMBINERS:
+        raise ValueError(f"embedding_bag_backward: combiner must be one of {COMBINERS}")
+    if g_out.device.type == "cpu":
+        return embedding_bag_backward_reference(g_out, ids, V, combiner)
+    if g_out.device.type != "cuda":
+        raise ValueError(f"embedding_bag_backward: no kernel for device {g_out.device}")
+    if B * H >= 2**31 or V >= 2**31:
+        raise ValueError("embedding_bag_backward: the CSR's int32 offsets take fewer "
+                         "than 2**31 slots and rows")
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+
+    g = bag_gradient(g_out, H, combiner)
+    row_ptr, bag = slot_csr(ids, V)
+    out = embedding_bag_backward_cuda(g, row_ptr, bag, long_rows(row_ptr), LONG_SLOTS)
+    with LAUNCH_LOCK:
+        embedding_bag_backward.launches += 1
+    return out
+
+
+def long_rows(row_ptr: torch.Tensor) -> torch.Tensor:
+    """The rows of the backward's CSR with more than ``LONG_SLOTS`` slots,
+    longest first (int32): the backward's long-row kernel owns them."""
+    lengths = row_ptr[1:] - row_ptr[:-1]
+    rows = torch.nonzero(lengths > LONG_SLOTS).squeeze(1)
+    order = torch.sort(lengths[rows], descending=True, stable=True).indices
+    return rows[order].to(torch.int32).contiguous()
+
+
+def slot_csr(ids: torch.Tensor, V: int):
+    """The backward's CSR over the ``V`` table rows: ``(row_ptr, bag)``,
+    int32, row r's entries the bags of the slots whose id is r, in slot
+    order (a stable sort of the valid slots by id).  Raw tensors, not a
+    ``segment_spmm.ops.EdgeCSR``: the launch needs neither its checks nor
+    its row plan, a numpy pass over all ``V`` rows."""
+    H = ids.shape[1]
+    flat = ids.reshape(-1)
+    slot = torch.nonzero((flat >= 0) & (flat < V)).squeeze(1)
+    rows, order = torch.sort(flat[slot], stable=True)
+    row_ptr = torch.zeros(V + 1, dtype=torch.int64, device=ids.device)
+    torch.cumsum(torch.bincount(rows, minlength=V), 0, out=row_ptr[1:])
+    return row_ptr.to(torch.int32), (slot[order] // H).to(torch.int32)
+
+
+#: backward kernel launches since the last reset (CPU calls do not count)
+embedding_bag_backward.launches = 0

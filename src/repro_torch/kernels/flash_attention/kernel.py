@@ -1,6 +1,7 @@
-"""ctypes bindings of the two hand-written CUDA ``flash_attention`` kernels.
+"""ctypes bindings of the hand-written CUDA ``flash_attention`` kernels: two
+forward kernels and the backward.
 
-Both replace the TPU kernel
+The forward kernels replace the TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::_attn_kernel``, one per
 input type; see each source for its design:
 
@@ -9,7 +10,13 @@ input type; see each source for its design:
       serving path's kernel;
   flash_attention_f32  — ``csrc/flash_attention_f32.cu``: float32 on the
       tensor cores as three TF32 products per product (mma.sync, cp.async
-      double buffering; the float32 model and its whole-path gate).
+      double buffering; the float32 model and its whole-path gate);
+  flash_attention_bwd  — ``csrc/flash_attention_bwd.cu``: the backward of
+      either (dq, dk, dv from q, k, v, o, the forward's row log-sum-exp and
+      the output's gradient): bf16 at head sizes up to 128 on the tensor
+      cores (mma.sync), float32 and bf16 at 256 on the CUDA cores; it
+      replaces no TPU kernel (the JAX package differentiates its plain
+      ``jnp`` attention).
 
 The shared libraries are built from the checkout at first use
 (``kernels/build.py``) and launched on PyTorch's current stream.
@@ -72,19 +79,23 @@ def _launcher(name: str):
 
     fn = getattr(load(name), f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention_cuda(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool, window: Optional[int]) -> torch.Tensor:
+                         causal: bool, window: Optional[int], with_lse: bool = False):
     """Launch kernel ``name`` (``flash_attention_bf16`` or
     ``flash_attention_f32``); arguments are checked by
-    ``ops.flash_attention``."""
+    ``ops.flash_attention``.  Returns the output, or with ``with_lse`` the
+    output and the float32 ``(B, H, Sq)`` row log-sum-exp the kernel also
+    writes then (the output is the same either way)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     for t in (q, k, v, out):
         if t.data_ptr() % 16:
             raise ValueError("flash_attention: the kernel takes 16-byte aligned "
@@ -96,9 +107,47 @@ def flash_attention_cuda(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.T
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Skv, H, KV, D, plan.bk, plan.stages, int(causal), int(window is not None),
             0 if window is None else window, scale_log2,
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err >= 10000:
         raise KernelError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {err - 10000}")
     if err != 0:
         raise KernelError(f"{name} kernel launch failed: CUDA error {err}")
-    return out
+    return (out, lse) if with_lse else out
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    from repro_torch.kernels.build import load
+
+    fn = load("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                                  causal: bool, window: Optional[int]):
+    """Launch ``csrc/flash_attention_bwd.cu`` (delta, then dk and dv, then
+    dq); returns ``(dq, dk, dv)`` in q's dtype.  Arguments are checked by
+    ``ops.flash_attention_backward``."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    for t in (q, k, v, o, do):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention_backward: the kernel takes 16-byte aligned "
+                             "tensors (a view at an odd offset is not one)")
+    with torch.cuda.device(q.device):
+        err = _bwd_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Sq, Skv, H, KV, D, int(q.dtype == torch.bfloat16), int(causal),
+            int(window is not None), 0 if window is None else window, 1.0 / math.sqrt(D),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise KernelError(f"flash_attention_bwd kernel launch failed: CUDA error {err}")
+    return dq, dk, dv

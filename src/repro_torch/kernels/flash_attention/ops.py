@@ -1,7 +1,7 @@
 """Wrapper of the ``flash_attention`` kernels: argument checks, the launch
-count, and the choice between a kernel (CUDA tensors: bfloat16 to the
-wgmma kernel, float32 to the three-TF32-product one) and the plain version
-(CPU tensors).
+counts, and the choice between a kernel (CUDA tensors: bfloat16 to the
+wgmma kernel, float32 to the three-TF32-product one, either's gradient to
+the backward kernel) and the plain version (CPU tensors).
 
 The Pallas wrapper's ``block_q``/``block_k``/``interpret``/``use_pallas``
 are TPU tiling knobs and have no counterpart: the kernel picks its own
@@ -13,7 +13,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import LAUNCH_LOCK
-from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_backward_reference, flash_attention_reference)
 
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -66,6 +67,44 @@ def kernel_name(q: torch.Tensor) -> Optional[str]:
     return KERNEL_BY_DTYPE[q.dtype]
 
 
+def _forward(q, k, v, causal, window, with_lse: bool):
+    """The output (and with ``with_lse`` the row log-sum-exp) from the
+    kernel for ``q``'s device and type, or the plain version on the CPU."""
+    name = kernel_name(q)
+    if name is None:
+        return flash_attention_reference(q, k, v, causal, window, return_lse=with_lse)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    out = (flash_attention_cuda(name, q, k, v, causal, window, with_lse=True) if with_lse
+           else flash_attention_cuda(name, q, k, v, causal, window))
+    with LAUNCH_LOCK:
+        flash_attention.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, which also writes the row log-sum-exp, and the
+    backward kernel (``csrc/flash_attention_bwd.cu``) as one differentiable
+    function; on CPU tensors, the plain forward and the plain explicit
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if do.data_ptr() % 16:          # the kernel reads 16-byte aligned rows
+            do = do.clone()
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """Attention of q (B, Sq, H, D) over k, v (B, Skv, KV, D), in q's dtype.
@@ -76,19 +115,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid key is 0.  CUDA tensors go to a hand-written kernel
     (``kernel_name``: ``csrc/flash_attention_bf16.cu`` for bfloat16,
     ``csrc/flash_attention_f32.cu`` for float32), CPU tensors to the plain
-    version.
+    version.  When autograd records and q, k or v requires grad, the
+    output has a ``grad_fn`` whose backward is ``flash_attention_backward``
+    (the kernel then also writes the row log-sum-exp that it reads).
     """
     _check(q, k, v, window)
-    name = kernel_name(q)
-    if name is None:
-        return flash_attention_reference(q, k, v, causal, window)
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-
-    out = flash_attention_cuda(name, q, k, v, causal, window)
-    with LAUNCH_LOCK:
-        flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, with_lse=False)
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+#: forward kernel launches since the last reset (CPU calls do not count)
 flash_attention.launches = 0
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                             causal: bool = True, window: Optional[int] = None):
+    """``(dq, dk, dv)`` of ``flash_attention`` from its output ``o``, its
+    float32 ``(B, H, Sq)`` row log-sum-exp ``lse`` and the output's
+    gradient ``do``, in q's dtype.  CUDA tensors go to the hand-written
+    backward kernel (``csrc/flash_attention_bwd.cu``), CPU tensors to the
+    plain explicit backward."""
+    _check(q, k, v, window)
+    B, Sq, H, _ = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"flash_attention_backward: {name} must be a contiguous "
+                             f"tensor of q's shape, type and device")
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError("flash_attention_backward: lse must be a contiguous float32 "
+                         f"({B}, {H}, {Sq}) tensor on q's device")
+    if kernel_name(q) is None:
+        return flash_attention_backward_reference(q, k, v, o, lse, do, causal, window)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_backward_cuda
+
+    grads = flash_attention_backward_cuda(q, k, v, o, lse, do, causal, window)
+    with LAUNCH_LOCK:
+        flash_attention_backward.launches += 1
+    return grads
+
+
+#: backward kernel launches since the last reset (CPU calls do not count)
+flash_attention_backward.launches = 0

@@ -165,6 +165,9 @@ class EdgeCSR:
     order: Array     # (E,) int64 edge-list index per CSR slot
     src_bound: int = field(init=False)
     plan: RowPlan = field(init=False)
+    #: transposed CSRs by row count, made once by :meth:`transposed`
+    _transposed: dict = field(init=False, default_factory=dict, repr=False,
+                              compare=False)
 
     def __post_init__(self):
         E = self.src.shape[0]
@@ -189,10 +192,35 @@ class EdgeCSR:
         object.__setattr__(self, "src_bound", smax + 1)
         object.__setattr__(self, "plan", plan.to(self.row_ptr.device) if on_device else plan)
 
+    def transposed(self, n_src: int) -> "EdgeCSR":
+        """The transposed CSR over ``n_src`` source rows: row s holds the
+        slots whose source is s, in this CSR's slot order (by destination,
+        then edge order); its ``src`` is each slot's destination row and its
+        ``order`` the slot's index in this CSR, so a weight per slot ``w``
+        reads ``w[t.order]`` there.  Built on this CSR's device with one
+        stable sort the first time a row count is asked for, then cached on
+        this CSR (the gradient of ``segment_spmm_csr`` with respect to x
+        runs over it)."""
+        if n_src < self.src_bound:
+            raise ValueError(f"EdgeCSR.transposed: {n_src} rows, but a source id is "
+                             f"{self.src_bound - 1}")
+        if n_src not in self._transposed:
+            rp = torch.as_tensor(self.row_ptr).long()
+            src = torch.as_tensor(self.src).long()
+            n = rp.shape[0] - 1
+            dst = torch.repeat_interleave(torch.arange(n, device=rp.device), rp[1:] - rp[:-1])
+            order = torch.argsort(src, stable=True)
+            row_ptr = torch.zeros(n_src + 1, dtype=torch.int64, device=rp.device)
+            torch.cumsum(torch.bincount(src, minlength=n_src), 0, out=row_ptr[1:])
+            self._transposed[n_src] = EdgeCSR(row_ptr=row_ptr.to(torch.int32),
+                                              src=dst[order].to(torch.int32), order=order)
+        return self._transposed[n_src]
+
     def to(self, device) -> "EdgeCSR":
         """The CSR as tensors on ``device`` (int32 offsets and sources,
         int64 order), with its checks and plan carried over, not redone."""
         moved = copy.copy(self)
+        object.__setattr__(moved, "_transposed", {})
         for name, dtype in (("row_ptr", torch.int32), ("src", torch.int32),
                             ("order", torch.int64)):
             object.__setattr__(moved, name, torch.as_tensor(
@@ -281,16 +309,9 @@ def vector_width(x: torch.Tensor) -> int:
     return 4 if x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0 else 1
 
 
-def segment_spmm_csr(x: torch.Tensor, csr: EdgeCSR,
-                     w: torch.Tensor) -> torch.Tensor:
-    """``out[v] = sum over CSR row v of w_e * x[src_e]``, ``(n_rows, F)``.
-
-    ``csr`` is a destination-sorted CSR of tensors (checked when it was
-    made, so a launch does not synchronise) and ``w`` the weight of each
-    CSR slot.  CUDA tensors go to the hand-written kernel
-    (``csrc/segment_spmm.cu``), CPU tensors to the plain version.
-    """
-    _check(x, csr, w)
+def _spmm(x: torch.Tensor, csr: EdgeCSR, w: torch.Tensor, counter) -> torch.Tensor:
+    """The kernel on CUDA tensors (one more launch on ``counter``), the
+    plain version on CPU tensors."""
     if x.device.type == "cpu":
         return segment_spmm_csr_reference(x, csr.row_ptr, csr.src, w)
     if x.device.type != "cuda":
@@ -299,12 +320,70 @@ def segment_spmm_csr(x: torch.Tensor, csr: EdgeCSR,
 
     out = segment_spmm_cuda(x, csr.row_ptr, csr.src, w, vector_width(x))
     with LAUNCH_LOCK:
-        segment_spmm_csr.launches += 1
+        counter.launches += 1
     return out
+
+
+class _SegmentSpmm(torch.autograd.Function):
+    """The kernel and, for x's gradient, ``segment_spmm_csr_backward`` as
+    one differentiable function."""
+
+    @staticmethod
+    def forward(ctx, x, w, csr):
+        ctx.save_for_backward(w)
+        ctx.csr, ctx.n_src = csr, x.shape[0]
+        return _spmm(x, csr, w, segment_spmm_csr)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        (w,) = ctx.saved_tensors
+        g_x = segment_spmm_csr_backward(g_out.contiguous(), ctx.csr, w, ctx.n_src)
+        return g_x, None, None
+
+
+def segment_spmm_csr(x: torch.Tensor, csr: EdgeCSR,
+                     w: torch.Tensor) -> torch.Tensor:
+    """``out[v] = sum over CSR row v of w_e * x[src_e]``, ``(n_rows, F)``.
+
+    ``csr`` is a destination-sorted CSR of tensors (checked when it was
+    made, so a launch does not synchronise) and ``w`` the weight of each
+    CSR slot.  CUDA tensors go to the hand-written kernel
+    (``csrc/segment_spmm.cu``), CPU tensors to the plain version.  When
+    autograd records and x requires grad, the output has a ``grad_fn``
+    whose backward is ``segment_spmm_csr_backward``; the weights are
+    constants of the graph (GCN's come from the degrees), and a ``w`` that
+    requires grad raises.
+    """
+    _check(x, csr, w)
+    if torch.is_grad_enabled() and w.requires_grad:
+        raise ValueError("segment_spmm_csr: the edge weights take no gradient (they are "
+                         "constants of the graph); pass w.detach()")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SegmentSpmm.apply(x, w, csr)
+    return _spmm(x, csr, w, segment_spmm_csr)
 
 
 #: kernel launches since the last reset (CPU calls do not count)
 segment_spmm_csr.launches = 0
+
+
+def segment_spmm_csr_backward(g_out: torch.Tensor, csr: EdgeCSR, w: torch.Tensor,
+                              n_src: int) -> torch.Tensor:
+    """x's gradient ``(n_src, F)`` of ``segment_spmm_csr(x, csr, w)`` for the
+    output gradient ``g_out``: ``g_x[s] = sum over slots e with src_e = s of
+    w_e * g_out[dst_e]``, which is ``segment_spmm`` over the transposed CSR
+    (:meth:`EdgeCSR.transposed`, cached on ``csr``) with the same weights.
+    CUDA tensors run the same hand-written kernel (``csrc/segment_spmm.cu``,
+    each source row owned by one lane group, summed in the transposed CSR's
+    order: bitwise repeatable), CPU tensors the plain version."""
+    t = csr.transposed(n_src)
+    w_t = w[t.order].contiguous()
+    _check(g_out, t, w_t)
+    return _spmm(g_out, t, w_t, segment_spmm_csr_backward)
+
+
+#: backward kernel launches since the last reset (CPU calls do not count)
+segment_spmm_csr_backward.launches = 0
 
 
 def segment_spmm(x: torch.Tensor, packed: PackedEdges, edge_w: torch.Tensor,

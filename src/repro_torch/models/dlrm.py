@@ -27,6 +27,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import LabelledGraph
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.models.gnn.common import mlp_apply, mlp_init
+from repro_torch.utils import tree
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +79,35 @@ def forward(params, batch: Dict, cfg: DLRMConfig) -> torch.Tensor:
     else:
         z = feats.reshape(B, -1)
     return mlp_apply(params["top"], z)[:, 0]                # logits (B,)
+
+
+def loss_fn(params, batch: Dict, cfg: DLRMConfig):
+    """``(loss, metrics)``: the mean binary cross-entropy of the click
+    logits against ``batch["labels"]`` in float32 (the JAX package's
+    stable form), and the thresholded accuracy."""
+    logits = forward(params, batch, cfg).to(torch.float32)
+    y = batch["labels"].to(torch.float32)
+    loss = torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    auc_proxy = torch.mean(((torch.sigmoid(logits) > 0.5) == (y > 0.5)).to(torch.float32))
+    return loss, {"loss": loss, "acc": auc_proxy}
+
+
+def make_train_step(cfg: DLRMConfig, optimizer):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.  The table's gradient is dense (V, d), as ``jax.grad``
+    gives it: the ``embedding_bag`` wrapper's backward kernel on the card
+    for a multi-hot batch.  The optimizer writes into the parameters and
+    its state and returns them (at dlrm-rm2's width the table alone is
+    8.6 GB)."""
+
+    def train_step(params, opt_state, batch):
+        (loss, metrics), grads = tree.value_and_grad(
+            lambda p: loss_fn(p, batch, cfg), params)
+        params, opt_state = optimizer.update(params, grads, opt_state, inplace=True)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def serve_step(params, batch: Dict, cfg: DLRMConfig) -> torch.Tensor:

@@ -13,6 +13,7 @@ import numpy as np
 from repro_torch.configs.base import GNNConfig, ShapeSpec
 from repro_torch.device import DeviceLike
 from repro_torch.models.gnn import gcn
+from repro_torch.utils import tree
 
 N_SPECIES = 16  # synthetic atomic-species vocabulary for equivariant models
 
@@ -37,6 +38,31 @@ def init(cfg: GNNConfig, shape: ShapeSpec, seed: int = 0,
     if cfg.kind == "gcn":
         return gcn.init(cfg, d_in, seed=seed, device=device)
     raise ValueError(f"GNN kind {cfg.kind!r} is not ported yet")
+
+
+def loss_fn(params, batch: Dict, cfg: GNNConfig, shape: ShapeSpec, csr=None):
+    """The model's loss and metrics.  GCN has no pooled readout, so it
+    trains node-level on every shape cell (the JAX package's choice);
+    ``csr`` is the batch's ``gcn.graph_csr`` (built per call when
+    omitted)."""
+    if cfg.kind == "gcn":
+        return gcn.loss_fn(params, batch, cfg, csr)
+    raise ValueError(f"GNN kind {cfg.kind!r} is not ported yet")
+
+
+def make_train_step(cfg: GNNConfig, shape: ShapeSpec, optimizer, csr=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``, the update written into ``params`` and the optimizer state,
+    as the LM's and DLRM's steps do; ``csr``, when given, is the (fixed)
+    graph's CSR, reused by every step together with its cached
+    transpose."""
+    def train_step(params, opt_state, batch):
+        (loss, metrics), grads = tree.value_and_grad(
+            lambda p: loss_fn(p, batch, cfg, shape, csr), params)
+        params, opt_state = optimizer.update(params, grads, opt_state, inplace=True)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def needs_positions(cfg: GNNConfig) -> bool:

@@ -68,3 +68,19 @@ def forward(params, batch: Dict, cfg: GNNConfig,
         if i < len(params["layers"]) - 1:
             x = torch.relu(x)
     return x * nmask[:, None]
+
+
+def loss_fn(params, batch: Dict, cfg: GNNConfig, csr: Optional[EdgeCSR] = None):
+    """``(loss, metrics)``: the node-masked mean cross-entropy of the logits
+    against ``batch["targets"]``, in float32, and the masked accuracy.
+    Through the aggregation, x's gradient is ``segment_spmm``'s backward
+    (the transposed CSR; a hand-written kernel on the card)."""
+    logits = forward(params, batch, cfg, csr).to(torch.float32)
+    labels = batch["targets"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    mask = batch["node_mask"].to(torch.float32)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = torch.sum((logz - gold) * mask) / denom
+    acc = torch.sum((logits.argmax(-1) == labels) * mask) / denom
+    return loss, {"loss": loss, "accuracy": acc}

@@ -1,12 +1,14 @@
 """Shared transformer layers (pure functions over parameter dicts).
 
 The JAX package's ``models/layers.py`` on tensors: RMS norms, rotary
-embeddings, the chunked online-softmax attention and SwiGLU.  Prefill
-attention runs as the hand-written ``flash_attention`` kernel
-(``models/transformer.py``); ``attention`` here is the chunked twin of the
-JAX package's, with ``q_offset``, ``kv_len`` and ``window_dynamic``, and
-serves decode.  ``dense_init``, ``dense_apply`` and ``cross_entropy`` come
-with the MoE and training slices.
+embeddings, the chunked online-softmax attention, SwiGLU, the dense and
+norm initialisers and the token cross-entropy.  Prefill attention runs as
+the hand-written ``flash_attention`` kernel (``models/transformer.py``);
+``attention`` here is the chunked twin of the JAX package's, with
+``q_offset``, ``kv_len`` and ``window_dynamic``, and serves decode.
+Initialisers take an explicit ``torch.Generator`` (JAX's key) and return
+parameters only: the logical sharding axes have no counterpart without a
+mesh.
 """
 from __future__ import annotations
 
@@ -15,6 +17,37 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
+               bias: bool = False, scale: Optional[float] = None):
+    """``{"w": (d_in, d_out)[, "b": (d_out,)]}``: w ~ N(0, 1) * scale
+    (default 1 / sqrt(d_in)) drawn in float32 on ``gen``'s device, then
+    cast to ``dtype``; b zeros."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
+    params = {"w": w.to(dtype)}
+    if bias:
+        params["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return params
+
+
+def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def norm_init(d: int, dtype: torch.dtype, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
 
 def rms_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
@@ -125,3 +158,11 @@ def attention(
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in float32 (logits (..., V), labels (...))."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

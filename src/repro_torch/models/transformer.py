@@ -21,8 +21,13 @@ Entry points:
   forward(params, tokens, cfg, ...)    -> (logits, aux) or (logits, aux, cache)
   init_cache(cfg, batch, max_len, ...) -> KV cache {"k", "v", "pos"}
   decode_step(params, cache, tokens, cfg) -> (logits, cache)
+  loss_fn(params, batch, cfg, remat)   -> (total loss, metrics)
+  value_and_grad(params, batch, cfg, remat) -> ((total, metrics), grads)
+  make_train_step(cfg, optimizer, remat) -> step(params, opt_state, batch)
 
-Training (``loss_fn``, ``make_train_step``) comes with a later slice.
+Training takes its gradients with ``torch.autograd.grad`` (the JAX
+package's ``jax.value_and_grad``); the attention's backward is the
+``flash_attention`` wrapper's, a hand-written kernel on the card.
 """
 from __future__ import annotations
 
@@ -30,13 +35,15 @@ import math
 from typing import Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (apply_rope, attention, rms_norm,
-                                       rms_norm_nd, swiglu)
+from repro_torch.models.layers import (apply_rope, attention, cross_entropy,
+                                       rms_norm, rms_norm_nd, swiglu)
+from repro_torch.utils import tree
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -194,23 +201,41 @@ def _layer(cfg: LMConfig, x: torch.Tensor, lp: Dict, is_glob: bool):
     return x + y, aux, k, v
 
 
+def _layer_no_cache(cfg: LMConfig, x: torch.Tensor, lp: Dict, is_glob: bool):
+    x, aux, _, _ = _layer(cfg, x, lp, is_glob)
+    return x, aux
+
+
 def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig,
-            return_cache: bool = False):
+            return_cache: bool = False, remat: bool = False):
     """Logits (B, S, vocab) for tokens (B, S); with ``return_cache`` also
     the KV cache {"k", "v": (L, B, S, KV, Dh), "pos": S}.  ``aux`` is the
     JAX package's auxiliary-loss dict: empty for a dense model, for a MoE
     model each of ``moe_aux_loss``, ``moe_z_loss`` and ``moe_dropped_frac``
-    averaged over layers (float32 scalars)."""
+    averaged over layers (float32 scalars).
+
+    ``remat`` recomputes each layer's forward in the backward instead of
+    keeping its activations: one ``torch.utils.checkpoint`` per layer (the
+    JAX package's ``jax.checkpoint`` of its layer body).  The numbers do not
+    change: the recomputed forward relaunches the same deterministic
+    kernels."""
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     cache = None
     if return_cache:
+        if remat:
+            raise ValueError("forward: remat and return_cache do not go together")
         shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
         cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
                  "v": torch.empty(shape, dtype=x.dtype, device=x.device), "pos": S}
     aux_sum: Dict[str, torch.Tensor] = {}
     for i, glob in enumerate(is_global_layer(cfg)):
-        x, aux, k, v = _layer(cfg, x, _layer_params(params, i), glob)
+        lp = _layer_params(params, i)
+        if remat:
+            x, aux = checkpoint(_layer_no_cache, cfg, x, lp, glob, use_reentrant=False)
+            k = v = None
+        else:
+            x, aux, k, v = _layer(cfg, x, lp, glob)
         for name, value in aux.items():
             aux_sum[name] = aux_sum[name] + value if name in aux_sum else value
         if cache is not None:
@@ -271,3 +296,72 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, cfg: LMConfig):
         x = x + _ffn(cfg, x, lp)[0]
     logits = _head(params, x, cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params, batch, cfg: LMConfig, remat: bool = False):
+    """``(total, metrics)``: the mean token cross-entropy of
+    ``batch["labels"]`` under ``batch["tokens"]``, plus the MoE auxiliary
+    and z losses when the model has them (``metrics``: ``loss`` and the aux
+    values)."""
+    logits, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    loss = cross_entropy(logits, batch["labels"])
+    total = loss
+    for k in ("moe_aux_loss", "moe_z_loss"):
+        if k in aux:
+            total = total + aux[k]
+    metrics = {"loss": loss, **aux}
+    return total, metrics
+
+
+def _by_layer(layers):
+    """The stacked layer tree with each leaf as a list of its L per-layer
+    views (no copy)."""
+    if isinstance(layers, dict):
+        return {k: _by_layer(v) for k, v in layers.items()}
+    return list(layers.unbind(0))
+
+
+def _stack_layers(grads: Dict) -> None:
+    """``_by_layer``'s inverse on a gradient tree, in place: each list
+    stacked along L and dropped, one leaf at a time (so no more than one
+    leaf is held twice)."""
+    for k, v in grads.items():
+        if isinstance(v, dict):
+            _stack_layers(v)
+        else:
+            grads[k] = torch.stack(v)
+
+
+def value_and_grad(params, batch, cfg: LMConfig, remat: bool = False):
+    """``((total loss, metrics), grads)`` of :func:`loss_fn` (the JAX
+    package's ``jax.value_and_grad(loss_fn, has_aux=True)``).  The
+    gradients are taken with respect to each layer's views of the stacked
+    parameters and stacked once at the end: indexing a stacked leaf that
+    requires grad would make every layer's backward write a zero tensor of
+    the whole stack and add it (7.2 GB twice a layer at qwen3-4b's
+    width)."""
+    split = dict(params, layers=_by_layer(params["layers"]))
+    out, grads = tree.value_and_grad(lambda p: loss_fn(p, batch, cfg, remat=remat), split)
+    _stack_layers(grads["layers"])
+    return out, grads
+
+
+def make_train_step(cfg: LMConfig, optimizer, remat: bool = True):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss's gradients, then ``optimizer.update``, which
+    writes into ``params`` and the optimizer state
+    (``AdamW.update(inplace=True)``: what fits a full-width model on one
+    card) and returns them."""
+
+    def train_step(params, opt_state, batch):
+        (loss, metrics), grads = value_and_grad(params, batch, cfg, remat)
+        params, opt_state = optimizer.update(params, grads, opt_state, inplace=True)
+        metrics["total_loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step

@@ -1079,3 +1079,193 @@ def test_expert_placement_on_the_card_equals_the_cpu(card):
     assert np.array_equal(on_card["placement"], on_cpu["placement"])
     for k in ("cross_mass_before", "cross_mass_after", "moves", "iterations"):
         assert on_card[k] == on_cpu[k], k
+
+
+# --- the training slice: backward kernels -----------------------------------
+
+#: (b, sq, skv, kv, g, d, causal, window): every mask the forward takes, GQA,
+#: Sq != Skv both ways, every head size, rows that see no key (window 17
+#: past Skv; window 0 masks every row)
+ATTN_BWD_CASES = [
+    (1, 1, 1, 1, 1, 32, True, None),
+    (2, 77, 77, 2, 2, 32, True, None),
+    (1, 130, 70, 2, 4, 64, True, None),
+    (1, 70, 130, 1, 2, 64, False, 17),
+    (1, 150, 100, 2, 2, 32, False, 17),
+    (1, 200, 200, 2, 4, 128, True, 64),
+    (2, 129, 257, 1, 1, 128, False, None),
+    (1, 100, 100, 1, 2, 256, True, 33),
+    (1, 97, 97, 2, 2, 256, False, None),
+    (1, 64, 64, 1, 1, 64, True, 0),
+]
+#: the backward kernel against the plain backward on the same inputs, as a
+#: share of the largest plain gradient: float32 sums in other orders; bf16
+#: outputs rounded once each (one bf16 step of the largest value)
+ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_matches_plain(card, dtype):
+    """Through autograd: the output has a grad_fn, the forward kernel
+    writes the row log-sum-exp (against the plain version's), the backward
+    kernel launches once and gives the plain backward's dq, dk and dv on
+    the same q, k, v, o, lse and output gradient; rows with no valid key
+    get exactly zero dq."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_backward)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_backward_reference, flash_attention_reference)
+
+    for i, (b, sq, skv, kv, g, d, causal, window) in enumerate(ATTN_BWD_CASES):
+        q, k, v = (t.requires_grad_() for t in
+                   _attn_inputs(300 + i, b, sq, skv, kv, g, d, dtype, card))
+        do = next(_attn_inputs(400 + i, b, sq, sq, kv * g, 1, d, dtype, card))
+        fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        assert out.grad_fn is not None
+        lse_k = out.grad_fn.saved_tensors[4]
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == fwd + 1
+        assert flash_attention_backward.launches == bwd + 1
+        _, lse = flash_attention_reference(q.detach(), k.detach(), v.detach(), causal,
+                                           window, return_lse=True)
+        live = torch.isfinite(lse)
+        assert torch.equal(live, torch.isfinite(lse_k)), i
+        torch.testing.assert_close(lse_k[live], lse[live], rtol=1e-5, atol=1e-5)
+        args = (q.detach(), k.detach(), v.detach(), out.detach(), lse_k, do)
+        want = flash_attention_backward_reference(*args, causal, window)
+        got = flash_attention_backward(*args, causal, window)
+        for name, x, y, auto in zip("qkv", got, want, (q.grad, k.grad, v.grad)):
+            assert torch.equal(x, auto), (i, name)      # autograd ran the kernel
+            scale = float(y.float().abs().max())
+            err = float((x.float() - y.float()).abs().max())
+            assert err <= ATTN_BWD_TOL[dtype] * scale + 1e-6, (i, name, err, scale)
+        dead = ~live[0, 0].cpu()
+        assert bool((q.grad[:, dead.to(card)] == 0).all()), i
+
+
+@pytest.mark.parametrize("d", [64, 17, 300])
+def test_embedding_bag_backward_kernel_bitwise_vs_cpu(card, d):
+    """The table's gradient through the backward kernel
+    (``csrc/embedding_bag_bwd.cu`` over the id-sorted slots): the CPU plain
+    backward's, bit for bit, for sum and mean, with repeated, -1 and
+    past-the-table ids, unnamed rows, and hot rows past LONG_SLOTS on the
+    long-row kernel (float4 and scalar rows, a row wider than a long-row
+    block)."""
+    from repro_torch.kernels.embedding_bag.ops import (LONG_SLOTS, embedding_bag,
+                                                       embedding_bag_backward)
+
+    rng = np.random.default_rng(21 + d)
+    V, B, H = 5000, 6001, 8
+    ids = rng.integers(0, V // 2, (B, H))
+    ids[::3] = ids[::3, :1]
+    ids[:, 1] = 7                                          # a hot row: B slots
+    ids[::2, 2] = 11                                       # and a second one
+    ids[::5, -1] = -1
+    ids[::7, 0] = V + 3
+    assert B > LONG_SLOTS
+    ids = torch.as_tensor(ids.astype(np.int32))
+    g = torch.as_tensor(rng.normal(size=(B, d)), dtype=torch.float32)
+    for combiner in ("sum", "mean"):
+        want = embedding_bag_backward(g, ids, V, combiner)
+        table = torch.zeros((V, d), device=card, requires_grad=True)
+        before = embedding_bag_backward.launches
+        out = embedding_bag(table, ids.to(card), combiner)
+        assert out.grad_fn is not None
+        out.backward(g.to(card))
+        torch.cuda.synchronize()
+        assert embedding_bag_backward.launches == before + 1
+        assert torch.equal(table.grad.cpu(), want), combiner
+        assert bool((want[V // 2:] == 0).all())
+
+
+@pytest.mark.parametrize("F", [16, 100, 17])
+def test_segment_spmm_backward_kernel_bitwise_vs_cpu(card, F):
+    """x's gradient through the kernel over the transposed CSR (cached on
+    the EdgeCSR): the CPU plain backward's, bit for bit; a weight that
+    requires grad raises."""
+    from repro_torch.kernels.segment_spmm.ops import (csr_from_edges, segment_spmm_csr,
+                                                      segment_spmm_csr_backward)
+
+    rng = np.random.default_rng(F)
+    n, e = 3000, 40000
+    src = torch.as_tensor(rng.integers(0, n, e))
+    src[:5000] = 11                                        # a hub source
+    dst = torch.as_tensor(rng.integers(0, n, e))
+    w = torch.as_tensor(rng.random(e), dtype=torch.float32)
+    w[::9] = 0.0
+    csr = csr_from_edges(src, dst, n)
+    g = torch.as_tensor(rng.normal(size=(n, F)), dtype=torch.float32)
+    want = segment_spmm_csr_backward(g, csr, w[csr.order].contiguous(), n)
+    csr_c = csr_from_edges(src.to(card), dst.to(card), n)
+    wc = w.to(card)[csr_c.order].contiguous()
+    x = torch.zeros((n, F), device=card, requires_grad=True)
+    before = segment_spmm_csr_backward.launches
+    out = segment_spmm_csr(x, csr_c, wc)
+    assert out.grad_fn is not None
+    out.backward(g.to(card))
+    torch.cuda.synchronize()
+    assert segment_spmm_csr_backward.launches == before + 1
+    assert torch.equal(x.grad.cpu(), want)
+    with pytest.raises(ValueError):
+        segment_spmm_csr(x, csr_c, wc.clone().requires_grad_())
+
+
+def test_kernel_wrapper_outputs_have_a_grad_fn(card):
+    """Each kernel wrapper's output has a grad_fn exactly when autograd
+    records and an input requires grad (and none under no_grad)."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.segment_spmm.ops import csr_from_edges, segment_spmm_csr
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _attn_inputs(1, 1, 40, 40, 1, 2, 64, dtype, card)
+        assert flash_attention(q, k, v).grad_fn is None
+        for t in (q, k, v):
+            t.requires_grad_()
+            assert flash_attention(q, k, v).grad_fn is not None
+            with torch.no_grad():
+                assert flash_attention(q, k, v).grad_fn is None
+            t.requires_grad_(False)
+    table = torch.randn((100, 8), device=card)
+    ids = torch.randint(0, 100, (5, 3), dtype=torch.int32, device=card)
+    assert embedding_bag(table, ids).grad_fn is None
+    assert embedding_bag(table.requires_grad_(), ids).grad_fn is not None
+    csr = csr_from_edges(torch.arange(10, device=card), torch.arange(10, device=card) % 4, 4)
+    x, w = torch.randn((10, 4), device=card), torch.ones(10, device=card)
+    assert segment_spmm_csr(x, csr, w).grad_fn is None
+    assert segment_spmm_csr(x.requires_grad_(), csr, w).grad_fn is not None
+
+
+def test_trainer_resume_on_the_card_is_bitwise(card, tmp_path):
+    """Reduced qwen3-4b (float32) trained on the card through the launcher's
+    Trainer for 6 steps, checkpoint every 2: a run that fails at step 3 and
+    resumes from step 2 ends with the uninterrupted run's parameters and
+    optimizer state bit for bit (every kernel and every scatter on the path
+    sums in a fixed order)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_backward
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.utils import tree
+
+    def trainer(ckdir, fail_at=None):
+        t = build_trainer(steps=6, batch=2, seq_len=64, ckpt_dir=str(ckdir), device=card,
+                          checkpoint_every=2)
+        t.cfg.fail_at_step = fail_at
+        return t
+
+    before = flash_attention_backward.launches
+    ref = trainer(tmp_path / "a")
+    ref.run()
+    assert flash_attention_backward.launches > before
+    crash = trainer(tmp_path / "b", fail_at=3)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        crash.run()
+    resumed = trainer(tmp_path / "b")
+    assert resumed.try_resume() and resumed.step == 2
+    for _ in range(2):                      # the batches of steps 0 and 1
+        next(resumed.data)
+    resumed.run()
+    for a, b in zip(tree.leaves((ref.params, ref.opt_state)),
+                    tree.leaves((resumed.params, resumed.opt_state))):
+        assert torch.equal(a, b)

@@ -107,3 +107,17 @@ def test_moe_slice_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_training_slice_imports_without_jax_or_reference():
+    probe = ("import sys, repro_torch.optim, repro_torch.optim.adamw, repro_torch.optim.schedule, "
+             "repro_torch.distributed, repro_torch.distributed.compression, "
+             "repro_torch.train, repro_torch.train.trainer, repro_torch.train.checkpoint, "
+             "repro_torch.launch.train, repro_torch.utils.tree, repro_torch.models.transformer, "
+             "repro_torch.models.dlrm, repro_torch.models.gnn.api; "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

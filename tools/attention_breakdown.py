@@ -84,7 +84,7 @@ def main() -> int:
             return 1
         fn = ctypes.CDLL(str(lib)).flash_attention_bf16_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         launch[name] = fn
 
@@ -93,7 +93,8 @@ def main() -> int:
         plan = TILE_PLAN[D]
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, S, H,
                  k.shape[2], D, plan.bk, plan.stages, 1, 0, 0,
-                 math.log2(math.e) / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+                 math.log2(math.e) / math.sqrt(D), None,
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: {err}")
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The embedding_bag, float32 attention and vm_step kernels of this checkout
+"""The embedding_bag, attention and vm_step kernels of this checkout
 against those of another checkout (for example its parent commit), on the
 GPU, at the main path's shapes.
 
@@ -9,8 +9,8 @@ Run from the root of a checkout, on the machine with the card:
 
 DIR is the root of the other checkout (``git archive`` of a commit unpacked
 into a git-ignored directory such as ``archive/parent``).  Both checkouts'
-``csrc/embedding_bag.cu``, ``csrc/flash_attention_f32.cu`` and
-``csrc/vm_step.cu`` are built with nvcc (``sm_90a``) into the git-ignored
+``csrc/embedding_bag.cu``, ``csrc/flash_attention_f32.cu``,
+``csrc/flash_attention_bf16.cu`` and ``csrc/vm_step.cu`` are built with nvcc (``sm_90a``) into the git-ignored
 ``kernels/build/compare/``, and each
 kernel is timed in turns (other, this, this, other) with CUDA events over
 back-to-back launches and, for the bag kernel, also as device time per
@@ -23,15 +23,18 @@ host-bound):
       (512 requests: 13,312 bags) and on independent zipf ids over the whole
       table (16,384 x 26 bags of 8), as chip_smoke.py makes them;
   flash_attention_f32 at 4 x 4,096 tokens, 32 query and 8 KV heads of 128,
-      causal, random float32 q, k, v;
+      causal, random float32 q, k, v, and flash_attention_bf16 on the same
+      q, k, v in bf16 (the log-sum-exp pointer, where an entry point takes
+      one, null: the serving path's launch);
   vm_step at the provgen invocation's shapes: provgen_like(1,000,000)'s
       dst-sorted CSR (its row plan), PQ1-4's 23-node trie, random alpha and
       weights, 57.5% of the edges live (path 1's share), alpha as many rows
       as the output (the entry point's n_in and n_out, or its one n).
 
 The two bag kernels and the two vm_step kernels must agree bit for bit
-(vm_step also with its plain version), both attention kernels within 2e-5
-of the plain version.  Prints the card's name and power limit and one
+(vm_step also with its plain version), and so must the two float32 and the
+two bf16 attention outputs; both float32 attention kernels within 2e-5 of
+the plain version.  Prints the card's name and power limit and one
 line per shape; exits non-zero without CUDA or nvcc.
 """
 from __future__ import annotations
@@ -47,7 +50,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/kernels/csrc")
 OUT = ROOT / "src" / "repro_torch" / "kernels" / "build" / "compare"
-KERNELS = ("embedding_bag", "flash_attention_f32", "vm_step")
+KERNELS = ("embedding_bag", "flash_attention_f32", "flash_attention_bf16", "vm_step")
 
 
 def build(roots):
@@ -84,17 +87,19 @@ def bag_launcher(lib):
     return fn
 
 
-def attn_launcher(lib, source, d):
-    """The float32 attention entry point, whether it takes a tile plan, and
+def attn_launcher(lib, source, d, name="flash_attention_f32"):
+    """An attention entry point (``name``), whether it takes a tile plan,
     the score scale it takes at head size ``d`` (the earlier CUDA-core
-    kernel takes no plan and 1 / sqrt(d))."""
-    fn = ctypes.CDLL(str(lib)).flash_attention_f32_launch
+    kernel takes no plan and 1 / sqrt(d)), and whether it takes a row
+    log-sum-exp pointer before the stream (passed as null: no lse)."""
+    fn = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
     planned = bool(re.search(r"int D, int bk, int stages", source))
+    with_lse = "void* lse, void* stream" in source
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (10 if planned else 8)
-                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_void_p] * (1 + with_lse))
     fn.restype = ctypes.c_int
     scale = (math.log2(math.e) if "scale_log2" in source else 1.0) / math.sqrt(d)
-    return fn, planned, scale
+    return fn, planned, scale, with_lse
 
 
 def vm_launcher(lib, source):
@@ -176,7 +181,7 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     from repro_torch.data.recsys import ClickLogPipeline
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_reference
-    from repro_torch.kernels.flash_attention.kernel import TILE_PLAN_F32
+    from repro_torch.kernels.flash_attention.kernel import TILE_PLAN, TILE_PLAN_F32
     from repro_torch.kernels.flash_attention.ref import flash_attention_reference
     from repro_torch.models.dlrm import table_offsets
 
@@ -242,24 +247,44 @@ def main() -> int:
     outs = {tag: torch.empty_like(q) for tag in roots}
     plan = TILE_PLAN_F32[D]
 
-    def attend(tag):
-        fn, planned, scale = attn[tag]
+    def attend(tag, attn=attn, outs=outs, q=q, k=k, v=v, plan=plan):
+        fn, planned, scale, with_lse = attn[tag]
         extra = [plan.bk, plan.stages] if planned else []
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), outs[tag].data_ptr(), B, S, S, H,
-                 KV, D, *extra, 1, 0, 0, scale, stream)
+                 KV, D, *extra, 1, 0, 0, scale, *([None] if with_lse else []), stream)
         if err:
-            raise SystemExit(f"flash_attention_f32 ({tag}) launch failed: CUDA error {err}")
+            raise SystemExit(f"flash_attention ({tag}) launch failed: CUDA error {err}")
 
     ms = in_turns(torch, {tag: (lambda tag=tag: attend(tag)) for tag in roots}, 5)
     flops = 4 * D * (S * (S + 1) // 2) * B * H
     errs = {tag: float((outs[tag] - ref).abs().max()) for tag in roots}
+    same = bool(torch.equal(outs["this"], outs["other"]))
     print(f"[attn f32] B={B} S={S} H={H} KV={KV} D={D} causal: ms per launch other "
           f"{ms['other'][0]:.4f} / {ms['other'][1]:.4f}, this {ms['this'][0]:.4f} / "
           f"{ms['this'][1]:.4f} ({flops / min(ms['this']) / 1e9:.1f} TFLOP/s); bound "
           f"{3 * flops / 495e12 * 1e3:.4f} ms at the TF32 tensor-core rate (three products), "
           f"{flops / 67e12 * 1e3:.4f} ms at the float32 CUDA-core rate; max_abs_err vs plain "
-          f"other {errs['other']:.3e}, this {errs['this']:.3e}; {card}", flush=True)
+          f"other {errs['other']:.3e}, this {errs['this']:.3e}; this == other bitwise "
+          f"{same}; {card}", flush=True)
     if max(errs.values()) > 2e-5 + 2e-5 * float(ref.abs().max()):
+        return 1
+
+    # --- flash_attention_bf16: the same q, k, v in bf16 ---------------------
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    attn = {tag: attn_launcher(libs[tag, "flash_attention_bf16"],
+                               (roots[tag] / CSRC / "flash_attention_bf16.cu").read_text(), D,
+                               "flash_attention_bf16")
+            for tag in roots}
+    outs = {tag: torch.empty_like(q) for tag in roots}
+    plan = TILE_PLAN[D]
+    ms = in_turns(torch, {tag: (lambda tag=tag: attend(tag, attn, outs, q, k, v, plan))
+                          for tag in roots}, 20)
+    same_bf16 = bool(torch.equal(outs["this"], outs["other"]))
+    print(f"[attn bf16] B={B} S={S} H={H} KV={KV} D={D} causal: ms per launch other "
+          f"{ms['other'][0]:.4f} / {ms['other'][1]:.4f}, this {ms['this'][0]:.4f} / "
+          f"{ms['this'][1]:.4f} ({flops / min(ms['this']) / 1e9:.1f} TFLOP/s); this == other "
+          f"bitwise {same_bf16}; {card}", flush=True)
+    if not (same and same_bf16):
         return 1
     del q, k, v, ref, outs
     torch.cuda.empty_cache()
