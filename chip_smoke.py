@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result line):
    the tensor-core instructions (``HGMMA``, ``HMMA``) in the built
    attention libraries with ``cuobjdump -sass``: the bf16 kernel must have
    ``HGMMA`` (wgmma), the float32 kernel TF32 ``HMMA`` (its three-product
-   mma.sync) and no ``HGMMA``;
+   mma.sync) and no ``HGMMA``, the backward ``HGMMA``, TMA loads
+   (``UTMALDG``) and no atomic;
 2. each kernel against its plain PyTorch version on the card, over seeded
    shapes: ``vm_step`` (the transitions of workload tries: PQ, MQ, seeded
    label chains of one to four 32-column blocks and the row placement's
@@ -184,7 +185,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 12. path 8, training: first the backward sweep (``flash_attention_bwd.cu``
    against the plain explicit backward on the forward kernel's output and
-   log-sum-exp: float32 and bf16; causal, window and non-causal; GQA 1-4;
+   log-sum-exp: float32 and bf16; causal, window and non-causal; GQA 1-8;
    Sq != Skv; D 32-256; rows with no valid key, whose dq must be 0); then
    ``qwen3-4b`` trained at full width through ``launch/train.py``'s code
    path (``build_trainer``: ``Trainer``, AdamW with float32 state on a
@@ -193,7 +194,9 @@ Phases (any failure exits non-zero and prints no result line):
    step, time a step, tokens/s, the share of the bf16 peak, the forward
    and backward attention launches a step (72 with remat, 36) and the peak
    memory; the backward kernel on layer 0's q/k/v against the plain
-   backward, SDPA's backward and its bound; the float32 whole-path gradient
+   backward, SDPA's backward and its bound, the time of each of its four
+   launches (delta, dv, dk, dq) and two launches bitwise equal; the
+   float32 whole-path gradient
    gate (the model at full width cut to 2 layers, 2,048 tokens: every
    gradient leaf through the kernels against the same step through the
    plain versions); ``dlrm-rm2`` at path 2's width (multi_hot 8), three
@@ -561,6 +564,17 @@ def tensor_core_instructions(libs):
           "the bf16 attention kernel has no HGMMA (tensor-core) instruction")
     check(counts["flash_attention_f32"][2] > 0 and counts["flash_attention_f32"][0] == 0,
           "the float32 attention kernel has no TF32 HMMA, or has HGMMA")
+    # the backward: bf16 at D <= 128 on wgmma over tiles that TMA loads
+    # (UTMALDG), with no atomic (ATOM, RED) anywhere in the library
+    sass = subprocess.run([tool, "-sass", str(libs["flash_attention_bwd"])],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    bwd = {op: len(re.findall(rf"\b{op}\b", sass))
+           for op in ("HGMMA", "UTMALDG", "ATOM", "ATOMS", "ATOMG", "RED")}
+    atomics = bwd["ATOM"] + bwd["ATOMS"] + bwd["ATOMG"] + bwd["RED"]
+    log(f"[build] flash_attention_bwd: {bwd['HGMMA']} HGMMA, {bwd['UTMALDG']} UTMALDG (TMA "
+        f"loads), {atomics} atomics in the SASS")
+    check(bwd["HGMMA"] > 0 and bwd["UTMALDG"] > 0 and atomics == 0,
+          "the attention backward has no HGMMA or no TMA load, or has an atomic")
     return counts
 
 
@@ -4284,7 +4298,7 @@ def expert_placement_on_card(torch, device, olmoe_routing):
 
 def _attn_bwd_cases():
     """Seeded (b, sq, skv, kv, g, d, causal, window, dtype) cases of the
-    backward sweep: causal, window and non-causal masks, GQA 1-4, Sq != Skv
+    backward sweep: causal, window and non-causal masks, GQA 1-8, Sq != Skv
     both ways, head sizes 32-256, rows with no valid key (window past Skv,
     window 0 on every row)."""
     fixed = [
@@ -4297,6 +4311,7 @@ def _attn_bwd_cases():
         (1, 100, 100, 1, 1, 32, False, 1),
         (1, 129, 129, 2, 1, 256, True, 200),
         (1, 64, 64, 1, 2, 128, True, 0),                   # no row sees a key
+        (1, 250, 390, 2, 8, 64, False, 100),               # G = 8, a window, Sq < Skv
     ]
     return [c + (dt,) for dt in ("float32", "bfloat16") for c in fixed]
 
@@ -4415,6 +4430,11 @@ def _attn_bwd_at_path_shape(torch, q, k, v):
         device=q.device, dtype=q.dtype)
     ms = _time_ms(torch, lambda: flash_attention_backward_cuda(q, k, v, o, lse, do, True, None),
                   5)
+    parts = _attn_bwd_launch_ms(torch, q, k, v, o, lse, do)
+    first = flash_attention_backward_cuda(q, k, v, o, lse, do, True, None)
+    second = flash_attention_backward_cuda(q, k, v, o, lse, do, True, None)
+    repeat = all(bool(torch.equal(x, y)) for x, y in zip(first, second))
+    del first, second
     plain_ms = _time_ms(torch, lambda: flash_attention_backward_reference(
         q, k, v, o, lse, do, True, None), 2)
     got = flash_attention_backward_cuda(q, k, v, o, lse, do, True, None)
@@ -4449,10 +4469,41 @@ def _attn_bwd_at_path_shape(torch, q, k, v):
         f"kernel's o and lse vs the plain backward on the plain o and lse: max_abs_err "
         f"dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} within "
         f"{ATTN_BWD_TOL['bfloat16']} of the largest: {ok}; {device_line()}")
+    log(f"[train] flash_attention backward's launches at the same shape, ms each: "
+        + ", ".join(f"{name} {t:.4f}" for name, t in parts.items() if name != "serial")
+        + f" (sum {sum(t for name, t in parts.items() if name != 'serial'):.4f}; the four in "
+        f"plain stream order, no overlap, {parts['serial']:.4f}); two launches on the same inputs bitwise equal: "
+        f"{repeat}; {device_line()}")
     check(ok, "the flash_attention backward kernel disagrees with the plain backward at "
               "the training path's shape")
+    check(repeat, "two launches of the flash_attention backward on the same inputs differ")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, err=max(errs))
+                bound_by=bound_by, err=max(errs), parts=parts)
+
+
+def _attn_bwd_launch_ms(torch, q, k, v, o, lse, do):
+    """The time of each launch of the bf16 backward (delta, dv, dk, dq) at
+    these inputs, each timed alone through
+    ``flash_attention_backward_parts_cuda`` (delta computed first: dk and dq
+    read it), and of the four in plain stream order, one after another with
+    no overlap ("serial").  Direct launches: the wrapper's count is not
+    touched."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        BWD_PARTS, flash_attention_backward_parts_cuda)
+
+    B, S, H, D = q.shape
+    grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+
+    def launch(*parts):
+        for m in parts:
+            flash_attention_backward_parts_cuda(q, k, v, o, lse, do, delta, grads, True, None,
+                                                m)
+
+    launch(BWD_PARTS["delta"])
+    out = {name: _time_ms(torch, lambda m=m: launch(m), 10) for name, m in BWD_PARTS.items()}
+    out["serial"] = _time_ms(torch, lambda: launch(*BWD_PARTS.values()), 10)
+    return out
 
 
 def _lm_train_flops(torch, params, cfg, tokens, S):

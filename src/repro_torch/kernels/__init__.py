@@ -32,7 +32,8 @@ Training adds backward kernels (the JAX package has none: it takes
 ``jax.value_and_grad`` through its plain ``jnp`` functions), each behind a
 ``torch.autograd.Function`` in its wrapper, with its own launch count:
   flash_attention_bwd — dq, dk, dv from the forward kernel's output and row
-                  log-sum-exp (``csrc/flash_attention_bwd.cu``, CUDA cores)
+                  log-sum-exp (``csrc/flash_attention_bwd.cu``: bf16 at
+                  D <= 128 on wgmma + TMA, the rest on the CUDA cores)
   embedding_bag_backward — the table's dense gradient over a CSR of the
                   id-sorted slots (``csrc/embedding_bag_bwd.cu``: a lane
                   group a row, a block a hot row)

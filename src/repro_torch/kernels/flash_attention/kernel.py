@@ -14,7 +14,8 @@ input type; see each source for its design:
   flash_attention_bwd  — ``csrc/flash_attention_bwd.cu``: the backward of
       either (dq, dk, dv from q, k, v, o, the forward's row log-sum-exp and
       the output's gradient): bf16 at head sizes up to 128 on the tensor
-      cores (mma.sync), float32 and bf16 at 256 on the CUDA cores; it
+      cores (wgmma, TMA, mbarriers: delta, then dv, dk and dq launches),
+      float32 and bf16 at 256 on the CUDA cores; it
       replaces no TPU kernel (the JAX package differentiates its plain
       ``jnp`` attention).
 
@@ -117,12 +118,20 @@ def flash_attention_cuda(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.T
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_launcher():
+def _bwd_launcher(parts: bool = False):
+    """The backward's entry point, or with ``parts`` the one that launches
+    a chosen subset of the bf16 tensor-core route's four launches."""
     from repro_torch.kernels.build import load
 
-    fn = load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                   + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+    lib = load("flash_attention_bwd")
+    if parts:
+        fn = lib.flash_attention_bwd_launch_parts
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
+    else:
+        fn = lib.flash_attention_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -131,7 +140,8 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                                   causal: bool, window: Optional[int]):
     """Launch ``csrc/flash_attention_bwd.cu`` (delta, then dk and dv, then
-    dq); returns ``(dq, dk, dv)`` in q's dtype.  Arguments are checked by
+    dq: dv and dk are two launches on the bf16 tensor-core route); returns
+    ``(dq, dk, dv)`` in q's dtype.  Arguments are checked by
     ``ops.flash_attention_backward``."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -151,3 +161,28 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     if err != 0:
         raise KernelError(f"flash_attention_bwd kernel launch failed: CUDA error {err}")
     return dq, dk, dv
+
+
+#: the bf16 tensor-core route's launches, by their bit in ``parts``
+BWD_PARTS = {"delta": 1, "dv": 2, "dk": 4, "dq": 8}
+
+
+def flash_attention_backward_parts_cuda(q, k, v, o, lse, do, delta, grads, causal: bool,
+                                        window: Optional[int], parts: int) -> None:
+    """Launch the launches of the bf16 backward (head size 32, 64 or 128)
+    whose bits ``parts`` sets (``BWD_PARTS``), in their order, into the
+    float32 ``(B, H, Sq)`` ``delta`` and ``grads = (dq, dk, dv)``: dk and dq
+    read ``delta``, so a launch of them alone needs one of delta before it.
+    For timing each launch alone; the wrapper's launch count is not
+    touched."""
+    B, Sq, H, D = q.shape
+    dq, dk, dv = grads
+    with torch.cuda.device(q.device):
+        err = _bwd_launcher(True)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Sq, k.shape[1], H, k.shape[2], D, int(causal), int(window is not None),
+            0 if window is None else window, 1.0 / math.sqrt(D),
+            torch.cuda.current_stream().cuda_stream, parts)
+    if err != 0:
+        raise KernelError(f"flash_attention_bwd_launch_parts({parts}) failed: error {err}")

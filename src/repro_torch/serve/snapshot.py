@@ -501,14 +501,25 @@ def load_serving_snapshot(directory, snap_id: Optional[int] = None
     Verifies the manifest's sha256 over ``arrays.npz``; a corrupt or
     unreadable snapshot (fault injection, partial disk failure) is skipped
     with a warning and the next older one is tried — recovery degrades to
-    an older state plus a longer journal replay instead of failing."""
+    an older state plus a longer journal replay instead of failing.
+
+    The directory is listed again before each attempt, and the newest
+    snapshot not yet tried is read: a snapshot that a writer's keep-N
+    pruning collected in the middle of the read was replaced by a newer
+    one, and that one is read next."""
     directory = Path(directory)
-    ids = ([int(snap_id)] if snap_id is not None else
-           sorted((int(p.name.split("_")[1])
-                   for p in directory.glob(SNAP_PREFIX + "*")
-                   if (p / "manifest.json").exists()), reverse=True))
+    tried = set()
     last_err: Optional[BaseException] = None
-    for sid in ids:
+    while True:
+        ids = ([int(snap_id)] if snap_id is not None else
+               sorted((int(p.name.split("_")[1])
+                       for p in directory.glob(SNAP_PREFIX + "*")
+                       if (p / "manifest.json").exists()), reverse=True))
+        untried = [sid for sid in ids if sid not in tried]
+        if not untried:
+            break
+        sid = untried[0]
+        tried.add(sid)
         path = directory / f"{SNAP_PREFIX}{sid:010d}"
         try:
             manifest = json.loads((path / "manifest.json").read_text())

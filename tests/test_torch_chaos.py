@@ -11,7 +11,7 @@ partition, dirty bits, RNG state, counters and probe answers, the same
 under any string-hash seed)."""
 import pytest
 
-from test_torch_replication import PORT, REF, _canon
+from test_torch_replication import PORT, REF, _canon, _late_snapshots, _sync_snapshots
 
 #: each canonical scenario's digest, from the JAX package's run
 DIGESTS = {
@@ -147,41 +147,6 @@ def _run_seeded(P, d, seed):
     sc = P.chaos.scenario("crash_storm")
     sc.seed = seed
     return P.chaos.ChaosHarness(d, sc, **P.loop_kw).run()
-
-
-def _sync_snapshots(monkeypatch, P):
-    """The package's snapshot on commit written on the caller's thread, so
-    a later bootstrap always reads it."""
-    save = P.snapshot.ServingSnapshotter.save
-    monkeypatch.setattr(P.snapshot.ServingSnapshotter, "save",
-                        lambda self, state, sync=True: save(self, state, True))
-
-
-def _late_snapshots(monkeypatch, P):
-    """The package's asynchronous snapshots published only when the next
-    save (or a wait) comes: a bootstrap in between reads the older one.
-    The background writer's worst case, without its timing."""
-    S = P.snapshot.ServingSnapshotter
-    save, wait = S.save, S.wait
-
-    def flush(self):
-        state = self.__dict__.pop("_late_state", None)
-        if state is not None:
-            save(self, state, True)
-
-    def late_save(self, state, sync=True):
-        flush(self)
-        if sync:
-            save(self, state, True)
-        else:
-            self._late_state = state
-
-    def late_wait(self, *args):
-        flush(self)
-        wait(self, *args)
-
-    monkeypatch.setattr(S, "save", late_save)
-    monkeypatch.setattr(S, "wait", late_wait)
 
 
 @pytest.mark.parametrize("seed", sorted(STORM_OFF_SEED))

@@ -1145,6 +1145,54 @@ def test_flash_attention_backward_kernel_matches_plain(card, dtype):
         assert bool((q.grad[:, dead.to(card)] == 0).all()), i
 
 
+#: the bf16 backward's tiles (128 keys a dv / dk block, q tiles of 128 and
+#: 64 rows, 128 q rows a dq block over 64-key stages) cut off the edge:
+#: Sq and Skv off the tiles and Sq != Skv both ways, windows across a tile
+#: edge, G = 1 / 2 / 4 / 8 at D = 64 and 128, rows that see no key
+#: (window 17 ends past Skv = 100; window 2 leaves the diagonal and one),
+#: and G = 8 at D = 64 with a non-causal window and Sq < Skv
+ATTN_BWD_TILE_CASES = [
+    (1, 300, 200, 2, 1, 128, True, None),
+    (1, 200, 300, 1, 2, 64, True, None),
+    (2, 257, 385, 2, 4, 128, False, 100),
+    (1, 385, 257, 1, 8, 64, True, 130),
+    (1, 300, 100, 2, 2, 128, False, 17),
+    (1, 129, 129, 4, 8, 128, True, 2),
+    (1, 513, 640, 1, 4, 64, True, 256),
+    (1, 250, 390, 2, 8, 64, False, 100),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_BWD_TILE_CASES)
+def test_flash_attention_backward_tiles_off_the_edge(card, case):
+    """The bf16 backward (wgmma + TMA at D <= 128) against the plain
+    backward on the same q, k, v, o, lse and output gradient, within
+    ATTN_BWD_TOL; rows with no valid key get exactly zero dq; a second
+    launch on the same inputs gives the same bits."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_backward
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_backward_reference, flash_attention_reference)
+
+    b, sq, skv, kv, g, d, causal, window = case
+    q, k, v = _attn_inputs(500 + sq, b, sq, skv, kv, g, d, torch.bfloat16, card)
+    do = next(_attn_inputs(600 + sq, b, sq, sq, kv * g, 1, d, torch.bfloat16, card))
+    o, lse = flash_attention_reference(q, k, v, causal, window, return_lse=True)
+    args = (q, k, v, o, lse, do, causal, window)
+    got = flash_attention_backward(*args)
+    again = flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_reference(*args)
+    for name, x, y, z in zip("qkv", got, want, again):
+        assert torch.equal(x, z), name
+        scale = float(y.float().abs().max())
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= ATTN_BWD_TOL[torch.bfloat16] * scale + 1e-6, (name, err, scale)
+    dead = ~torch.isfinite(lse[0, 0])
+    assert bool((got[0][:, dead] == 0).all())
+    if window == 17:
+        assert bool(dead.any())
+
+
 @pytest.mark.parametrize("d", [64, 17, 300])
 def test_embedding_bag_backward_kernel_bitwise_vs_cpu(card, d):
     """The table's gradient through the backward kernel

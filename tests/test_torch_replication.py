@@ -13,11 +13,15 @@ replica state, enumeration answers, the hub's and each follower's
 frames the port's hub ships for a fixed stream are the reference's.
 
 The helpers here (``PKGS``, ``_cluster``, ``_drive``, ``_state``,
-``_canon``) are shared with the other cluster test files."""
+``_canon``, and ``_sync_snapshots`` / ``_late_snapshots``, which pin a
+package's snapshot writer to one timing) are shared with the other cluster
+test files."""
 import importlib
 import types
+from pathlib import Path
 
 import numpy as np
+import pytest
 
 #: the two packages' module trees are the same, module for module
 _MODULES = {
@@ -65,6 +69,41 @@ def _both(scenario, tmp_path, *args, **kw):
     obs = [_canon(scenario(P, tmp_path / P.root, *args, **kw)) for P in PKGS]
     assert obs[1] == obs[0]
     return obs[1]
+
+
+def _sync_snapshots(monkeypatch, P):
+    """The package's snapshot on commit written on the caller's thread, so
+    a later bootstrap always reads it."""
+    save = P.snapshot.ServingSnapshotter.save
+    monkeypatch.setattr(P.snapshot.ServingSnapshotter, "save",
+                        lambda self, state, sync=True: save(self, state, True))
+
+
+def _late_snapshots(monkeypatch, P):
+    """The package's asynchronous snapshots published only when the next
+    save (or a wait) comes: a bootstrap in between reads the older one.
+    The background writer's worst case, without its timing."""
+    S = P.snapshot.ServingSnapshotter
+    save, wait = S.save, S.wait
+
+    def flush(self):
+        state = self.__dict__.pop("_late_state", None)
+        if state is not None:
+            save(self, state, True)
+
+    def late_save(self, state, sync=True):
+        flush(self)
+        if sync:
+            save(self, state, True)
+        else:
+            self._late_state = state
+
+    def late_wait(self, *args):
+        flush(self)
+        wait(self, *args)
+
+    monkeypatch.setattr(S, "save", late_save)
+    monkeypatch.setattr(S, "wait", late_wait)
 
 
 def _policy(P):
@@ -314,7 +353,7 @@ def test_retention_floor_slow_follower_survives_keep_1(tmp_path):
     _both(_retention_keep_1, tmp_path)
 
 
-def _dead_replica(P, tmp):
+def _dead_replica(P, tmp, before_rejoin=None):
     coord = _cluster(P, tmp, n_followers=1, snapshot_keep=1)
     f = coord.followers[1]
     _drive(P, coord, rounds=4, seed=7)
@@ -323,6 +362,8 @@ def _dead_replica(P, tmp):
     _drive(P, coord, rounds=24, seed=8)
     # compaction ran unclamped: the tail no longer reaches the dead replica
     assert coord.primary._journal.retain_floor is None
+    if before_rejoin is not None:
+        before_rejoin(coord)
     f.rejoin(reuse_state=True)
     for _ in range(4):
         coord.pump()
@@ -334,8 +375,45 @@ def _dead_replica(P, tmp):
     return out
 
 
-def test_dead_replica_does_not_pin_the_wal(tmp_path):
+@pytest.mark.parametrize("timing", ["sync", "late"])
+def test_dead_replica_does_not_pin_the_wal(tmp_path, monkeypatch, timing):
+    """Both packages' snapshot writes pinned to one timing: the rejoin's
+    full resync reads the newest snapshot (``sync``) or the one before it
+    (``late``), and the follower's counters follow which it read."""
+    pin = _sync_snapshots if timing == "sync" else _late_snapshots
+    for P in PKGS:
+        pin(monkeypatch, P)
     _both(_dead_replica, tmp_path)
+
+
+def test_rejoin_reads_the_snapshot_published_under_its_read(tmp_path, monkeypatch):
+    """A departure from the reference: the primary's snapshot writer
+    publishes between the rejoin's manifest read and its arrays read, and
+    at ``snapshot_keep=1`` collects the snapshot being read.  The port's
+    restore lists the directory again and reads the new snapshot, so the
+    run is the one with synchronous writes.  (The reference's restore
+    tried only the snapshots it listed first, and raised
+    ``FileNotFoundError``.)"""
+    with monkeypatch.context() as m:
+        _sync_snapshots(m, PORT)
+        expected = _canon(_dead_replica(PORT, tmp_path / "sync"))
+    _late_snapshots(monkeypatch, PORT)
+    read_bytes = Path.read_bytes
+    collected = []
+
+    def arm(coord):
+        def publish_then_read(path):
+            if path.name == "arrays.npz" and path.parent.name.startswith("snap_"):
+                monkeypatch.setattr(Path, "read_bytes", read_bytes)
+                coord.primary._snapshotter.wait()  # the late write lands
+                collected.append(not path.parent.exists())
+            return read_bytes(path)
+
+        monkeypatch.setattr(Path, "read_bytes", publish_then_read)
+
+    out = _dead_replica(PORT, tmp_path / "late", before_rejoin=arm)
+    assert collected == [True]
+    assert _canon(out) == expected
 
 
 # ---------------------------------------------------------------------------
@@ -453,9 +531,17 @@ def _shipped_frames(P, tmp):
     return {"sent": sent, "tail": tail, "parity": parity}
 
 
-def test_shipped_frames_equal_reference(tmp_path):
+@pytest.mark.parametrize("timing", ["sync", "late"])
+def test_shipped_frames_equal_reference(tmp_path, monkeypatch, timing):
     """Frame for frame — kind, epoch, seq, commit index, force flag and the
     payload (members' WAL bytes, commit state arrays, RNG state) — the
-    port's hub ships what the reference's ships."""
+    port's hub ships what the reference's ships.  Both packages' snapshot
+    writes are pinned to one timing: a background writer compacts the
+    journal when it finishes, so the retained journal, and the tail read
+    from it, would follow the writer's timing (compacted between the
+    journal's read and the tail's, the reference raised ``JournalGap``)."""
+    pin = _sync_snapshots if timing == "sync" else _late_snapshots
+    for P in PKGS:
+        pin(monkeypatch, P)
     out = _both(_shipped_frames, tmp_path)
     assert len(out["sent"]) > 30

@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""The embedding_bag, attention and vm_step kernels of this checkout
+"""The embedding_bag, attention, attention backward and vm_step kernels of this checkout
 against those of another checkout (for example its parent commit), on the
 GPU, at the main path's shapes.
 
 Run from the root of a checkout, on the machine with the card:
 
-    python3 tools/kernel_compare.py --other DIR
+    python3 tools/kernel_compare.py --other DIR [--plan NAME:CONST=VALUE[,...] ...]
 
 DIR is the root of the other checkout (``git archive`` of a commit unpacked
 into a git-ignored directory such as ``archive/parent``).  Both checkouts'
 ``csrc/embedding_bag.cu``, ``csrc/flash_attention_f32.cu``,
-``csrc/flash_attention_bf16.cu`` and ``csrc/vm_step.cu`` are built with nvcc (``sm_90a``) into the git-ignored
+``csrc/flash_attention_bf16.cu``, ``csrc/flash_attention_bwd.cu`` and ``csrc/vm_step.cu`` are built with nvcc (``sm_90a``) into the git-ignored
 ``kernels/build/compare/``, and each
 kernel is timed in turns (other, this, this, other) with CUDA events over
 back-to-back launches and, for the bag kernel, also as device time per
@@ -26,6 +26,10 @@ host-bound):
       causal, random float32 q, k, v, and flash_attention_bf16 on the same
       q, k, v in bf16 (the log-sum-exp pointer, where an entry point takes
       one, null: the serving path's launch);
+  flash_attention_bwd at qwen3-4b's training shape, 1 x 4,096 tokens, 32
+      query and 8 KV heads of 128, causal, bf16: random q, k, v and output
+      gradient, o and the row log-sum-exp from this checkout's forward
+      kernel;
   vm_step at the provgen invocation's shapes: provgen_like(1,000,000)'s
       dst-sorted CSR (its row plan), PQ1-4's 23-node trie, random alpha and
       weights, 57.5% of the edges live (path 1's share), alpha as many rows
@@ -34,8 +38,19 @@ host-bound):
 The two bag kernels and the two vm_step kernels must agree bit for bit
 (vm_step also with its plain version), and so must the two float32 and the
 two bf16 attention outputs; both float32 attention kernels within 2e-5 of
-the plain version.  Prints the card's name and power limit and one
-line per shape; exits non-zero without CUDA or nvcc.
+the plain version.  Each checkout's attention backward must give dq, dk
+and dv within 2^-7 of the largest plain gradient (plus 1e-6) of the plain
+backward, and the same bits on a second launch; the two checkouts'
+backwards are not held to each other's bits (their sums may run in other
+orders).  Each ``--plan`` builds this checkout's ``flash_attention_bwd.cu``
+once more with the named ``constexpr int`` constants of its tensor-core
+route replaced (its tile plan: ``kRowsV``, ``kStagesV``, ``kRowsK``,
+``kStagesK``, ``kKeysB``, ``kStagesB``), and the attention backward times
+and checks that build in the same turns, for example
+``--plan dv64:kRowsV=64 --plan k128:kRowsK=128``; a plan that does not
+build is reported and left out.  Prints each build's ptxas registers,
+spills and wgmma serialisation notes (C7512), the card's name and power
+limit and one line per shape; exits non-zero without CUDA or nvcc.
 """
 from __future__ import annotations
 
@@ -50,30 +65,60 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/kernels/csrc")
 OUT = ROOT / "src" / "repro_torch" / "kernels" / "build" / "compare"
-KERNELS = ("embedding_bag", "flash_attention_f32", "flash_attention_bf16", "vm_step")
+KERNELS = ("embedding_bag", "flash_attention_f32", "flash_attention_bf16",
+           "flash_attention_bwd", "vm_step")
 
 
-def build(roots):
-    """{(tag, kernel): library} for every checkout and kernel, nvcc in
+def plan_sources(specs):
+    """{name: source text} of this checkout's backward with each spec's
+    (``NAME:CONST=VALUE,...``) constants replaced."""
+    text = (ROOT / CSRC / "flash_attention_bwd.cu").read_text()
+    out = {}
+    for spec in specs:
+        name, _, subs = spec.partition(":")
+        plan = text
+        for sub in filter(None, subs.split(",")):
+            const, value = sub.split("=")
+            plan, n = re.subn(rf"constexpr int {const} = \d+;",
+                              f"constexpr int {const} = {int(value)};", plan)
+            if n != 1:
+                raise SystemExit(f"--plan {name}: the source has no constant {const}")
+        out[name] = plan
+    return out
+
+
+def build(roots, plans):
+    """{(tag, kernel): library} for every checkout and kernel, and
+    (plan, "flash_attention_bwd") for every plan that builds; nvcc in
     parallel."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
 
+    sources = {(tag, name): root / CSRC / f"{name}.cu"
+               for tag, root in roots.items() for name in KERNELS}
+    for name, text in plans.items():
+        (OUT / "plans").mkdir(parents=True, exist_ok=True)
+        sources[name, "flash_attention_bwd"] = OUT / "plans" / f"{name}.cu"
+        sources[name, "flash_attention_bwd"].write_text(text)
     procs = {}
-    for tag, root in roots.items():
-        (OUT / tag).mkdir(parents=True, exist_ok=True)
-        for name in KERNELS:
-            lib = OUT / tag / f"lib{name}.so"
-            procs[tag, name] = (lib, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(root / CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for key, src in sources.items():
+        (OUT / key[0]).mkdir(parents=True, exist_ok=True)
+        lib = OUT / key[0] / f"lib{key[1]}.so"
+        procs[key] = (lib, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (lib, proc) in procs.items():
         log, _ = proc.communicate()
+        if proc.returncode != 0 and key[0] in plans:
+            print(f"[build] plan {key[0]}: nvcc failed, left out: "
+                  f"{[line.strip()[:160] for line in log.splitlines() if 'error' in line][:2]}",
+                  flush=True)
+            continue
         if proc.returncode != 0:
             raise SystemExit(f"{key}: nvcc failed:\n{log}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C7512" in line:
                 print(f"[build] {key[0]} {key[1]}: {line.strip()}", flush=True)
         libs[key] = lib
     return libs
@@ -146,9 +191,11 @@ def device_ms(torch, fn, reps):
 
 
 def in_turns(torch, calls, reps, timer=time_ms):
-    """{tag: [ms, ms]} timed other, this, this, other."""
+    """{tag: [ms, ms]} timed other, this (, the plans), then in the
+    reverse order."""
+    order = ["other", "this"] + [tag for tag in calls if tag not in ("other", "this")]
     out = {tag: [] for tag in calls}
-    for tag in ("other", "this", "this", "other"):
+    for tag in order + order[::-1]:
         out[tag].append(timer(torch, calls[tag], reps))
     return out
 
@@ -157,6 +204,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", type=Path, required=True,
                         help="root of the other checkout")
+    parser.add_argument("--plan", action="append", default=[],
+                        help="NAME:CONST=VALUE[,...]: a tile plan of this checkout's "
+                             "attention backward, timed beside it")
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -173,7 +223,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(f"[device] {card}; torch {torch.__version__}", flush=True)
-    libs = build(roots)
+    libs = build(roots, plan_sources(args.plan))
     sys.path.insert(0, str(ROOT / "src"))
     import dataclasses
 
@@ -287,6 +337,61 @@ def main() -> int:
     if not (same and same_bf16):
         return 1
     del q, k, v, ref, outs
+    torch.cuda.empty_cache()
+
+    # --- flash_attention_bwd -----------------------------------------------
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_backward_reference
+
+    B, S = 1, 4096
+    q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = flash_attention_cuda("flash_attention_bf16", q, k, v, True, None, with_lse=True)
+    bwd = {}
+    for (tag, name), lib in libs.items():
+        if name != "flash_attention_bwd":
+            continue
+        bwd[tag] = ctypes.CDLL(str(lib)).flash_attention_bwd_launch
+        bwd[tag].argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                             + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+        bwd[tag].restype = ctypes.c_int
+    grads = {tag: [(torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+                   for _ in range(2)] for tag in bwd}
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+
+    def backward(tag, i=0):
+        dq, dk, dv = grads[tag][i]
+        err = bwd[tag](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                       lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       dv.data_ptr(), B, S, S, H, KV, D, 1, 1, 0, 0, 1.0 / math.sqrt(D), stream)
+        if err:
+            raise SystemExit(f"flash_attention_bwd ({tag}) launch failed: error {err}")
+
+    ms = in_turns(torch, {tag: (lambda tag=tag: backward(tag)) for tag in bwd}, 10)
+    for tag in bwd:
+        backward(tag, 1)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_reference(q, k, v, o, lse, do, True, None)
+    flops = 10 * D * (S * (S + 1) // 2) * B * H
+    print(f"[attn bwd] B={B} S={S} H={H} KV={KV} D={D} causal bf16: the bound "
+          f"{flops / 989e12 * 1e3:.4f} ms ({flops} FLOP at the bf16 tensor-core rate); {card}",
+          flush=True)
+    ok = True
+    for tag in bwd:
+        errs = [float((x.float() - y.float()).abs().max()) for x, y in zip(grads[tag][0], want)]
+        right = all(e <= 2.0 ** -7 * float(y.float().abs().max()) + 1e-6
+                    for e, y in zip(errs, want))
+        repeat = all(bool(torch.equal(x, y)) for x, y in zip(*grads[tag]))
+        ok = ok and right and repeat
+        print(f"[attn bwd] {tag}: ms per launch {' / '.join(f'{t:.4f}' for t in ms[tag])} "
+              f"({flops / min(ms[tag]) / 1e9:.1f} TFLOP/s); max_abs_err dq/dk/dv vs plain "
+              f"{'/'.join(f'{e:.3e}' for e in errs)} (within 2^-7 of the largest: {right}); "
+              f"equal to itself on a second launch: {repeat}; {card}", flush=True)
+    if not ok:
+        return 1
+    del q, k, v, o, lse, do, grads, delta, want
     torch.cuda.empty_cache()
 
     # --- vm_step -----------------------------------------------------------
