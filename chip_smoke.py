@@ -3642,7 +3642,9 @@ def _profile_step(torch, fn, top=0, kernels=0):
     operations, and of the top-level aten ops the host issued.  The busy
     time is None when the trace holds no device event.  With ``top``, also
     the ``top`` ops by self host time: (name, ms, calls); with ``kernels``,
-    the ``kernels`` device operations by summed time: (name, ms, count)."""
+    the ``kernels`` device operations by summed time: (name, ms, count);
+    ``syncs``, the host's CUDA synchronize calls and device-to-host copies
+    by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3662,6 +3664,12 @@ def _profile_step(torch, fn, top=0, kernels=0):
             end = b
     host_ops = sum(1 for e in events if e.device_type == DeviceType.CPU
                    and e.cpu_parent is None and e.name.startswith("aten::"))
+    syncs = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and (("Synchronize" in e.name and
+                                                 e.name.startswith("cuda"))
+                                                or "DtoH" in e.name):
+            syncs[e.name] = syncs.get(e.name, 0) + 1
     by_self = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:top]
     by_kernel = {}
     for e in events:
@@ -3670,7 +3678,7 @@ def _profile_step(torch, fn, top=0, kernels=0):
             by_kernel[e.name[:48]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:kernels]
     return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3 if spans else None,
-                device_ops=len(spans), host_ops=host_ops,
+                device_ops=len(spans), host_ops=host_ops, syncs=syncs,
                 top=[(a.key, a.self_cpu_time_total / 1e3, a.count) for a in by_self],
                 kernels=[(name, ms, n) for name, (ms, n) in ranked])
 
@@ -4691,7 +4699,8 @@ def train_dlrm(torch, device):
     from repro_torch.configs.base import DLRM_SHAPES
     from repro_torch.configs.registry import get_config
     from repro_torch.data.recsys import ClickLogPipeline
-    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
+    from repro_torch.kernels.embedding_bag.kernel import (BWD_ALL, BWD_LONG, BWD_ROWS,
+                                                          embedding_bag_backward_cuda)
     from repro_torch.kernels.embedding_bag.ref import (bag_gradient,
                                                        embedding_bag_backward_reference)
     from repro_torch.optim import AdamW
@@ -4747,19 +4756,31 @@ def train_dlrm(torch, device):
     del got, want
     torch.cuda.empty_cache()
     # the kernel at the path's shapes: the id-sorted CSR made once, then
-    # the launch alone; beside it the wrapper (sort included), the plain
-    # backward and F.embedding_bag's backward on the same table and ids
+    # the launch alone and each of its two kernels alone; beside it the
+    # wrapper (its CSR included) with its prep by kernel, the plain backward
+    # and F.embedding_bag's backward on the same table and ids
     B, H = ids.shape
     g = bag_gradient(g_out, H, combiner)
-    row_ptr, bag = bag_ops.slot_csr(ids, V)
-    hot = bag_ops.long_rows(row_ptr)
+    row_ptr, bag, runs = bag_ops.slot_csr(ids, V)
+    hot = bag_ops.long_rows(row_ptr, B * H)
     lengths = row_ptr[1:] - row_ptr[:-1]
+    E = int(row_ptr[-1])
     named, longest = int((lengths > 0).sum()), int(lengths.max())
+    n_long = int((lengths > bag_ops.LONG_SLOTS).sum())
+    n_runs = int(runs[0][E - 1]) + 1 if E else 0   # the rows' runs: the first in entry order
     del lengths
-    ms = _time_ms(torch, lambda: embedding_bag_backward_cuda(g, row_ptr, bag, hot,
-                                                             bag_ops.LONG_SLOTS), 5)
+
+    def launch(parts=BWD_ALL):
+        return embedding_bag_backward_cuda(g, row_ptr, bag, runs, hot, bag_ops.LONG_SLOTS,
+                                           parts)
+
+    ms = _time_ms(torch, launch, 5)
+    long_ms = _time_ms(torch, lambda: launch(BWD_LONG), 5)
+    rows_ms = _time_ms(torch, lambda: launch(BWD_ROWS), 5)
     wrapper_ms = _time_ms(torch, lambda: bag_ops.embedding_bag_backward(g_out, ids, V,
                                                                         combiner), 3)
+    prep = _profile_step(torch, lambda: bag_ops.embedding_bag_backward(g_out, ids, V,
+                                                                       combiner), kernels=12)
     plain_ms = _time_ms(torch, lambda: embedding_bag_backward_reference(g_out, ids, V,
                                                                         combiner), 1)
     table = params["embedding"].detach().requires_grad_()
@@ -4769,16 +4790,24 @@ def train_dlrm(torch, device):
     del out, table
     bytes_moved = 4 * (B * d + B * H + V * d)
     bound_ms, bound_by = _bound(bytes_moved, B * H * d)
+    yard_ms = 4 * (V * d + n_runs * d + (V + 1) + E) / PEAK_BYTES_S * 1e3
     log(f"[train] embedding_bag backward at {B} bags x H={H}, d={d}, V={V}: kernel "
         f"{ms:.4f} ms a launch ({bound_ms / ms:.3f} of the bound; {named} rows named, "
-        f"{hot.shape[0]} past {bag_ops.LONG_SLOTS} slots on the long-row kernel, the "
-        f"longest summed over {longest} slots in order), through the wrapper with its "
-        f"sort {wrapper_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, F.embedding_bag backward {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({bytes_moved} B: the dense gradient written "
-        f"once); mean step after the first {sum(times[1:]) / len(times[1:]):.4f} s; "
-        f"{device_line()}")
-    del params, g, row_ptr, bag, hot, rec
+        f"{n_long} past {bag_ops.LONG_SLOTS} slots on the long-row kernel, the longest "
+        f"summed over {longest} slots in order; {n_runs} runs of equal bag, one gather each); "
+        f"alone: the long-row kernel {long_ms:.4f} ms, the rows kernel {rows_ms:.4f} ms; "
+        f"gather yardstick {yard_ms:.4f} ms (the dense write, one g row a run, the CSR "
+        f"read, at {PEAK_BYTES_S / 1e12:.2f} TB/s); through the wrapper with its CSR "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, F.embedding_bag backward "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({bytes_moved} B: the "
+        f"dense gradient written once); mean step after the first "
+        f"{sum(times[1:]) / len(times[1:]):.4f} s; {device_line()}")
+    log(f"[train] embedding_bag backward's wrapper under the profiler: {prep['wall_ms']:.4f} "
+        f"ms, device busy {prep['busy_ms']:.4f} ms in {prep['device_ops']} device ops, "
+        f"host syncs and device-to-host copies {prep['syncs']} (the profile's own closing "
+        f"synchronize included); device ms by "
+        f"kernel: {'; '.join(f'{n} {t:.4f} ({c})' for n, t, c in prep['kernels'])}")
+    del params, g, row_ptr, bag, runs, hot, rec
     torch.cuda.empty_cache()
     return dict(launches=counts["embedding_bag/bwd"], ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, err=err,

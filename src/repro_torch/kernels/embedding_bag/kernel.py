@@ -56,24 +56,35 @@ def _bwd_launcher():
     from repro_torch.kernels.build import load
 
     fn = load("embedding_bag_bwd").embedding_bag_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+#: ``parts`` of the backward: the long-row kernel alone, the rows kernel
+#: alone (each leaves the other's rows unwritten), both
+BWD_LONG, BWD_ROWS, BWD_ALL = 1, 2, 3
+
+
 def embedding_bag_backward_cuda(g: torch.Tensor, row_ptr: torch.Tensor, bag: torch.Tensor,
-                                long_rows: torch.Tensor, long_slots: int) -> torch.Tensor:
-    """Launch the backward kernels; the (V + 1) ``row_ptr``, ``bag`` and
-    ``long_rows`` (the rows with more than ``long_slots`` slots) come from
-    ``ops.embedding_bag_backward``.  Returns the dense (V, d) gradient."""
+                                runs, long_rows: torch.Tensor, long_slots: int,
+                                parts: int = BWD_ALL) -> torch.Tensor:
+    """Launch the backward kernels; the (V + 1) ``row_ptr``, ``bag``, the
+    ``runs`` (``run_of``, ``run_bag``, ``run_len``) and ``long_rows`` (the
+    rows with more than ``long_slots`` slots, longest first, maybe followed
+    by -1) come from ``ops.embedding_bag_backward``.  Returns the dense
+    (V, d) gradient; ``parts`` other than ``BWD_ALL`` launch one kernel
+    alone, for timing."""
     V, d = row_ptr.shape[0] - 1, g.shape[1]
     out = torch.empty((V, d), dtype=torch.float32, device=g.device)
     vec = 4 if d % 4 == 0 and g.data_ptr() % 16 == 0 else 1
+    run_of, run_bag, run_len = runs
     with torch.cuda.device(g.device):
         err = _bwd_launcher()(
-            g.data_ptr(), row_ptr.data_ptr(), bag.data_ptr(), long_rows.data_ptr(),
-            long_rows.shape[0], out.data_ptr(), V, d, vec, long_slots,
+            g.data_ptr(), row_ptr.data_ptr(), bag.data_ptr(), run_of.data_ptr(),
+            run_bag.data_ptr(), run_len.data_ptr(), long_rows.data_ptr(), long_rows.shape[0],
+            out.data_ptr(), V, d, vec, long_slots, parts,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise KernelError(f"embedding_bag_bwd kernel launch failed: CUDA error {err}")

@@ -11,8 +11,9 @@ from repro_torch.kernels.embedding_bag.ref import (
 
 COMBINERS = ("sum", "mean")
 #: the backward's rows with more slots than this go to its long-row kernel
-#: (a block a row, the row's gathers staged in shared memory)
-LONG_SLOTS = 4096
+#: (a producer warp feeding the row's distinct gathers through a ring in
+#: shared memory to a thread a column), launched ahead of the rest
+LONG_SLOTS = 32
 
 
 def _check(table: torch.Tensor, ids: torch.Tensor, combiner: str) -> None:
@@ -98,9 +99,9 @@ def embedding_bag_backward(g_out: torch.Tensor, ids: torch.Tensor, V: int,
     (``csrc/embedding_bag_bwd.cu``) over a CSR whose rows are table rows and
     whose entries are the valid slots' bags, sorted stably by id (a
     ``torch.sort`` before the launch): each table row is owned and written
-    once, by a lane group or, past ``LONG_SLOTS`` slots, by a block that
-    stages the row's gathers in shared memory; empty rows are 0; no
-    atomics.  CPU tensors go to the plain version."""
+    once, by the rows kernel or, past ``LONG_SLOTS`` slots, by the long-row
+    kernel launched ahead of it; empty rows are 0; no atomics, and no
+    device-to-host sync.  CPU tensors go to the plain version."""
     B, H = ids.shape
     if g_out.shape != (B, g_out.shape[1]) or g_out.dim() != 2 or g_out.device != ids.device:
         raise ValueError(f"embedding_bag_backward: g_out must be ({B}, d) on the ids' "
@@ -111,41 +112,62 @@ def embedding_bag_backward(g_out: torch.Tensor, ids: torch.Tensor, V: int,
         return embedding_bag_backward_reference(g_out, ids, V, combiner)
     if g_out.device.type != "cuda":
         raise ValueError(f"embedding_bag_backward: no kernel for device {g_out.device}")
-    if B * H >= 2**31 or V >= 2**31:
+    if B * H >= 2**31 or V >= 2**31 - 1:
         raise ValueError("embedding_bag_backward: the CSR's int32 offsets take fewer "
                          "than 2**31 slots and rows")
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_backward_cuda
 
     g = bag_gradient(g_out, H, combiner)
-    row_ptr, bag = slot_csr(ids, V)
-    out = embedding_bag_backward_cuda(g, row_ptr, bag, long_rows(row_ptr), LONG_SLOTS)
+    row_ptr, bag, runs = slot_csr(ids, V)
+    out = embedding_bag_backward_cuda(g, row_ptr, bag, runs, long_rows(row_ptr, B * H),
+                                      LONG_SLOTS)
     with LAUNCH_LOCK:
         embedding_bag_backward.launches += 1
     return out
 
 
-def long_rows(row_ptr: torch.Tensor) -> torch.Tensor:
+def long_rows(row_ptr: torch.Tensor, n_slots: int) -> torch.Tensor:
     """The rows of the backward's CSR with more than ``LONG_SLOTS`` slots,
-    longest first (int32): the backward's long-row kernel owns them."""
+    longest first (ties by row), then -1 up to a fixed length: the most
+    such rows ``n_slots`` slots can make (int32).  Sized without reading
+    the device, so the launch waits on nothing; the backward's long-row
+    kernel owns these rows."""
+    cap = n_slots // (LONG_SLOTS + 1)
+    if cap == 0:
+        return torch.empty(0, dtype=torch.int32, device=row_ptr.device)
     lengths = row_ptr[1:] - row_ptr[:-1]
-    rows = torch.nonzero(lengths > LONG_SLOTS).squeeze(1)
-    order = torch.sort(lengths[rows], descending=True, stable=True).indices
-    return rows[order].to(torch.int32).contiguous()
+    rows = torch.nonzero_static(lengths > LONG_SLOTS, size=cap, fill_value=-1).squeeze(1)
+    key = torch.where(rows >= 0, lengths[rows.clamp(min=0)], -1)
+    return rows[torch.sort(key, descending=True, stable=True).indices].to(torch.int32)
 
 
 def slot_csr(ids: torch.Tensor, V: int):
-    """The backward's CSR over the ``V`` table rows: ``(row_ptr, bag)``,
-    int32, row r's entries the bags of the slots whose id is r, in slot
-    order (a stable sort of the valid slots by id).  Raw tensors, not a
-    ``segment_spmm.ops.EdgeCSR``: the launch needs neither its checks nor
-    its row plan, a numpy pass over all ``V`` rows."""
+    """The backward's CSR over the ``V`` table rows: ``(row_ptr, bag,
+    (run_of, run_bag, run_len))``, int32.  Row r's entries are the bags of
+    the slots whose id is r, in slot order (a stable sort of every slot by
+    id, the ids outside ``[0, V)`` keyed V, past every row: ``bag`` has an
+    entry for each slot, and ``row_ptr[V]`` of them are the rows').  A run
+    is a longest stretch of entries of one row with one bag: ``run_of[e]``
+    numbers entry e's run (runs in entry order), ``run_bag`` and
+    ``run_len`` give each run's bag and length (0 past the last run).  Raw
+    tensors, not a ``segment_spmm.ops.EdgeCSR``: the launch needs neither
+    its checks nor its row plan, a numpy pass over all ``V`` rows.  No
+    device-to-host sync."""
     H = ids.shape[1]
     flat = ids.reshape(-1)
-    slot = torch.nonzero((flat >= 0) & (flat < V)).squeeze(1)
-    rows, order = torch.sort(flat[slot], stable=True)
-    row_ptr = torch.zeros(V + 1, dtype=torch.int64, device=ids.device)
-    torch.cumsum(torch.bincount(rows, minlength=V), 0, out=row_ptr[1:])
-    return row_ptr.to(torch.int32), (slot[order] // H).to(torch.int32)
+    n = flat.numel()
+    key = torch.where((flat >= 0) & (flat < V), flat, V)
+    rows, order = torch.sort(key, stable=True)
+    row_ptr = torch.searchsorted(
+        rows, torch.arange(V + 1, dtype=rows.dtype, device=ids.device), out_int32=True)
+    bag = torch.div(order, H, rounding_mode="floor").to(torch.int32)
+    head = torch.ones(n, dtype=torch.bool, device=ids.device)
+    head[1:] = (rows[1:] != rows[:-1]) | (bag[1:] != bag[:-1])
+    run_of = torch.cumsum(head, 0, dtype=torch.int32) - 1
+    starts = torch.nonzero_static(head, size=n, fill_value=n).squeeze(1)
+    run_len = torch.diff(starts, append=starts.new_full((1,), n)).to(torch.int32)
+    run_bag = bag[starts.clamp(max=max(n - 1, 0))] if n else bag
+    return row_ptr, bag, (run_of, run_bag, run_len)
 
 
 #: backward kernel launches since the last reset (CPU calls do not count)

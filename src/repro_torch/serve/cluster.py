@@ -108,7 +108,9 @@ class ClusterRouter:
 
     def __init__(self, coord: "ClusterCoordinator"):
         self.coord = coord
-        self._owner_key: Optional[Tuple[int, int]] = None
+        #: the partition vector the owner map was folded from, held so a
+        #: rebound vector can never pass for it
+        self._owner_part: Optional[np.ndarray] = None
         self._owner_of: Optional[np.ndarray] = None
         self.routed = 0
         self.routed_by_slot: Dict[int, int] = {}
@@ -136,13 +138,16 @@ class ClusterRouter:
 
     def owners(self) -> np.ndarray:
         """Per-vertex owning replica slot under the current primary
-        partition (cached until the partition vector is rebound)."""
+        partition (cached until the partition vector is rebound).  The
+        cache holds the vector it was folded from and compares identity:
+        a key of ``id(part)`` (the reference's) passes a rebound vector
+        that took the freed one's address for it, and serves the old
+        owners."""
         part = self.coord.primary.ot.part
-        key = (id(part), len(part))
-        if self._owner_key != key:
+        if self._owner_part is not part:
             self._owner_of = shard_assignment(
                 part, self.coord.n_replicas, block_n=self.coord.cfg.block_n)
-            self._owner_key = key
+            self._owner_part = part
         return self._owner_of
 
     def route(self, query) -> int:

@@ -9,6 +9,9 @@ its report — digest, counters, fired faults — must be the port's, and the
 digest must be the constant pinned below (SHA-256 over graph arrays,
 partition, dirty bits, RNG state, counters and probe answers, the same
 under any string-hash seed)."""
+import functools
+
+import numpy as np
 import pytest
 
 from test_torch_replication import PORT, REF, _canon, _late_snapshots, _sync_snapshots
@@ -50,12 +53,109 @@ def _report(r):
                    "faults": r.faults_fired, "stats": stats})
 
 
-def _run_both(tmp_path, name):
-    """The port's report, after holding it to the reference's and its
-    digest to the pinned constant."""
+def _journal_span(hub):
+    """The hub's journal's first and last seq (None without a journal)."""
+    if hub.journal is None:
+        return None
+    groups = hub.journal.replay(after_seq=0)
+    return (groups[0][0] if groups else None, int(hub.journal.last_seq))
+
+
+def _record_rejoins(monkeypatch, P):
+    """Notes of each follower re-bootstrap of package ``P``, taken by
+    wrappers that call the originals: the replica, the snapshot restored
+    (its id, its ``journal_seq``, the journal batches the restore itself
+    replayed), the journal's first and last seq when the tail is read, and
+    the frames ``hub.tail`` returned or the ``JournalGap`` it raised."""
+    notes = []
+    rep_cls, gap = P.replication.FollowerReplica, P.replication.JournalGap
+    restore = P.replication.restore_serving_state
+
+    def noted_restore(*args, **kw):
+        res = restore(*args, **kw)
+        if notes and "_hub" in notes[-1] and "snapshot" not in notes[-1]:
+            notes[-1]["snapshot"] = (res.snap_id, int(res.manifest["journal_seq"]),
+                                     res.replayed)
+        return res
+
+    def noted_tail(hub_tail, note, after_seq, after_commit_index):
+        note["tail_from"] = (int(after_seq), int(after_commit_index))
+        note["journal_at_tail"] = _journal_span(note["_hub"])
+        try:
+            frames = hub_tail(after_seq, after_commit_index)
+        except gap:
+            note["journal_gap"] = True
+            raise
+        note["frames"] = [f.kind for f in frames]
+        return frames
+
+    rebootstrap = rep_cls._rebootstrap
+
+    def noted_rebootstrap(self):
+        note = {"replica": self.name, "applied_seq_before": self.applied_seq,
+                "journal_at_start": _journal_span(self.hub), "_hub": self.hub}
+        notes.append(note)
+        self.hub.tail = functools.partial(noted_tail, type(self.hub).tail.__get__(self.hub),
+                                          note)
+        try:
+            rebootstrap(self)
+        finally:
+            del self.hub.tail
+            note.pop("_hub", None)
+        note["applied_seq_after"] = self.applied_seq
+
+    monkeypatch.setattr(P.replication, "restore_serving_state", noted_restore)
+    monkeypatch.setattr(rep_cls, "_rebootstrap", noted_rebootstrap)
+    if hasattr(rep_cls, "_replay_tail"):       # the port's tail after its restore
+        replay_tail = rep_cls._replay_tail
+
+        def noted_replay_tail(self):
+            if notes and "_hub" in notes[-1]:
+                notes[-1]["replay_from"] = self.applied_seq
+            return replay_tail(self)
+
+        monkeypatch.setattr(rep_cls, "_replay_tail", noted_replay_tail)
+    return notes
+
+
+def _owners_by_identity(self):
+    """The port's ``ClusterRouter.owners``: the owner map cached against
+    the partition vector itself, not its ``id``."""
+    part = self.coord.primary.ot.part
+    if getattr(self, "_owner_part", None) is not part:
+        self._owner_of = REF.cluster.shard_assignment(
+            part, self.coord.n_replicas, block_n=self.coord.cfg.block_n)
+        self._owner_part = part
+    return self._owner_of
+
+
+def _pin_owner_cache(monkeypatch):
+    """The reference's router keyed its owner map by ``id(part)``: a
+    partition vector rebound at the freed one's address (CPython reuses
+    them; when, follows the allocations of the background snapshot writer)
+    kept the old owners, and its ``cross_replica_ipt`` parted from the
+    port's (411 against 425 in the crash storm).  Pinned to the port's
+    identity cache, as the snapshot writers are pinned elsewhere."""
+    monkeypatch.setattr(REF.cluster.ClusterRouter, "owners", _owners_by_identity)
+
+
+def _run_both(tmp_path, name, monkeypatch):
+    """The port's report, after holding it to the reference's (its owner
+    cache pinned, :func:`_pin_owner_cache`) and its digest to the pinned
+    constant.  Each package's follower re-bootstraps are noted
+    (:func:`_record_rejoins`) and printed, with the stats that differ,
+    when the reports differ."""
+    _pin_owner_cache(monkeypatch)
+    notes = {P.root: _record_rejoins(monkeypatch, P) for P in (PORT, REF)}
     port, ref = _run(PORT, tmp_path, name), _run(REF, tmp_path, name)
     _assert_green(port)
     _assert_green(ref)
+    if _report(port) != _report(ref):
+        a, b = _report(port)["stats"], _report(ref)["stats"]
+        print("stats that differ (port, reference):",
+              {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b)) if a.get(k) != b.get(k)})
+        for root, n in notes.items():
+            print(f"{root} re-bootstraps: {n}")
     assert _report(port) == _report(ref)
     assert port.digest == ref.digest == DIGESTS[name]
     return port
@@ -66,16 +166,16 @@ def _run_both(tmp_path, name):
 # ---------------------------------------------------------------------------
 
 
-def test_crash_storm_survives_and_converges(tmp_path):
-    r = _run_both(tmp_path, "crash_storm")
+def test_crash_storm_survives_and_converges(tmp_path, monkeypatch):
+    r = _run_both(tmp_path, "crash_storm", monkeypatch)
     assert r.failovers == 1 and r.rejoins >= 1
     assert r.epoch == 2
     assert r.faults_fired.get("replica_apply:replica-2") == 1
     assert r.final_seq >= r.watermark_seq
 
 
-def test_slow_follower_breaker_routes_around(tmp_path):
-    r = _run_both(tmp_path, "slow_follower")
+def test_slow_follower_breaker_routes_around(tmp_path, monkeypatch):
+    r = _run_both(tmp_path, "slow_follower", monkeypatch)
     # the permanently failing replica tripped its serve breaker, and the
     # cooldown (virtual clock) re-admitted it after the fault cleared
     assert r.breaker_trips >= 1
@@ -84,18 +184,41 @@ def test_slow_follower_breaker_routes_around(tmp_path):
     assert r.stats["breakers_open"] == 0  # closed again by quiesce
 
 
-def test_flash_crowd_sheds_and_recovers(tmp_path):
-    r = _run_both(tmp_path, "flash_crowd")
+def test_flash_crowd_sheds_and_recovers(tmp_path, monkeypatch):
+    r = _run_both(tmp_path, "flash_crowd", monkeypatch)
     assert r.shed_raises >= 1  # brownout engaged under the 4x surge
     assert r.stats["rejected_brownout"] > 0  # cold traffic actually shed
     assert r.stats["shed_level"] == 0  # admission re-opened at quiesce
 
 
-def test_partition_heal_fences_and_rejoins(tmp_path):
-    r = _run_both(tmp_path, "partition_heal")
+def test_partition_heal_fences_and_rejoins(tmp_path, monkeypatch):
+    r = _run_both(tmp_path, "partition_heal", monkeypatch)
     assert r.failovers == 1 and r.rejoins == 1
     assert r.epoch == 2
     assert r.final_seq >= r.watermark_seq
+
+
+def test_router_owners_follow_a_partition_rebound_at_a_reused_id(tmp_path, monkeypatch):
+    """The crash-storm twin's rare split: a primary partition vector
+    rebound to a new array at the freed one's ``id`` (forced here: every
+    ``id`` in the cluster module the same) leaves the reference's router
+    with the old owner map; the port's holds the vector it folded and
+    folds the new one."""
+    for P in (PORT, REF):
+        h = P.chaos.ChaosHarness(tmp_path / P.root, P.chaos.scenario("crash_storm"),
+                                 **P.loop_kw)
+        router, ot = h.coord.router, h.coord.primary.ot
+        monkeypatch.setattr(P.cluster, "id", lambda obj: 0, raising=False)
+        before = router.owners().copy()
+        ot.part = np.random.default_rng(5).permutation(ot.part)   # vertices move
+        fresh = P.cluster.shard_assignment(ot.part, h.coord.n_replicas,
+                                           block_n=h.coord.cfg.block_n)
+        assert not np.array_equal(fresh, before)
+        if P is PORT:
+            assert np.array_equal(router.owners(), fresh)
+        else:
+            assert np.array_equal(router.owners(), before)  # the reference's stale map
+        h.coord.stop()
 
 
 # ---------------------------------------------------------------------------

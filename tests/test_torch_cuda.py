@@ -1228,6 +1228,71 @@ def test_embedding_bag_backward_kernel_bitwise_vs_cpu(card, d):
         assert bool((want[V // 2:] == 0).all())
 
 
+#: the bag backward's companion cases (:func:`bag_bwd_case`), also held on
+#: the CPU to the plain backward's order (``test_torch_embedding_bag.py``)
+BAG_BWD_CASES = ("repeated", "repeated_d17", "interleaved", "threshold", "unnamed", "wide")
+
+
+def bag_bwd_case(name):
+    """``(ids (B, H) int32, g (B, d) float32, V)`` on the CPU, seeded:
+    * ``repeated``: ClickLogPipeline's shape, each bag's one id in all H = 8
+      slots (a row's entries in runs of 8), half the bags' ids zipf-like
+      over the first 400 rows so two rows pass LONG_SLOTS, and most rows
+      unnamed; ``repeated_d17`` the same at d = 17 (scalar lanes);
+    * ``interleaved``: a long row (id 5) whose runs of 4 interleave with
+      single slots and with other rows' slots;
+    * ``threshold``: rows of exactly LONG_SLOTS slots (id 3) and one past
+      it (id 4), one under it (id 6), at random slots (some bags hold the
+      same id twice: runs of 2);
+    * ``unnamed``: only -1 and past-the-table ids: no row is named;
+    * ``wide``: ``repeated`` at d = 300, wider than a long-row task."""
+    from repro_torch.kernels.embedding_bag.ops import LONG_SLOTS
+
+    rng = np.random.default_rng(BAG_BWD_CASES.index(name) + 40)
+    d = {"repeated_d17": 17, "wide": 300}.get(name, 64)
+    if name in ("repeated", "repeated_d17", "wide"):
+        V, B, H = 4000, 8000, 8
+        row = np.where(np.arange(B) % 2 == 0, (400 * rng.random(B) ** 3).astype(np.int64),
+                       rng.integers(0, V, B))
+        ids = np.repeat(row[:, None], H, axis=1)
+    elif name == "interleaved":
+        V, B, H = 3000, 2400, 4
+        ids = rng.integers(0, V, (B, H))
+        ids[0::3] = 5                                      # runs of 4
+        ids[1::3, 0] = 5                                   # single slots
+    elif name == "threshold":
+        V, B, H = 2000, 2000, 2
+        flat = rng.integers(10, V, B * H)
+        at = rng.permutation(B * H)                        # bags with both slots
+        n = (LONG_SLOTS, LONG_SLOTS + 1, LONG_SLOTS - 1)   # on one id make runs of 2
+        flat[at[:n[0]]] = 3
+        flat[at[n[0]:n[0] + n[1]]] = 4
+        flat[at[n[0] + n[1]:sum(n)]] = 6
+        ids = flat.reshape(B, H)
+    else:
+        V, B, H = 1000, 500, 3
+        ids = np.where(rng.random((B, H)) < 0.5, -1, V + rng.integers(0, 9, (B, H)))
+    g = torch.as_tensor(rng.normal(size=(B, d)), dtype=torch.float32)
+    return torch.as_tensor(ids.astype(np.int32)), g, V
+
+
+@pytest.mark.parametrize("name", BAG_BWD_CASES)
+def test_embedding_bag_backward_kernel_cases_bitwise_vs_cpu(card, name):
+    """The backward kernel on each of :func:`bag_bwd_case`'s cases: the CPU
+    plain backward's bits, for sum and mean, one launch each."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_backward
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_reference
+
+    ids, g, V = bag_bwd_case(name)
+    for combiner in ("sum", "mean"):
+        want = embedding_bag_backward_reference(g, ids, V, combiner)
+        before = embedding_bag_backward.launches
+        got = embedding_bag_backward(g.to(card), ids.to(card), V, combiner)
+        torch.cuda.synchronize()
+        assert embedding_bag_backward.launches == before + 1
+        assert torch.equal(got.cpu(), want), (name, combiner)
+
+
 @pytest.mark.parametrize("F", [16, 100, 17])
 def test_segment_spmm_backward_kernel_bitwise_vs_cpu(card, F):
     """x's gradient through the kernel over the transposed CSR (cached on

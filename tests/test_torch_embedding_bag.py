@@ -96,3 +96,93 @@ def test_embedding_bag_has_no_plain_fallback_off_the_cpu():
     ids = torch.empty(2, 3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         embedding_bag(table, ids)
+
+
+# ---------------------------------------------------------------------------
+# the backward's CSR: what the backward kernel sums over, in what order
+# ---------------------------------------------------------------------------
+
+
+def _emulate_backward(g, row_ptr, bag, runs, lr):
+    """The backward kernel's arithmetic on the CPU, from its CSR: each row
+    summed in slot order from 0, one float32 add a slot, one gather a run
+    of equal bag.  The rows in ``lr`` (up to its first -1) as the long-row
+    kernel takes them, from the run list (``run_of`` of the row's first and
+    last entries bound its runs; each run's ``run_bag`` added ``run_len``
+    times); the others, with at most LONG_SLOTS slots, as the rows kernel
+    takes them, from ``bag``, a new gather where the bag changes.  Returns
+    the gradient and the gathers made."""
+    from repro_torch.kernels.embedding_bag.ops import LONG_SLOTS
+
+    g, row_ptr, bag = g.numpy(), row_ptr.numpy(), bag.numpy()
+    run_of, run_bag, run_len = (t.numpy() for t in runs)
+    long_set = {int(r) for r in lr.numpy() if r >= 0}
+    out = np.zeros((row_ptr.shape[0] - 1, g.shape[1]), np.float32)
+    gathers = 0
+    for r in np.nonzero(np.diff(row_ptr))[0]:
+        e0, e1 = row_ptr[r], row_ptr[r + 1]
+        assert (e1 - e0 > LONG_SLOTS) == (int(r) in long_set)   # one path a row
+        acc = np.zeros(g.shape[1], np.float32)
+        if int(r) in long_set:
+            for j in range(run_of[e0], run_of[e1 - 1] + 1):
+                cur = g[run_bag[j]]
+                gathers += 1
+                for _ in range(run_len[j]):
+                    acc = acc + cur
+        else:
+            prev = -1
+            for e in range(e0, e1):
+                if bag[e] != prev:
+                    cur, prev = g[bag[e]], bag[e]
+                    gathers += 1
+                acc = acc + cur
+        out[r] = acc
+    return torch.as_tensor(out), gathers
+
+
+@pytest.mark.parametrize("name", ["repeated", "repeated_d17", "interleaved", "threshold",
+                                  "unnamed", "wide"])
+def test_backward_csr_holds_the_plain_order(name):
+    """``slot_csr`` / ``long_rows`` on the CPU for the CUDA companion test's
+    cases (``test_torch_cuda.py::bag_bwd_case``): row r lists the bags of
+    the slots naming r in slot order, ids outside the table past row V;
+    the runs of equal bag within a row, in entry order, spell ``bag`` out
+    again; ``long_rows`` the rows past LONG_SLOTS, longest first (ties by
+    row), then -1 to its fixed length; and the kernel's arithmetic over
+    them, one gather a run, is the plain backward's bit for bit."""
+    from test_torch_cuda import bag_bwd_case
+
+    from repro_torch.kernels.embedding_bag.ops import LONG_SLOTS, long_rows, slot_csr
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_reference
+
+    ids, g, V = bag_bwd_case(name)
+    B, H = ids.shape
+    row_ptr, bag, runs = slot_csr(ids, V)
+    assert row_ptr.dtype == bag.dtype == torch.int32
+    assert all(t.dtype == torch.int32 and t.shape == (B * H,) for t in runs)
+    assert row_ptr.shape == (V + 1,) and bag.shape == (B * H,)
+    flat = ids.reshape(-1).numpy()
+    valid = (flat >= 0) & (flat < V)
+    assert int(row_ptr[V]) == int(valid.sum())
+    for r in np.unique(flat[valid]):
+        slots = np.nonzero(flat == r)[0]
+        assert np.array_equal(bag[row_ptr[r]:row_ptr[r + 1]].numpy(), slots // H)
+    lengths = np.diff(row_ptr.numpy())
+    assert int((lengths > 0).sum()) == len(np.unique(flat[valid]))
+    lr = long_rows(row_ptr, B * H)
+    cap = B * H // (LONG_SLOTS + 1)
+    past = np.nonzero(lengths > LONG_SLOTS)[0]
+    want = past[np.argsort(-lengths[past], kind="stable")]
+    assert lr.dtype == torch.int32 and lr.shape == (cap,)
+    assert np.array_equal(lr.numpy(), np.concatenate([want, -np.ones(cap - len(want))]))
+    if name == "threshold":
+        assert lr.numpy().tolist()[:1] == [4] and 3 not in lr.numpy()
+    run_of, run_bag, run_len = (t.numpy() for t in runs)
+    n_runs = int(run_of[-1]) + 1 if B * H else 0
+    assert np.array_equal(np.repeat(run_bag[:n_runs], run_len[:n_runs]), bag.numpy())
+    assert np.array_equal(np.repeat(np.arange(n_runs), run_len[:n_runs]), run_of)
+    assert not run_len[n_runs:].any()
+    got, gathers = _emulate_backward(g, row_ptr, bag, runs, lr)
+    assert torch.equal(got, embedding_bag_backward_reference(g, ids, V))
+    if name.startswith("repeated") or name == "wide":
+        assert gathers == B                                # one gather a bag

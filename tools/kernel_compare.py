@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""The embedding_bag, attention, attention backward and vm_step kernels of this checkout
-against those of another checkout (for example its parent commit), on the
-GPU, at the main path's shapes.
+"""The embedding_bag, attention, attention backward, embedding_bag backward and
+vm_step kernels of this checkout against those of another checkout (for
+example its parent commit), on the GPU, at the main path's shapes.
 
 Run from the root of a checkout, on the machine with the card:
 
     python3 tools/kernel_compare.py --other DIR [--plan NAME:CONST=VALUE[,...] ...]
+                                    [--only SECTION ...]
 
 DIR is the root of the other checkout (``git archive`` of a commit unpacked
 into a git-ignored directory such as ``archive/parent``).  Both checkouts'
 ``csrc/embedding_bag.cu``, ``csrc/flash_attention_f32.cu``,
-``csrc/flash_attention_bf16.cu``, ``csrc/flash_attention_bwd.cu`` and ``csrc/vm_step.cu`` are built with nvcc (``sm_90a``) into the git-ignored
-``kernels/build/compare/``, and each
+``csrc/flash_attention_bf16.cu``, ``csrc/flash_attention_bwd.cu``,
+``csrc/embedding_bag_bwd.cu`` and ``csrc/vm_step.cu`` are built with nvcc
+(``sm_90a``) into the git-ignored ``kernels/build/compare/``, and each
 kernel is timed in turns (other, this, this, other) with CUDA events over
 back-to-back launches and, for the bag kernel, also as device time per
 launch from a ``torch.profiler`` trace (at serve_p99 the launches are
@@ -30,12 +32,21 @@ host-bound):
       query and 8 KV heads of 128, causal, bf16: random q, k, v and output
       gradient, o and the row log-sum-exp from this checkout's forward
       kernel;
+  embedding_bag_bwd at DLRM's train_batch (path 8's last step's
+      ClickLogPipeline ids: 1,703,936 bags of 8 over the 33,762,577-row
+      table, d = 64; random output gradient): each checkout's kernels from
+      this checkout's CSR (each at its own LONG_SLOTS; the run list where
+      its entry point takes one), timed in turns, split by kernel with the
+      profiler and, where the source takes ``parts``, each kernel alone;
+      then this checkout's wrapper with its CSR, and its device time by op
+      and its host syncs under the profiler;
   vm_step at the provgen invocation's shapes: provgen_like(1,000,000)'s
       dst-sorted CSR (its row plan), PQ1-4's 23-node trie, random alpha and
       weights, 57.5% of the edges live (path 1's share), alpha as many rows
       as the output (the entry point's n_in and n_out, or its one n).
 
-The two bag kernels and the two vm_step kernels must agree bit for bit
+The two bag kernels, the two bag backwards (each also with the plain
+backward on the card) and the two vm_step kernels must agree bit for bit
 (vm_step also with its plain version), and so must the two float32 and the
 two bf16 attention outputs; both float32 attention kernels within 2e-5 of
 the plain version.  Each checkout's attention backward must give dq, dk
@@ -48,7 +59,10 @@ route replaced (its tile plan: ``kRowsV``, ``kStagesV``, ``kRowsK``,
 ``kStagesK``, ``kKeysB``, ``kStagesB``), and the attention backward times
 and checks that build in the same turns, for example
 ``--plan dv64:kRowsV=64 --plan k128:kRowsK=128``; a plan that does not
-build is reported and left out.  Prints each build's ptxas registers,
+build is reported and left out.  ``--only`` runs the named sections
+(``embedding_bag``, ``flash_attention``, ``flash_attention_bwd``,
+``embedding_bag_bwd``, ``vm_step``) and builds only their sources.  Prints
+each build's ptxas registers,
 spills and wgmma serialisation notes (C7512), the card's name and power
 limit and one line per shape; exits non-zero without CUDA or nvcc.
 """
@@ -60,13 +74,20 @@ import math
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/kernels/csrc")
 OUT = ROOT / "src" / "repro_torch" / "kernels" / "build" / "compare"
 KERNELS = ("embedding_bag", "flash_attention_f32", "flash_attention_bf16",
-           "flash_attention_bwd", "vm_step")
+           "flash_attention_bwd", "embedding_bag_bwd", "vm_step")
+#: --only's choices: each section and the sources it builds
+SECTIONS = {"embedding_bag": ("embedding_bag",),
+            "flash_attention": ("flash_attention_f32", "flash_attention_bf16"),
+            "flash_attention_bwd": ("flash_attention_bwd",),
+            "embedding_bag_bwd": ("embedding_bag_bwd",),
+            "vm_step": ("vm_step",)}
 
 
 def plan_sources(specs):
@@ -87,7 +108,7 @@ def plan_sources(specs):
     return out
 
 
-def build(roots, plans):
+def build(roots, plans, kernels=KERNELS):
     """{(tag, kernel): library} for every checkout and kernel, and
     (plan, "flash_attention_bwd") for every plan that builds; nvcc in
     parallel."""
@@ -95,7 +116,7 @@ def build(roots, plans):
     from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
 
     sources = {(tag, name): root / CSRC / f"{name}.cu"
-               for tag, root in roots.items() for name in KERNELS}
+               for tag, root in roots.items() for name in kernels}
     for name, text in plans.items():
         (OUT / "plans").mkdir(parents=True, exist_ok=True)
         sources[name, "flash_attention_bwd"] = OUT / "plans" / f"{name}.cu"
@@ -158,6 +179,77 @@ def vm_launcher(lib, source):
     return fn, split
 
 
+def bag_bwd_launcher(lib, source):
+    """The bag backward's entry point, and whether it takes the run list
+    and ``parts`` (its launches alone); an earlier source takes neither."""
+    fn = ctypes.CDLL(str(lib)).embedding_bag_bwd_launch
+    parts = "int parts" in source
+    fn.argtypes = ([ctypes.c_void_p] * (7 if parts else 4)
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * (4 if parts else 3) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn, parts
+
+
+def long_slots(root):
+    """A checkout's ``LONG_SLOTS``: the slots past which its backward's row
+    goes to the long-row kernel."""
+    text = (root / "src/repro_torch/kernels/embedding_bag/ops.py").read_text()
+    return int(re.search(r"^LONG_SLOTS = (\d+)", text, re.M).group(1))
+
+
+def short_name(name):
+    """A kernel's name without its namespaces, template arguments and
+    parameters; other names as they are, cut to 60 characters."""
+    m = re.search(r"(\w+)(<[^>]*>)?\(", name)
+    return m.group(1) if m and not name.startswith("aten::") else name[:60]
+
+
+def kernel_split(torch, fn, reps):
+    """{kernel: device ms a call}: each kernel's intervals in a
+    ``torch.profiler`` trace of ``reps`` calls, over ``reps``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = short_name(e.name)
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
+def op_split(torch, fn, reps, top=14):
+    """[(op, calls a call, self device ms a call, host ms a call)] of the
+    ``top`` ops by self device time under ``fn``, and the host syncs and
+    device-to-host copies it made, from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows, syncs = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        rows.append((short_name(e.key), e.count / reps, dev_us / 1e3 / reps,
+                     e.cpu_time_total / 1e3 / reps))
+        if "Synchronize" in e.key or "Memcpy" in e.key or e.key == "aten::item":
+            syncs.append((e.key, e.count / reps))
+    rows.sort(key=lambda r: -r[2])
+    return rows[:top], syncs
+
+
 def time_ms(torch, fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -200,48 +292,20 @@ def in_turns(torch, calls, reps, timer=time_ms):
     return out
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--other", type=Path, required=True,
-                        help="root of the other checkout")
-    parser.add_argument("--plan", action="append", default=[],
-                        help="NAME:CONST=VALUE[,...]: a tile plan of this checkout's "
-                             "attention backward, timed beside it")
-    args = parser.parse_args()
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        print("kernel_compare: CUDA is not available", file=sys.stderr)
-        return 2
-    roots = {"this": ROOT, "other": args.other.resolve()}
-    for tag, root in roots.items():
-        if not (root / CSRC).is_dir():
-            print(f"kernel_compare: {root} holds no {CSRC}", file=sys.stderr)
-            return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-    print(f"[device] {card}; torch {torch.__version__}", flush=True)
-    libs = build(roots, plan_sources(args.plan))
-    sys.path.insert(0, str(ROOT / "src"))
+def bag_section(torch, np, c):
+    """embedding_bag: the two checkouts' forward kernels in turns at path 2's shapes."""
+    card, libs, roots, dev, stream = c.card, c.libs, c.roots, c.dev, c.stream
     import dataclasses
 
     from repro_torch.configs.base import DLRM_SHAPES
     from repro_torch.configs.registry import get_config
     from repro_torch.data.recsys import ClickLogPipeline
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_reference
-    from repro_torch.kernels.flash_attention.kernel import TILE_PLAN, TILE_PLAN_F32
-    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
     from repro_torch.models.dlrm import table_offsets
 
-    dev = torch.device("cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-
-    # --- embedding_bag ---------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
     cfg = dataclasses.replace(get_config("dlrm-rm2"), multi_hot=8)
     V, d = cfg.total_rows(), cfg.embed_dim
-    gen = torch.Generator(device=dev).manual_seed(0)
     table = torch.randn((V, d), generator=gen, device=dev) / math.sqrt(d)
     shapes = {s.name: s.dim("batch") for s in DLRM_SHAPES}
     ids = {name: torch.as_tensor(next(ClickLogPipeline(cfg, shapes[name], seed=seed))["sparse"]
@@ -284,8 +348,16 @@ def main() -> int:
         del outs, plain
     del table, ids
     torch.cuda.empty_cache()
+    return 0
 
-    # --- flash_attention_f32 ---------------------------------------------
+
+def attention_section(torch, np, c):
+    """flash_attention_f32 and flash_attention_bf16 in turns at 4 x 4,096."""
+    card, libs, roots, dev, stream = c.card, c.libs, c.roots, c.dev, c.stream
+    from repro_torch.kernels.flash_attention.kernel import TILE_PLAN, TILE_PLAN_F32
+    from repro_torch.kernels.flash_attention.ref import flash_attention_reference
+
+    gen = torch.Generator(device=dev).manual_seed(1)
     B, S, H, KV, D = 4, 4096, 32, 8, 128
     q = torch.randn((B, S, H, D), generator=gen, device=dev)
     k = torch.randn((B, S, KV, D), generator=gen, device=dev)
@@ -319,7 +391,7 @@ def main() -> int:
     if max(errs.values()) > 2e-5 + 2e-5 * float(ref.abs().max()):
         return 1
 
-    # --- flash_attention_bf16: the same q, k, v in bf16 ---------------------
+    # the same q, k, v in bf16
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     attn = {tag: attn_launcher(libs[tag, "flash_attention_bf16"],
                                (roots[tag] / CSRC / "flash_attention_bf16.cu").read_text(), D,
@@ -338,8 +410,14 @@ def main() -> int:
         return 1
     del q, k, v, ref, outs
     torch.cuda.empty_cache()
+    return 0
 
-    # --- flash_attention_bwd -----------------------------------------------
+
+def attention_bwd_section(torch, np, c):
+    """flash_attention_bwd (and each --plan) in turns at qwen3-4b's training shape."""
+    card, libs, roots, dev, stream = c.card, c.libs, c.roots, c.dev, c.stream
+    gen = torch.Generator(device=dev).manual_seed(2)
+    H, KV, D = 32, 8, 128
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_backward_reference
 
@@ -393,8 +471,97 @@ def main() -> int:
         return 1
     del q, k, v, o, lse, do, grads, delta, want
     torch.cuda.empty_cache()
+    return 0
 
-    # --- vm_step -----------------------------------------------------------
+
+def bag_bwd_section(torch, np, c):
+    """embedding_bag_bwd in turns at DLRM's train_batch (path 8's last step's
+    ids), each checkout's kernels by the profiler and alone, and this
+    checkout's wrapper with its prep by op."""
+    card, libs, roots, dev, stream = c.card, c.libs, c.roots, c.dev, c.stream
+    import dataclasses
+
+    import repro_torch.kernels.embedding_bag.ops as bag_ops
+    from repro_torch.configs.base import DLRM_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.recsys import ClickLogPipeline
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_reference
+
+    cfg = dataclasses.replace(get_config("dlrm-rm2"), multi_hot=8)
+    V, d = cfg.total_rows(), cfg.embed_dim
+    pipe = ClickLogPipeline(cfg, {s.name: s for s in DLRM_SHAPES}["train_batch"].dim("batch"),
+                            seed=11)
+    for _ in range(3):
+        batch = next(pipe)
+    ids = torch.as_tensor(batch["sparse"].reshape(-1, cfg.multi_hot), device=dev)
+    B, H = ids.shape
+    g = torch.randn((B, d), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    row_ptr, bag, runs = bag_ops.slot_csr(ids, V)
+    lengths = row_ptr[1:] - row_ptr[:-1]
+    E = int(row_ptr[-1])
+    n_runs = int(runs[0][E - 1]) + 1 if E else 0   # the rows' runs: the first in entry order
+    bwd = {}
+    for tag, root in roots.items():
+        fn, parts = bag_bwd_launcher(libs[tag, "embedding_bag_bwd"],
+                                     (root / CSRC / "embedding_bag_bwd.cu").read_text())
+        T = long_slots(root)
+        rows = torch.nonzero(lengths > T).squeeze(1)
+        rows = rows[torch.sort(lengths[rows], descending=True, stable=True).indices]
+        bwd[tag] = (fn, parts, T, rows.to(torch.int32).contiguous())
+    outs = {tag: torch.empty((V, d), device=dev) for tag in roots}
+
+    def launch(tag, part=3):
+        fn, parts, T, rows = bwd[tag]
+        with_runs = [t.data_ptr() for t in runs] if parts else []
+        err = fn(g.data_ptr(), row_ptr.data_ptr(), bag.data_ptr(), *with_runs, rows.data_ptr(),
+                 rows.shape[0], outs[tag].data_ptr(), V, d, 4, T, *([part] if parts else []),
+                 stream)
+        if err:
+            raise SystemExit(f"embedding_bag_bwd ({tag}) launch failed: CUDA error {err}")
+
+    ms = in_turns(torch, {tag: (lambda tag=tag: launch(tag)) for tag in roots}, 5)
+    plain = embedding_bag_backward_reference(g, ids, V)
+    same = bool(torch.equal(outs["this"], outs["other"]))
+    exact = {tag: bool(torch.equal(outs[tag], plain)) for tag in roots}
+    del plain
+    bound = 4 * (B * d + B * H + V * d) / 3.35e12 * 1e3
+    yard = 4 * (V * d + n_runs * d + (V + 1) + E) / 3.35e12 * 1e3
+    print(f"[bag bwd] train_batch: {B} bags x H={H}, d={d}, V={V}: {E} slots, "
+          f"{int((lengths > 0).sum())} rows named, {n_runs} runs of equal bag, the longest row "
+          f"{int(lengths.max())} slots; bound {bound:.4f} ms by bytes (g and ids read once, "
+          f"the dense gradient written once); gather yardstick {yard:.4f} ms (the dense "
+          f"write, one g row a run, the CSR read, at 3.35 TB/s); {card}", flush=True)
+    for tag in roots:
+        fn, parts, T, rows = bwd[tag]
+        split = kernel_split(torch, lambda tag=tag: launch(tag), 3)
+        alone = ""
+        if parts:
+            alone = "; alone: long rows {:.4f} ms, the rest {:.4f} ms".format(
+                *(time_ms(torch, lambda tag=tag, p=p: launch(tag, p), 5) for p in (1, 2)))
+        print(f"[bag bwd] {tag}: ms per launch {' / '.join(f'{t:.4f}' for t in ms[tag])} "
+              f"({bound / min(ms[tag]):.3f} of the bound); {rows.shape[0]} rows past {T} "
+              f"slots; device ms a launch by kernel (profiler) "
+              f"{', '.join(f'{k} {v:.4f}' for k, v in split.items())}{alone}; equal to the "
+              f"plain backward bitwise {exact[tag]}; {card}", flush=True)
+    print(f"[bag bwd] this == other bitwise {same}", flush=True)
+    if not (same and all(exact.values())):
+        return 1
+    del outs
+    torch.cuda.empty_cache()
+    wrapper_ms = time_ms(torch, lambda: bag_ops.embedding_bag_backward(g, ids, V), 3)
+    ops, syncs = op_split(torch, lambda: bag_ops.embedding_bag_backward(g, ids, V), 2)
+    print(f"[bag bwd] this checkout's wrapper (its CSR and the launch): {wrapper_ms:.4f} ms a "
+          f"call; by op (calls, self device ms, host ms a call): "
+          f"{'; '.join(f'{k} {n:g} {t:.4f} {h:.3f}' for k, n, t, h in ops)}; host syncs and "
+          f"copies a call: {syncs}; {card}", flush=True)
+    torch.cuda.empty_cache()
+    return 0
+
+
+def vm_step_section(torch, np, c):
+    """vm_step in turns at the provgen invocation's shapes."""
+    card, libs, roots, dev, stream = c.card, c.libs, c.roots, c.dev, c.stream
+    rng = np.random.default_rng(7)
     from repro_torch.core.rpq import parse_rpq
     from repro_torch.core.tpstry import TPSTry
     from repro_torch.graphs.generators import provgen_like
@@ -441,6 +608,45 @@ def main() -> int:
           f"this == plain bitwise {exact}; {card}", flush=True)
     return 0 if same and exact else 1
 
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--other", type=Path, required=True,
+                        help="root of the other checkout")
+    parser.add_argument("--plan", action="append", default=[],
+                        help="NAME:CONST=VALUE[,...]: a tile plan of this checkout's "
+                             "attention backward, timed beside it")
+    parser.add_argument("--only", action="append", choices=sorted(SECTIONS),
+                        help="run only this section (repeatable; default: all)")
+    args = parser.parse_args()
+    sections = args.only or list(SECTIONS)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_compare: CUDA is not available", file=sys.stderr)
+        return 2
+    roots = {"this": ROOT, "other": args.other.resolve()}
+    for tag, root in roots.items():
+        if not (root / CSRC).is_dir():
+            print(f"kernel_compare: {root} holds no {CSRC}", file=sys.stderr)
+            return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {card}; torch {torch.__version__}", flush=True)
+    plans = plan_sources(args.plan) if "flash_attention_bwd" in sections else {}
+    libs = build(roots, plans, [k for name in sections for k in SECTIONS[name]])
+    sys.path.insert(0, str(ROOT / "src"))
+    c = types.SimpleNamespace(card=card, libs=libs, roots=roots, dev=torch.device("cuda"),
+                              stream=torch.cuda.current_stream().cuda_stream)
+    run = {"embedding_bag": bag_section, "flash_attention": attention_section,
+           "flash_attention_bwd": attention_bwd_section, "embedding_bag_bwd": bag_bwd_section,
+           "vm_step": vm_step_section}
+    for name in sections:
+        if run[name](torch, np, c):
+            return 1
+    return 0
 
 if __name__ == "__main__":
     sys.exit(main())
