@@ -27,7 +27,7 @@ Phases (any failure exits non-zero and prints no result line):
    (Sq/Skv 1-1,111, causal and not, window None/1/17/64/129/200/1,024,
    GQA 1/2/4, D 32/64/128/256, float32 and bfloat16, rows with no valid
    key; bf16 goes to the wgmma kernel, float32 to the 3xTF32 one); then the
-   plain scatter-adds (``scatter_sum``, ``vm_step_reference``,
+   plain scatter-adds (``scatter_sum_plain``, ``vm_step_reference``,
    ``segment_spmm_reference``) twice on the card over 5M unsorted edges:
    bit for bit equal to each other and to the CPU's;
 3. the paper's worked-example values through ``backend="cuda"``;
@@ -147,6 +147,23 @@ Phases (any failure exits non-zero and prints no result line):
    (2,449,029 nodes, 61,859,140 edges): three forwards, kernel forward
    against plain forward, and each kernel's time, bound, gather yardstick,
    plain time and library time at the path's shapes;
+8b. the GNN slice, every segment sum on ``segment_spmm``: ``gin-tu`` at
+   full width on ``ogb_products`` (one forward, 5 launches, each launch
+   shape's time, bound, plain and ``torch.sparse.mm`` times, bitwise its
+   plain version; three AdamW steps, x's gradient through the transposed
+   CSR bitwise the plain backward's); ``gin-tu`` on ``molecule`` (128
+   graphs, the pooled readout through the kernel) and ``minibatch_lg``
+   (``NeighborSampler``: 1,024 seeds, fanouts 15 and 10, its host
+   seconds), three steps each, loss and gradients bitwise the plain
+   versions'; ``nequip`` and ``equiformer-v2`` at full width on
+   ``molecule``: a forward (a launch per segment sum), the energies bitwise
+   the plain sorted scatter's and invariant under a random rotation +
+   translation within 2e-4, three steps, peak memory, the kernel at the
+   message sum's shape; ``benchmarks/gnn_halo.py``'s setting (musicbrainz
+   N=2000, k=8, TAPER on the ``cuda`` field): the four halo byte counts of
+   ``BENCH_PR10.json`` exactly, and ``partitioned_gcn_forward`` (a launch a
+   partition and layer) within 1e-5 of ``gcn.forward``; after path 1, its
+   ``HaloPlan`` at the hash start and at TAPER's partition;
 9. path 5, ``qwen3-4b`` serving at full width (bf16, random weights from
    seed 0): a batch of 4 requests of 4,096 tokens and one request of
    32,768 tokens, each prefilled through ``forward`` (one
@@ -199,7 +216,9 @@ Phases (any failure exits non-zero and prints no result line):
    float32 whole-path gradient
    gate (the model at full width cut to 2 layers, 2,048 tokens: every
    gradient leaf through the kernels against the same step through the
-   plain versions); ``dlrm-rm2`` at path 2's width (multi_hot 8), three
+   plain versions), then the backward's float32 route (the CUDA cores) at
+   that shape on seeded inputs: its time, the plain backward's, SDPA's
+   float32 backward and the bound; ``dlrm-rm2`` at path 2's width (multi_hot 8), three
    ``make_train_step`` steps on train_batch click logs, the table's dense
    gradient from the backward kernel bitwise the plain backward's; the GCN
    on path 4's graph, three steps, x's gradient through the transposed
@@ -208,8 +227,8 @@ Phases (any failure exits non-zero and prints no result line):
    checkpoints every 2) bitwise the uninterrupted run.
 
 ``python3 chip_smoke.py --only moe`` runs the build and paths 6 and 7
-alone, ``--only train`` the build and path 8; neither prints result
-lines.
+alone, ``--only gnn`` the build and phase 8b, ``--only train`` the build
+and path 8; none prints result lines.
 
 The gather yardstick of a ``segment_spmm`` or ``vm_step`` launch counts
 the 32-byte sectors its live edges' gathered rows touch, once per edge,
@@ -221,8 +240,10 @@ kernels fails.  The line
 before the last is the ``kernels`` JSON record (``vm_step`` on seven
 paths: the provgen invocation, the sharded field, the online path, the
 serving path, the cluster path, the row placement and the expert
-placement; ``flash_attention`` at qwen3's two shapes and olmoe's
-4 x 4,096; ``flash_attention_f32``; the three backward kernels of path 8);
+placement; ``segment_spmm`` on GCN's, GIN's, NequIP's, Equiformer's and
+the partitioned GCN's paths; ``flash_attention`` at qwen3's two shapes and
+olmoe's 4 x 4,096; ``flash_attention_f32``; the backward kernels of path
+8, the attention's bf16 and float32 routes apart);
 the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
@@ -387,6 +408,19 @@ DLRM_REQUESTS = {"serve_p99": 20, "serve_bulk": 3}
 SPAN_K = 64
 SPAN_REFERENCE = (21.61865234375, 16.607177734375)
 GCN_FORWARDS = 3
+#: the GNN slice: training steps a model and their AdamW rates (the
+#: equivariant models' smaller), the energies' invariance tolerance under
+#: rotation + translation (tests/test_gnn_models.py:62), the halo setting
+#: (benchmarks/gnn_halo.py: musicbrainz N, k, d_feat, TAPER's iterations),
+#: BENCH_PR10.json's gnn_halo byte counts for it, and the partitioned
+#: forward's tolerance against the monolithic one
+GNN_TRAIN_STEPS = 3
+GNN_LR, GNN_LR_EQUIVARIANT = 1e-2, 1e-4
+GNN_INV_TOL = 2e-4
+HALO_N, HALO_K, HALO_D_FEAT, HALO_MAX_ITERS = 2000, 8, 64, 6
+HALO_BENCH_PR10 = {"hash": 1607040, "metis": 587520, "hash+taper": 915200,
+                   "metis+taper": 582400}
+GNN_HALO_TOL = 1e-5
 #: flash_attention against its plain version (tests/test_kernels.py's
 #: tolerances per dtype)
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
@@ -836,7 +870,7 @@ def bag_sweep(torch) -> float:
 
 
 def plain_repeat(torch):
-    """The plain scatter-adds (``scatter_sum`` with and without a mask,
+    """The plain scatter-adds (``scatter_sum_plain`` with and without a mask,
     ``vm_step_reference``, ``segment_spmm_reference`` with the chunk at its
     size and at 4,999 edges) twice on the card over unsorted destinations
     with a 10,000-edge hub row: the two results bit for bit equal, and equal
@@ -857,7 +891,7 @@ def plain_repeat(torch):
     w = torch.as_tensor(rng.normal(size=e), dtype=torch.float32)
     L, N = 3, 23
     cases = {
-        "scatter_sum": (common.scatter_sum, (torch.as_tensor(
+        "scatter_sum_plain": (common.scatter_sum_plain, (torch.as_tensor(
             rng.normal(size=(e, 16)), dtype=torch.float32), dst, n)),
         "vm_step_reference": (vm_step_reference, (
             torch.as_tensor(rng.random((n, N)), dtype=torch.float32),
@@ -868,7 +902,8 @@ def plain_repeat(torch):
             torch.as_tensor(rng.normal(size=(n, 100)), dtype=torch.float32),
             src.int(), dst.int(), w, n)),
     }
-    cases["scatter_sum masked"] = (common.scatter_sum, cases["scatter_sum"][1] + (mask,))
+    cases["scatter_sum_plain masked"] = (common.scatter_sum_plain,
+                                         cases["scatter_sum_plain"][1] + (mask,))
     cases["segment_spmm_reference, 4,999-edge chunks"] = cases["segment_spmm_reference"]
     chunk = spmm_ref.CHUNK
     for name, (fn, args) in cases.items():
@@ -3419,8 +3454,7 @@ def gcn_inference(torch, device):
     from repro_torch.configs.base import GNN_SHAPES
     from repro_torch.configs.registry import get_config
     from repro_torch.data.graphs import batch_to_device, random_graph_batch
-    from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
-    from repro_torch.kernels.segment_spmm.ops import segment_spmm_csr, vector_width
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_csr
     from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
     from repro_torch.models.gnn import api
 
@@ -3480,49 +3514,501 @@ def gcn_inference(torch, device):
         f"histogram {torch.bincount(logits.argmax(-1), minlength=cfg.n_classes).tolist()}")
     check(ok, "gcn kernel forward disagrees with the plain forward")
 
-    # each launch shape of the path: kernel, plain, library, bound
+    # each launch shape of the path: kernel, plain, library, bound (the
+    # widest first: F = 100), and the kernel through its wrapper
     out = None
-    for key, args in sorted(timer.args_by_shape.items(), key=lambda kv: -kv[0][0][1]):
-        x, csr, w = args
-        row_ptr, src = csr.row_ptr, csr.src
-        F = x.shape[1]
-        # the kernel alone, and through the wrapper (host-side checks only:
-        # the CSR was checked once, when it was built)
-        vec = vector_width(x)
-        ms = _time_ms(torch, lambda: segment_spmm_cuda(x, row_ptr, src, w, vec), 10)
-        wrapper_ms = _time_ms(torch, lambda: segment_spmm_csr(x, csr, w), 10)
-        plain_ms = _time_ms(torch, lambda: segment_spmm_csr_reference(x, row_ptr, src, w), 2)
-        with warnings.catch_warnings():             # "beta state" notices
-            warnings.simplefilter("ignore", UserWarning)
-            A = torch.sparse_csr_tensor(row_ptr, src, w, size=(n, n))
-        library_ms = _time_ms(torch, lambda: torch.sparse.mm(A, x), 10)
-        k_out = segment_spmm_csr(x, csr, w)
-        lib_err = float((torch.sparse.mm(A, x) - k_out).abs().max())
-        p_err = float((segment_spmm_csr_reference(x, row_ptr, src, w) - k_out).abs().max())
-        live = w != 0
-        srcs = int(torch.unique(src[live]).numel())
-        nnz = int(live.sum())
-        bytes_moved = 4 * ((n + 1) + 2 * E + srcs * F + n * F)
-        flops = 2 * nnz * F
-        bound_ms, bound_by = _bound(bytes_moved, flops)
-        start = x.data_ptr() % 32 + src[live].long() * (4 * F)
-        gathered = int(((start + 4 * F - 1) // 32 - start // 32 + 1).sum()) * 32
-        other = bytes_moved - 4 * srcs * F
-        log(f"[gcn] segment_spmm at F={F} (n={n}, E={E}, nonzero weights {nnz}, "
-            f"distinct sources {srcs}): kernel {ms:.4f} ms (through the wrapper "
-            f"{wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms "
-            f"(max diff {p_err:.3e}), torch.sparse.mm {library_ms:.4f} ms (max diff "
-            f"{lib_err:.3e}), bound {bound_ms:.4f} ms by {bound_by} ({bytes_moved} B, "
-            f"{flops} FLOP), {vec}-float loads; "
-            f"{_yardstick_text(gathered, other, kernel=ms, torch_sparse_mm=library_ms)}")
-        check(p_err <= SPMM_ATOL + SPMM_RTOL * float(k_out.abs().max()),
-              f"segment_spmm disagrees with its plain version at F={F}")
-        del A, k_out
-        if out is None:                             # the widest launch: F = 100
-            out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms, err=max(err, p_err))
+    for key, (x, c, w) in sorted(timer.args_by_shape.items(), key=lambda kv: -kv[0][0][1]):
+        wrapper_ms = _time_ms(torch, lambda: segment_spmm_csr(x, c, w), 10)
+        log(f"[gcn] segment_spmm at F={x.shape[1]} through the wrapper (host-side checks "
+            f"only: the CSR was checked once, when it was built) {wrapper_ms:.4f} ms")
+        r = _spmm_at_shape(torch, "gcn", x, c, w)
+        if out is None:
+            out = dict(r, err=max(err, r["err"]))
     log(f"[gcn] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     out["launches"] = counts["segment_spmm"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the GNN slice (GIN, NequIP, Equiformer-v2, the distributed GCN)
+# ---------------------------------------------------------------------------
+
+
+def _spmm_at_shape(torch, tag, x, csr, w, plain_reps=2):
+    """One ``segment_spmm`` launch shape of a path: the kernel's time, its
+    plain version's (and the two bitwise equal), ``torch.sparse.mm``'s over
+    the same CSR, the bound (row offsets, sources and weights, each
+    distinct gathered row and the output once) and the gather yardstick."""
+    from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
+    from repro_torch.kernels.segment_spmm.ops import vector_width
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
+
+    row_ptr, src = csr.row_ptr, csr.src
+    n_rows, (n_src, F), E = row_ptr.shape[0] - 1, x.shape, src.shape[0]
+    vec = vector_width(x)
+    ms = _time_ms(torch, lambda: segment_spmm_cuda(x, row_ptr, src, w, vec), 10)
+    plain_ms = _time_ms(torch, lambda: segment_spmm_csr_reference(x, row_ptr, src, w),
+                        plain_reps)
+    with warnings.catch_warnings():                 # "beta state" notices
+        warnings.simplefilter("ignore", UserWarning)
+        A = torch.sparse_csr_tensor(row_ptr, src, w, size=(n_rows, n_src))
+    library_ms = _time_ms(torch, lambda: torch.sparse.mm(A, x), 10)
+    k_out = segment_spmm_cuda(x, row_ptr, src, w, vec)
+    plain = segment_spmm_csr_reference(x, row_ptr, src, w)
+    lib_err = float((torch.sparse.mm(A, x) - k_out).abs().max())
+    err = float((plain - k_out).abs().max())
+    bitwise = bool(torch.equal(plain, k_out))
+    live = w != 0
+    srcs = int(torch.unique(src[live]).numel())
+    nnz = int(live.sum())
+    bytes_moved = 4 * ((n_rows + 1) + 2 * E + srcs * F + n_rows * F)
+    bound_ms, bound_by = _bound(bytes_moved, 2 * nnz * F)
+    start = x.data_ptr() % 32 + src[live].long() * (4 * F)
+    gathered = int(((start + 4 * F - 1) // 32 - start // 32 + 1).sum()) * 32
+    yardstick = _yardstick_text(gathered, bytes_moved - 4 * srcs * F, kernel=ms,
+                                torch_sparse_mm=library_ms)
+    log(f"[{tag}] segment_spmm at F={F} ({n_rows} rows, x {n_src} rows, E={E}, nonzero "
+        f"weights {nnz}, distinct sources {srcs}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms (bitwise {bitwise}), torch.sparse.mm {library_ms:.4f} ms "
+        f"(max diff {lib_err:.3e}), bound {bound_ms:.4f} ms by {bound_by} "
+        f"({bytes_moved} B, {2 * nnz * F} FLOP; the kernel at {bound_ms / ms:.3f}), "
+        f"{vec}-float loads; {yardstick}; {device_line()}")
+    check(bitwise, f"{tag}: segment_spmm differs from its plain version at F={F}")
+    del A, k_out, plain
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, err=err)
+
+
+def _gnn_train(torch, tag, cfg, shape, params, batch, csr=None, lr=GNN_LR):
+    """GNN_TRAIN_STEPS ``api.make_train_step`` steps (AdamW): losses, step times,
+    the launch counts of the path (reset before, read after) and the peak
+    device memory; every loss finite."""
+    from repro_torch.models.gnn import api
+    from repro_torch.optim import AdamW
+
+    opt = AdamW(learning_rate=lr)
+    state = opt.init(params)
+    step = api.make_train_step(cfg, shape, opt, csr=csr)
+    times, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # the path starts here
+    for _ in range(GNN_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    counts = read_counts(tag, ["segment_spmm", "segment_spmm/bwd"])  # ... and ends here
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    log(f"[{tag}] {cfg.name} on {shape.name}: {GNN_TRAIN_STEPS} steps, losses "
+        f"{[round(x, 6) for x in losses]}, step times s {[round(x, 4) for x in times]}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {device_line()}")
+    return counts, params
+
+
+def gin_products(torch, device):
+    """gin-tu at full width on ``ogb_products`` (node-level): one forward
+    (5 ``segment_spmm`` launches over the graph's CSR, F = 100 then 64),
+    each launch shape's time, bound, plain and ``torch.sparse.mm`` times,
+    then GNN_TRAIN_STEPS training steps; one layer's forward launch and
+    x's gradient through the transposed CSR bitwise their plain versions."""
+    import repro_torch.kernels.segment_spmm.ops as spmm_ops
+    import repro_torch.models.gnn.gin as gin
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.graphs import batch_to_device, random_graph_batch
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_csr
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
+    from repro_torch.models.gnn import api, gcn
+
+    torch.cuda.empty_cache()
+    cfg = get_config("gin-tu")
+    shape = [s for s in GNN_SHAPES if s.name == "ogb_products"][0]
+    t0 = time.perf_counter()
+    host = random_graph_batch(cfg, shape, seed=0)
+    t_gen = time.perf_counter() - t0
+    batch = batch_to_device(host, device)
+    del host
+    params = api.init(cfg, shape, seed=0, device=device)
+    csr = gcn.graph_csr(batch)
+    n, E = batch["node_feat"].shape[0], batch["edge_src"].shape[0]
+    log(f"[gin] {cfg.name} ({cfg.n_layers} layers, {cfg.d_hidden} wide, learnable eps) on "
+        f"{shape.name}: n={n} E={E} d_feat={batch['node_feat'].shape[1]}, node-level; "
+        f"graph generated in {t_gen:.2f} s (host)")
+    timer = _KernelTimer(torch, segment_spmm_csr)
+    gin.segment_spmm_csr = timer
+    try:
+        reset_counts()                              # the path starts here
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = gin.forward(params, batch, cfg, 1, node_level=True, csr=csr)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        counts = read_counts("gin", ["segment_spmm"])  # ... and ends here
+    finally:
+        gin.segment_spmm_csr = segment_spmm_csr
+    check(counts["segment_spmm"] == cfg.n_layers, "gin: one launch a layer")
+    check(logits.shape == (n, cfg.n_classes) and bool(torch.isfinite(logits).all()),
+          "gin logits: shape or non-finite values")
+    for key, ms in timer.ms_by_shape().items():
+        log(f"[gin] segment_spmm at x {key[0]}: ms per launch {[round(x, 4) for x in ms]}")
+    log(f"[gin] forward {t_fwd:.4f} s (host clock, synchronised)")
+    stats = {}
+    for key, (x, c, w) in sorted(timer.args_by_shape.items(), key=lambda kv: -kv[0][0][1]):
+        stats[x.shape[1]] = _spmm_at_shape(torch, "gin", x, c, w)
+    del logits, timer
+
+    rec = _Recorder(spmm_ops.segment_spmm_csr_backward)
+    spmm_ops.segment_spmm_csr_backward = rec
+    try:
+        train_counts, params = _gnn_train(torch, "train gin", cfg, shape, params, batch, csr)
+    finally:
+        spmm_ops.segment_spmm_csr_backward = rec.fn
+    check(train_counts["segment_spmm"] == cfg.n_layers * GNN_TRAIN_STEPS
+          and train_counts["segment_spmm/bwd"] == (cfg.n_layers - 1) * GNN_TRAIN_STEPS,
+          "train gin: a launch a layer, a backward launch a layer but the first")
+    g_out, c, w, n_src = rec.args
+    t = c.transposed(n_src)
+    got = rec.fn(g_out, c, w, n_src)
+    want = segment_spmm_csr_reference(g_out, t.row_ptr, t.src, w[t.order].contiguous())
+    same = bool(torch.equal(got, want))
+    log(f"[train gin] x's gradient through the transposed segment_spmm (layer 1's input, "
+        f"F={g_out.shape[1]}) vs the plain version: bitwise {same}")
+    check(same, "train gin: x's gradient is not the plain version's bit for bit")
+    del rec, got, want, g_out, t, params, batch, csr
+    torch.cuda.empty_cache()
+    return dict(launches=counts["segment_spmm"] + train_counts["segment_spmm"],
+                **stats[100])
+
+
+def _gin_kernel_vs_plain(torch, cfg, shape, batch, params, csr=None):
+    """The loss and every gradient leaf of ``api.loss_fn`` through the
+    kernel against the same with every ``segment_spmm`` call (forward and
+    backward) on its plain version on the card: bit for bit."""
+    import repro_torch.kernels.segment_spmm.ops as spmm_ops
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
+    from repro_torch.models.gnn import api
+    from repro_torch.utils import tree
+
+    def run():
+        (loss, _), grads = tree.value_and_grad(
+            lambda p: api.loss_fn(p, batch, cfg, shape, csr), params)
+        return [loss] + tree.leaves(grads)
+
+    kernel, spmm = run(), spmm_ops._spmm
+    spmm_ops._spmm = lambda x, c, w, counter: segment_spmm_csr_reference(
+        x, c.row_ptr, c.src, w)
+    try:
+        plain = run()
+    finally:
+        spmm_ops._spmm = spmm
+    return all(bool(torch.equal(a, b)) for a, b in zip(kernel, plain))
+
+
+def gin_small_cells(torch, device):
+    """gin-tu on ``molecule`` (128 graphs of 30 nodes, the pooled readout a
+    ``scatter_sum`` through the kernel) and on ``minibatch_lg`` (the
+    ``NeighborSampler``: 1,024 seeds, fanouts 15 and 10 over the cell's
+    232,965-node base graph, its host seconds): GNN_TRAIN_STEPS training
+    steps each, loss and gradients through the kernel bitwise the plain
+    versions'."""
+    import repro_torch.data.graphs as graphs
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.gnn import api, gcn
+
+    cfg = get_config("gin-tu")
+    shapes = {s.name: s for s in GNN_SHAPES}
+    sample, sampled = graphs.NeighborSampler.sample, []
+
+    def timed_sample(self, seeds, rng):
+        t0 = time.perf_counter()
+        out = sample(self, seeds, rng)
+        sampled.append((time.perf_counter() - t0, len(seeds), self.fanouts))
+        return out
+
+    for cell in ("molecule", "minibatch_lg"):
+        shape = shapes[cell]
+        graphs.NeighborSampler.sample = timed_sample
+        try:
+            t0 = time.perf_counter()
+            host = graphs.random_graph_batch(cfg, shape, seed=0)
+            t_gen = time.perf_counter() - t0
+        finally:
+            graphs.NeighborSampler.sample = sample
+        batch = graphs.batch_to_device(host, device)
+        n, E = host["node_feat"].shape[0], host["edge_src"].shape[0]
+        extra = ""
+        if sampled:
+            s, n_seeds, fanouts = sampled[-1]
+            extra = (f"; NeighborSampler.sample {s:.3f} s (host; {n_seeds} seeds, fanouts "
+                     f"{fanouts}, {int(host['node_mask'].sum())} live nodes of {n}, "
+                     f"{int(host['edge_mask'].sum())} live edges of {E})")
+        log(f"[gin {cell}] n={n} E={E} d_feat={host['node_feat'].shape[1]}; batch built in "
+            f"{t_gen:.3f} s (host){extra}")
+        params = api.init(cfg, shape, seed=0, device=device)
+        csr = gcn.graph_csr(batch)
+        counts, params = _gnn_train(torch, f"train gin {cell}", cfg, shape, params, batch, csr)
+        pooled = cfg.n_layers if cell == "molecule" else 0
+        check(counts["segment_spmm"] == (cfg.n_layers + pooled) * GNN_TRAIN_STEPS,
+              f"gin {cell}: a neighbour sum a layer (and a pooled readout a layer)")
+        same = _gin_kernel_vs_plain(torch, cfg, shape, batch, params, csr)
+        log(f"[gin {cell}] loss and every gradient leaf through the kernel vs every "
+            f"segment_spmm call on its plain version (forward and backward): bitwise {same}")
+        check(same, f"gin {cell}: the kernel path differs from the plain path")
+        del batch, params, csr
+    torch.cuda.empty_cache()
+
+
+def _random_rotation(seed):
+    """A random rotation matrix and translation (float32), as
+    ``tests/test_gnn_models.py`` draws them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a, b, g = rng.uniform(-np.pi, np.pi), rng.uniform(0, np.pi), rng.uniform(-np.pi, np.pi)
+    ca, sa, cb, sb, cg, sg = np.cos(a), np.sin(a), np.cos(b), np.sin(b), np.cos(g), np.sin(g)
+    Rz1 = np.array([[ca, -sa, 0], [sa, ca, 0], [0, 0, 1]])
+    Ry = np.array([[cb, 0, sb], [0, 1, 0], [-sb, 0, cb]])
+    Rz2 = np.array([[cg, -sg, 0], [sg, cg, 0], [0, 0, 1]])
+    return (Rz1 @ Ry @ Rz2).astype(np.float32), rng.normal(size=(1, 3)).astype(np.float32)
+
+
+def equivariant_molecule(torch, device, arch):
+    """``arch`` (nequip or equiformer-v2) at full width on ``molecule`` (128
+    graphs of 30 atoms, 64 bonds each): a forward through the kernel (its
+    launches counted), the energies bitwise the same model's with
+    ``scatter_sum`` on the plain sorted scatter on the card, invariant under
+    a random rotation + translation within GNN_INV_TOL; GNN_TRAIN_STEPS
+    training steps over the batch's plans, built once (``api.batch_plan``,
+    its host time logged); the peak device memory; the kernel at the
+    message sum's shape."""
+    import repro_torch.models.gnn.common as common
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.graphs import batch_to_device, random_graph_batch
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_csr
+    from repro_torch.models.gnn import api
+
+    tag = arch.split("-")[0]
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    shape = [s for s in GNN_SHAPES if s.name == "molecule"][0]
+    host = random_graph_batch(cfg, shape, seed=0)
+    batch = batch_to_device(host, device)
+    params = api.init(cfg, shape, seed=0, device=device)
+    model = api._model(cfg)
+    G = host["targets"].shape[0]
+    n, E = host["node_feat"].shape[0], host["edge_src"].shape[0]
+    timer = _KernelTimer(torch, segment_spmm_csr)
+    common.segment_spmm_csr = timer
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()                              # the path starts here
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            energy = model.forward(params, batch, cfg, G)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        counts = read_counts(tag, ["segment_spmm"])  # ... and ends here
+    finally:
+        common.segment_spmm_csr = segment_spmm_csr
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9
+    sums = cfg.n_layers * (2 if cfg.kind == "equiformer_v2" else 1) + 1
+    check(counts["segment_spmm"] == sums, f"{tag}: one launch a segment sum ({sums})")
+    check(energy.shape == (G,) and bool(torch.isfinite(energy).all()),
+          f"{tag}: energies' shape or non-finite values")
+    plain_fn = common.scatter_sum_csr
+    common.scatter_sum_csr = (lambda values, index, n, mask=None, plan=None:
+                              common.scatter_sum_plain(values, index, n, mask))
+    try:
+        with torch.no_grad():
+            plain = model.forward(params, batch, cfg, G)
+    finally:
+        common.scatter_sum_csr = plain_fn
+    same = bool(torch.equal(energy, plain))
+    R, t = _random_rotation(7)
+    rot = dict(batch, positions=batch["positions"] @ torch.as_tensor(R, device=device).T
+               + torch.as_tensor(t, device=device))
+    with torch.no_grad():
+        energy_rot = model.forward(params, rot, cfg, G)
+    inv_err = float((energy - energy_rot).abs().max())
+    inv_ok = bool(torch.allclose(energy, energy_rot, rtol=GNN_INV_TOL, atol=GNN_INV_TOL))
+    log(f"[{tag}] {cfg.name} (L={cfg.n_layers}, C={cfg.d_hidden}, l_max={cfg.l_max}"
+        + (f", m_max={cfg.m_max}, heads={cfg.n_heads}" if cfg.m_max else "")
+        + f") on molecule: n={n} E={E} graphs={G}; forward {t_fwd:.4f} s (host clock, "
+        f"synchronised), peak memory {fwd_peak:.2f} GB; energies through the kernel vs "
+        f"scatter_sum on the plain sorted scatter: bitwise {same}; under a random rotation + "
+        f"translation max |dE| {inv_err:.3e} (|E| up to {float(energy.abs().max()):.3e}), "
+        f"within rtol=atol={GNN_INV_TOL}: {inv_ok}; {device_line()}")
+    check(same, f"{tag}: the kernel's energies differ from the plain scatter's")
+    check(inv_ok, f"{tag}: energies not invariant under rotation + translation")
+    for key, ms in timer.ms_by_shape().items():
+        log(f"[{tag}] segment_spmm at x {key[0]}: ms per launch {[round(x, 4) for x in ms]}")
+    key = max(timer.args_by_shape, key=lambda k: k[0][1])
+    x, c, w = timer.args_by_shape[key]
+    stats = _spmm_at_shape(torch, tag, x, c, w)
+    del timer, x, c, w, energy, plain, energy_rot, rot
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plans = api.batch_plan(cfg, batch, shape)
+    torch.cuda.synchronize()
+    log(f"[{tag}] the batch's two sum plans (messages, pooled energies) built in "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host clock, synchronised), once for "
+        f"the {GNN_TRAIN_STEPS} steps; the first step also builds their transposes")
+    train_counts, params = _gnn_train(torch, f"train {tag}", cfg, shape, params, batch,
+                                      plans, lr=GNN_LR_EQUIVARIANT)
+    check(train_counts["segment_spmm"] == sums * GNN_TRAIN_STEPS,
+          f"train {tag}: one launch a segment sum a step")
+    del params, batch, plans
+    torch.cuda.empty_cache()
+    return dict(launches=counts["segment_spmm"] + train_counts["segment_spmm"], **stats)
+
+
+def _gnn_workload(g):
+    """``benchmarks/gnn_halo.py::gnn_workload``: every 2-label path,
+    weighted by the first label's frequency (a GCN layer's gathers)."""
+    from repro_torch.core.rpq import parse_rpq
+
+    names = g.label_names
+    freqs = g.label_counts() / g.n
+    out = []
+    for i, a in enumerate(names):
+        for b in names:
+            w = float(freqs[i])
+            if w > 0:
+                out.append((parse_rpq(f"{a}.{b}"), w))
+    total = sum(f for _, f in out)
+    return [(q, f / total) for q, f in out]
+
+
+def gnn_halo(torch, device):
+    """``benchmarks/gnn_halo.py``'s setting on the card: musicbrainz N=2000,
+    k=8, halo bytes a GCN forward (d_feat 64) under hash, metis-like and
+    TAPER (the ``cuda`` field, HALO_MAX_ITERS iterations) from each, equal
+    to ``BENCH_PR10.json``'s; then ``partitioned_gcn_forward`` on the
+    hash+TAPER partition (a launch a partition and layer) within GNN_HALO_TOL
+    of the monolithic ``gcn.forward``.  The kernel's row is timed at real
+    scale, by :func:`halo_at_scale`."""
+    import repro_torch.models.gnn.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.taper import Taper, TaperConfig
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.graphs.partition import hash_partition, metis_like_partition
+
+    g = musicbrainz_like(HALO_N, avg_degree=6.0, seed=13)
+    cfg = get_config("gcn-cora")
+    parts = {"hash": hash_partition(g.n, HALO_K, seed=1),
+             "metis": metis_like_partition(g, HALO_K, seed=0)}
+    w = _gnn_workload(g)
+    taper = Taper(g, HALO_K, TaperConfig(max_iterations=HALO_MAX_ITERS, seed=0,
+                                         field_backend="cuda"), device=device)
+    reset_counts()                                  # the path starts here
+    t0 = time.perf_counter()
+    parts["hash+taper"] = taper.invoke(parts["hash"], w).final_part
+    parts["metis+taper"] = taper.invoke(parts["metis"], w).final_part
+    dt = time.perf_counter() - t0
+    taper_counts = read_counts("halo taper", ["vm_step"])  # ... and ends here
+    got = {name: dist.halo_bytes_per_step(g, p, cfg, HALO_D_FEAT, HALO_K)
+           for name, p in parts.items()}
+    log(f"[halo] musicbrainz N={HALO_N} k={HALO_K}: halo bytes a GCN forward (d_feat "
+        f"{HALO_D_FEAT}) {got}; BENCH_PR10.json {HALO_BENCH_PR10}; TAPER reduces them "
+        f"{1 - got['hash+taper'] / got['hash']:.1%} from hash, "
+        f"{1 - got['metis+taper'] / got['metis']:.1%} from metis; two invocations "
+        f"{dt:.2f} s on the cuda field ({taper_counts['vm_step']} vm_step launches)")
+    check(got == HALO_BENCH_PR10, "halo: the byte counts differ from BENCH_PR10.json's")
+
+    _partitioned_gcn(torch, device, "halo", g, parts["hash+taper"], HALO_K,
+                     got["hash+taper"])
+
+
+def _partitioned_gcn(torch, device, tag, g, part, k, want_bytes, rec=None):
+    """``partitioned_gcn_forward`` (gcn-cora, d_feat HALO_D_FEAT, seeded
+    features) on ``part`` (``k`` partitions): one launch a partition and
+    layer (counted), its halo bytes ``want_bytes`` and its logits within
+    GNN_HALO_TOL of the monolithic ``gcn.forward``.  ``rec``, when given, stands in for the
+    kernel's wrapper during the partitioned forward.  Returns the path's
+    launch count and its largest difference from the monolithic forward."""
+    import numpy as np
+    import repro_torch.models.gnn.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_csr
+    from repro_torch.models.gnn import gcn
+
+    cfg = get_config("gcn-cora")
+    params = gcn.init(cfg, HALO_D_FEAT, seed=0, device=device)
+    x = np.random.default_rng(5).normal(size=(g.n, HALO_D_FEAT)).astype(np.float32)
+    dist.segment_spmm_csr = rec or segment_spmm_csr
+    try:
+        reset_counts()                              # the path starts here
+        t0 = time.perf_counter()
+        logits, halo_bytes = dist.partitioned_gcn_forward(params, g, part, x, cfg, k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts(f"{tag} gcn", ["segment_spmm"])  # ... and ends here
+    finally:
+        dist.segment_spmm_csr = segment_spmm_csr
+    check(counts["segment_spmm"] == cfg.n_layers * k,
+          f"{tag} gcn: one launch a partition and layer")
+    batch = {"node_feat": torch.as_tensor(x, device=device),
+             "edge_src": torch.as_tensor(g.src, device=device),
+             "edge_dst": torch.as_tensor(g.dst, device=device),
+             "node_mask": torch.ones(g.n, dtype=torch.bool, device=device),
+             "edge_mask": torch.ones(g.m, dtype=torch.bool, device=device)}
+    mono = gcn.forward(params, batch, cfg)
+    err = float((logits - mono).abs().max())
+    ok = bool(torch.allclose(logits, mono, rtol=GNN_HALO_TOL, atol=GNN_HALO_TOL))
+    log(f"[{tag}] partitioned_gcn_forward (n={g.n} m={g.m}, {k} partitions x "
+        f"{cfg.n_layers} layers, {counts['segment_spmm']} launches, {halo_bytes} halo "
+        f"bytes, {dt:.3f} s host clock with its CSR builds) vs the monolithic gcn.forward: "
+        f"max_abs_err {err:.3e}, within {GNN_HALO_TOL}: {ok}")
+    check(ok and halo_bytes == want_bytes,
+          f"{tag} gcn: the partitioned forward differs from the monolithic one")
+    del logits, mono, batch
+    return counts["segment_spmm"], err
+
+
+def halo_at_scale(torch, device, g, final):
+    """``HaloPlan`` bytes on path 1's provgen-1M graph (k=8, d 64): at its
+    hash start and at TAPER's final partition; then ``partitioned_gcn_forward``
+    on TAPER's partition (a launch a partition and layer, within
+    GNN_HALO_TOL of the monolithic ``gcn.forward``) and the kernel at
+    partition 0's first launch, the ``segment_spmm/halo`` row."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.graphs.partition import hash_partition
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_csr
+    from repro_torch.models.gnn.distributed import HaloPlan, halo_bytes_per_step
+
+    start = hash_partition(g.n, 8, seed=1)
+    t0 = time.perf_counter()
+    plans = {name: HaloPlan.build(g, p, HALO_D_FEAT, 8) for name, p in
+             (("hash", start), ("taper", final))}
+    log(f"[halo] provgen n={g.n} m={g.m} k=8 (path 1's graph, the PQ1-4 workload's "
+        f"partition): halo rows a layer hash {plans['hash'].total_halo_rows} "
+        f"({plans['hash'].bytes_per_layer} B at d={HALO_D_FEAT}), TAPER "
+        f"{plans['taper'].total_halo_rows} ({plans['taper'].bytes_per_layer} B), "
+        f"{1 - plans['taper'].total_halo_rows / plans['hash'].total_halo_rows:.1%} fewer; "
+        f"plans built in {time.perf_counter() - t0:.2f} s (host)")
+    want = halo_bytes_per_step(g, final, get_config("gcn-cora"), HALO_D_FEAT, 8)
+    rec = _Recorder(segment_spmm_csr, first=True)  # partition 0's first launch
+    launches, err = _partitioned_gcn(torch, device, "halo provgen", g, final, 8, want, rec)
+    stats = _spmm_at_shape(torch, "halo provgen", *rec.args)
+    del rec
+    torch.cuda.empty_cache()
+    return dict(stats, launches=launches, err=max(err, stats["err"]))
+
+
+def gnn_path(torch, device):
+    """The GNN slice's phases, each path's launch counts reset before it
+    and read after."""
+    t0 = time.perf_counter()
+    out = {"gin": gin_products(torch, device)}
+    gin_small_cells(torch, device)
+    out["nequip"] = equivariant_molecule(torch, device, "nequip")
+    out["equiformer"] = equivariant_molecule(torch, device, "equiformer-v2")
+    gnn_halo(torch, device)
+    log(f"[gnn] the GNN phases passed in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4635,6 +5121,71 @@ def _plain_attention(torch):
     return lambda q, k, v, causal=True, window=None: Plain.apply(q, k, v, causal, window)
 
 
+def _attn_bwd_f32_at_gate_shape(torch, device, B, S, H, KV, D):
+    """The backward kernel's float32 route (the CUDA cores) at the float32
+    gate's shape, on seeded q, k, v and output gradient (the forward
+    kernel's o and log-sum-exp): its time a launch, its gradients against
+    the plain backward's (ATTN_BWD_TOL), the plain backward's time, SDPA's
+    float32 backward (the memory-efficient back end over k and v repeated
+    to the query heads, the backward alone timed) and the bound: 10 D
+    operations a kept pair and head, each a float32-accurate product the
+    card does fastest as three TF32 tensor-core products (3xTF32, as the
+    float32 forward's bound counts them), so 3 x 10 D at the TF32 peak;
+    every input read and every gradient written once.  The bound at the
+    float32 CUDA-core peak, the route this kernel takes, is logged beside
+    it."""
+    import numpy as np
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_backward_cuda,
+                                                            flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_backward_reference
+
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=device)
+                   for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    o, lse = flash_attention_cuda("flash_attention_f32", q, k, v, True, None, with_lse=True)
+    ms = _time_ms(torch, lambda: flash_attention_backward_cuda(q, k, v, o, lse, do, True, None),
+                  3)
+    plain_ms = _time_ms(torch, lambda: flash_attention_backward_reference(
+        q, k, v, o, lse, do, True, None), 1)
+    got = flash_attention_backward_cuda(q, k, v, o, lse, do, True, None)
+    want = flash_attention_backward_reference(q, k, v, o, lse, do, True, None)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    ok = all(e <= ATTN_BWD_TOL["float32"] * float(b.abs().max()) + ATTN_BWD_ATOL
+             for e, b in zip(errs, want))
+    del got, want
+    # in float32 only the memory-efficient back end runs, and it takes no
+    # GQA: k and v repeated to the query heads first, outside the timing
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous()
+              .requires_grad_() for t in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        library_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 3)
+    del out, qt, kt, vt, dot
+    pairs = int(_keys_per_row(S, S, True, None).sum())
+    flops = 10 * D * pairs * B * H
+    bytes_moved = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
+    bound_ms, bound_by = _bound(bytes_moved, 3 * flops, PEAK_TF32_FLOPS)
+    cores_ms, _ = _bound(bytes_moved, flops, PEAK_F32_FLOPS)
+    log(f"[train] flash_attention backward, float32 route (CUDA cores) at B={B} S={S} H={H} "
+        f"KV={KV} D={D} causal (the float32 gate's shape, seeded inputs): kernel {ms:.4f} ms "
+        f"a launch ({flops / ms / 1e9:.2f} TFLOP/s, {ms / library_ms:.3f}x SDPA's float32 "
+        f"backward, {bound_ms / ms:.4f} of the bound), plain {plain_ms:.4f} ms, SDPA "
+        f"backward (float32, memory-efficient, k and v repeated) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} (3 x {flops} FLOP, 3xTF32, at the TF32 "
+        f"tensor-core {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {bytes_moved} B; at the float32 "
+        f"CUDA-core {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s {cores_ms:.4f} ms, "
+        f"{cores_ms / ms:.4f} of it); vs the "
+        f"plain backward max_abs_err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
+        f"within {ATTN_BWD_TOL['float32']} of the largest: {ok}; {device_line()}")
+    check(ok, "the float32 attention backward disagrees with the plain backward")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, err=max(errs))
+
+
 def train_f32_gate(torch, device):
     """qwen3-4b at full width, TRAIN_GATE_LAYERS layers, float32, one batch
     of TRAIN_GATE_TOKENS tokens with remat: the loss and every gradient leaf
@@ -4683,7 +5234,11 @@ def train_f32_gate(torch, device):
           "train float32: a gradient through the kernels disagrees with the plain one")
     del params, g_k, g_p
     torch.cuda.empty_cache()
-    return dict(err=worst)
+    bwd = _attn_bwd_f32_at_gate_shape(torch, device, 1, TRAIN_GATE_TOKENS, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.d_head)
+    torch.cuda.empty_cache()
+    return dict(err=worst, bwd=dict(bwd, launches=counts["flash_attention/bwd"],
+                                    err=max(bwd["err"], worst)))
 
 
 def train_dlrm(torch, device):
@@ -4963,7 +5518,7 @@ def train_path(torch, device):
         f"{lm['peak_share']:.4f} of the bf16 peak, {lm['peak_gb']:.2f} GB; float32 gate "
         f"{gate['err']:.3e}; dlrm {bag['step_s']:.4f} s a step; gcn {gnn['step_s']:.4f} s "
         f"a step")
-    return dict(attn=lm, bag=bag, spmm=gnn)
+    return dict(attn=lm, bag=bag, spmm=gnn, attn_f32=gate["bwd"])
 
 
 def _all_finite(torch, t):
@@ -5004,6 +5559,11 @@ def main() -> int:
         expert_placement_on_card(torch, device, routing)
         log(f"[done] the MoE phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--only", "gnn"]:
+        # the GNN slice's phases alone: no result lines
+        gnn_path(torch, device)
+        log(f"[done] the GNN phases passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--only", "train"]:
         # the training slice's path alone: no result lines
         train_path(torch, device)
@@ -5022,6 +5582,7 @@ def main() -> int:
     chaos_on_card(torch, device)
     cluster_failover_setting(torch, device)
     full = full_size(torch, device)
+    halo = halo_at_scale(torch, device, full["graph"], full["part"])
     sharded = sharded_full(torch, device, full["graph"], full["part"])
     # the serving and cluster paths start from path 1's graph, which the
     # online path mutates
@@ -5034,6 +5595,7 @@ def main() -> int:
     serve = dlrm_serving(torch, device)
     place = row_placement(torch, device)
     gnn = gcn_inference(torch, device)
+    gnns = gnn_path(torch, device)
     lm = qwen3_serving(torch, device)
     olmoe, routing = olmoe_serving(torch, device)
     experts = expert_placement_on_card(torch, device, routing)
@@ -5128,6 +5690,21 @@ def main() -> int:
          "bound_ms": gnn["bound_ms"], "bound_by": gnn["bound_by"],
          "library_ms": gnn["library_ms"]},
     ] + [
+        # the same kernel on the GNN slice's paths: GIN's neighbour sum at
+        # ogb_products (F = 100; its launches are the forward's and the
+        # training steps'), the equivariant models' message sums on the
+        # molecule cell (the edge-id CSR: NequIP F = 32 x 9, Equiformer F =
+        # 128 x 49) and the partitioned GCN's partition 0 (path 1's
+        # provgen-1M graph, TAPER's partition; its launches that forward's)
+        {"name": f"segment_spmm/{name}", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/segment_spmm.cu",
+         "replaces": "src/repro/kernels/segment_spmm/kernel.py:26",
+         "launches": r["launches"], "max_abs_err": max(errs["segment_spmm"], r["err"]),
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for name, r in (("gin", gnns["gin"]), ("nequip", gnns["nequip"]),
+                        ("equiformer", gnns["equiformer"]), ("halo", halo))
+    ] + [
         # the bf16 tensor-core kernel at the path's two prefill shapes:
         # 1 x 32,768 and 4 x 4,096
         {"name": name, "route": "cuda",
@@ -5171,6 +5748,8 @@ def main() -> int:
              "src/repro/models/layers.py:93", trained["attn"]),
             ("embedding_bag/bwd", "src/repro_torch/kernels/csrc/embedding_bag_bwd.cu",
              "src/repro/models/dlrm.py:36", trained["bag"]),
+            ("flash_attention/bwd_f32", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "src/repro/models/layers.py:93", trained["attn_f32"]),
             ("segment_spmm/bwd", "src/repro_torch/kernels/csrc/segment_spmm.cu",
              "src/repro/models/gnn/gcn.py:28", trained["spmm"]))
     ]}

@@ -12,6 +12,9 @@ _ARCH_MODULES = {
     "qwen2.5-14b": "repro_torch.configs.qwen25_14b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "gcn-cora": "repro_torch.configs.gcn_cora",
+    "equiformer-v2": "repro_torch.configs.equiformer_v2",
+    "gin-tu": "repro_torch.configs.gin_tu",
+    "nequip": "repro_torch.configs.nequip",
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
 }
 

@@ -3,8 +3,8 @@
 TAPER has no weights: its state is the graph (with its mutation version
 and log, once it has changed), the compiled workload trie, the partition
 vector, the online driver's query-frequency sketch and, between the field
-and the swap, the extroversion field.  The models (DLRM, GCN, the dense LM
-transformer) have parameter pytrees: nested dicts and lists of arrays.
+and the swap, the extroversion field.  The models (DLRM, the four GNNs, the
+LM transformer) have parameter pytrees: nested dicts and lists of arrays.
 Each arrives here as plain numpy arrays (read off the reference's objects
 by the caller, ``np.asarray`` per leaf), so both packages can compute on
 the same state without this package importing the reference.
@@ -159,4 +159,59 @@ def lm_params_from_reference(tree: Mapping, cfg, device: DeviceLike = None) -> D
     _keys(tree["layers"]["attn"], "layers.attn", {"wq", "wk", "wv", "wo"}
           | ({"bq", "bk", "bv"} if cfg.attn_bias else set())
           | ({"q_norm", "k_norm"} if cfg.qk_norm else set()))
+    return _tensors(tree, resolve_device(device))
+
+
+def _mlp(tree, path: str, n_layers: int) -> None:
+    _layers(tree, path)
+    if len(tree) != n_layers:
+        raise ValueError(f"{path}: {len(tree)} dense layers, want {n_layers}")
+
+
+def gin_params_from_reference(tree: Mapping, device: DeviceLike = None) -> Dict:
+    """The port's GIN parameters from the reference's ``models.gnn.gin.init``
+    pytree (``layers[i].{mlp: [2 × {w, b}], eps}`` with ``eps`` a 0-d
+    array, ``readout.{w, b}``), copied onto ``device`` (default
+    ``"cuda"``)."""
+    _keys(tree, "params", {"layers", "readout"})
+    _keys(tree["readout"], "readout", {"w", "b"})
+    for i, layer in enumerate(tree["layers"]):
+        _keys(layer, f"layers[{i}]", {"mlp", "eps"})
+        _mlp(layer["mlp"], f"layers[{i}].mlp", 2)
+        if np.ndim(layer["eps"]) != 0:
+            raise ValueError(f"layers[{i}].eps: expected a 0-d array")
+    return _tensors(tree, resolve_device(device))
+
+
+def nequip_params_from_reference(tree: Mapping, device: DeviceLike = None) -> Dict:
+    """The port's NequIP parameters from the reference's
+    ``models.gnn.nequip.init`` pytree (``embed``, ``layers[i].{radial: [2 ×
+    {w, b}], lin.{l0..l_max}, gate}``, no ``gate`` at ``l_max`` 0;
+    ``readout``: [2 × {w, b}]), copied onto ``device`` (default
+    ``"cuda"``)."""
+    _keys(tree, "params", {"embed", "layers", "readout"})
+    _mlp(tree["readout"], "readout", 2)
+    for i, layer in enumerate(tree["layers"]):
+        n_l = len(layer.get("lin", {}))
+        _keys(layer, f"layers[{i}]", {"radial", "lin"} | ({"gate"} if n_l > 1 else set()))
+        _keys(layer["lin"], f"layers[{i}].lin", {f"l{l}" for l in range(n_l)})
+        _mlp(layer["radial"], f"layers[{i}].radial", 2)
+    return _tensors(tree, resolve_device(device))
+
+
+def equiformer_params_from_reference(tree: Mapping, device: DeviceLike = None) -> Dict:
+    """The port's EquiformerV2 parameters from the reference's
+    ``models.gnn.equiformer.init`` pytree (``embed``, ``layers[i].{w0,
+    radial, attn, ffn1, ffn2, ffn_gate, out, w{m}_1, w{m}_2 for m = 1 ..
+    m_max}``, ``readout``; ``radial``, ``attn`` and ``readout`` 2 × {w,
+    b}), copied onto ``device`` (default ``"cuda"``)."""
+    _keys(tree, "params", {"embed", "layers", "readout"})
+    _mlp(tree["readout"], "readout", 2)
+    for i, layer in enumerate(tree["layers"]):
+        m_max = sum(1 for k in layer if k.endswith("_1"))
+        _keys(layer, f"layers[{i}]",
+              {"w0", "radial", "attn", "ffn1", "ffn2", "ffn_gate", "out"}
+              | {f"w{m}_{j}" for m in range(1, m_max + 1) for j in (1, 2)})
+        _mlp(layer["radial"], f"layers[{i}].radial", 2)
+        _mlp(layer["attn"], f"layers[{i}].attn", 2)
     return _tensors(tree, resolve_device(device))

@@ -1,11 +1,14 @@
-"""Shared GNN substrate: batch container, segment message passing, MLPs.
+"""Shared GNN substrate: batch container, segment message passing, RBF,
+MLPs.
 
 The JAX package builds its aggregation on ``jax.ops.segment_sum`` with the
-``segment_spmm`` Pallas kernel as the TPU twin; here the plain scatter adds
-each row's terms in edge order (``segment_spmm.ref.scatter_add``:
-``index_add_`` on the CPU, sorted segment sums on the card, the same bits)
-and the models' weighted aggregation runs as the port's ``segment_spmm``
-CUDA kernel (``models/gnn/gcn.py``).
+``segment_spmm`` Pallas kernel as the TPU twin.  Here every segment sum on
+a CUDA tensor is one launch of the port's ``segment_spmm`` kernel
+(``scatter_sum``: a destination-sorted CSR whose source of each slot is the
+edge's own row of ``values``; ``gcn.py`` and ``gin.py`` launch it over the
+graph's CSR).  On the CPU the plain scatter adds each row's terms in edge
+order (``segment_spmm.ref.scatter_add``: ``index_add_``), which is the
+kernel's order, so both give the same bits.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.segment_spmm.ops import EdgeCSR, csr_from_edges, segment_spmm_csr
 from repro_torch.kernels.segment_spmm.ref import scatter_add
 
 
@@ -55,8 +59,25 @@ class GraphBatch:
 
 
 def scatter_sum(values: torch.Tensor, index: torch.Tensor, n: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Segment sum with optional edge mask; values (E, ...), index (E,)."""
+                mask: Optional[torch.Tensor] = None,
+                plan: Optional["SumPlan"] = None) -> torch.Tensor:
+    """Segment sum with optional edge mask; values (E, ...), index (E,).
+
+    A CUDA tensor goes through the ``segment_spmm`` kernel
+    (:func:`scatter_sum_csr`, over ``plan`` when given), and a CPU tensor
+    through the plain scatter (:func:`scatter_sum_plain`, which needs no
+    plan); both add each row's terms in edge order, from 0, and leave
+    masked edges out."""
+    if values.device.type == "cpu":
+        return scatter_sum_plain(values, index, n, mask)
+    return scatter_sum_csr(values, index, n, mask, plan)
+
+
+def scatter_sum_plain(values: torch.Tensor, index: torch.Tensor, n: int,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain segment sum: masked edges parked in a waste bin, then
+    ``scatter_add`` (``index_add_`` on the CPU, the sorted segment sums on
+    the card, the same bits)."""
     if mask is not None:
         values = values * mask.reshape((-1,) + (1,) * (values.dim() - 1))
         index = torch.where(mask, index, n)  # park masked edges in a waste bin
@@ -64,6 +85,65 @@ def scatter_sum(values: torch.Tensor, index: torch.Tensor, n: int,
     else:
         n_bins = n
     return scatter_add(values, index, n_bins)[:n]
+
+
+@dataclass(frozen=True)
+class SumPlan:
+    """What :func:`scatter_sum_csr` launches over for one ``(index, n,
+    mask)``: a CSR sorted stably by ``index`` whose source of each slot is
+    the edge's own id (masked edges parked in a waste row ``n``), and its
+    weight per slot, 1 a live edge and 0 a masked one.  A build costs a
+    stable sort and one host synchronisation (:class:`EdgeCSR` checks and
+    plans its rows), and the backward's transposed CSR is cached on it, so
+    build one a set of segments (:func:`sum_plan`) and pass it to every sum
+    over them."""
+
+    csr: EdgeCSR
+    w: torch.Tensor
+    n: int
+
+
+def sum_plan(index: torch.Tensor, n: int,
+             mask: Optional[torch.Tensor] = None) -> SumPlan:
+    """The :class:`SumPlan` of ``scatter_sum(., index, n, mask)``, on
+    ``index``'s device."""
+    E, dev = index.shape[0], index.device
+    rows = n
+    if mask is not None:
+        index = torch.where(mask, index, n)  # park masked edges in a waste row
+        rows = n + 1
+    csr = csr_from_edges(torch.arange(E, device=dev), index, rows)
+    w = (torch.ones(E, dtype=torch.float32, device=dev) if mask is None
+         else mask.to(torch.float32)[csr.order].contiguous())
+    return SumPlan(csr, w, n)
+
+
+def scatter_sum_csr(values: torch.Tensor, index: torch.Tensor, n: int,
+                    mask: Optional[torch.Tensor] = None,
+                    plan: Optional[SumPlan] = None) -> torch.Tensor:
+    """The segment sum as one ``segment_spmm_csr`` call over ``plan`` (the
+    :func:`sum_plan` of ``index, n, mask``, built here when omitted), with
+    ``values`` seen as ``(E, F)`` float32 rows: the kernel skips a slot of
+    weight 0, so a masked edge's value, even NaN, never reaches a sum.
+    Differentiable in ``values`` (the kernel's backward over the transposed
+    CSR)."""
+    E, tail = values.shape[0], tuple(values.shape[1:])
+    if plan is None:
+        plan = sum_plan(index, n, mask)
+    elif plan.n != n or plan.w.shape[0] != E:
+        raise ValueError(f"scatter_sum_csr: a plan of {plan.w.shape[0]} edges into {plan.n} "
+                         f"rows, for {E} values into {n}")
+    out = segment_spmm_csr(values.reshape(E, math.prod(tail)).contiguous(), plan.csr, plan.w)
+    return out[:n].reshape((n,) + tail)
+
+
+def segment_max(values: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-segment maximum, ``-inf`` for an empty segment (as
+    ``jax.ops.segment_max``); a maximum is exact in any order."""
+    idx = index.long().reshape((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
+    out = torch.full((n,) + tuple(values.shape[1:]), -math.inf,
+                     dtype=values.dtype, device=values.device)
+    return out.scatter_reduce(0, idx, values, "amax", include_self=False)
 
 
 def degrees(edge_dst: torch.Tensor, n: int,
@@ -78,6 +158,37 @@ def degrees(edge_dst: torch.Tensor, n: int,
 
 def gather(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, index.long())
+
+
+def segment_softmax(logits: torch.Tensor, index: torch.Tensor, n: int,
+                    mask: Optional[torch.Tensor] = None,
+                    plan: Optional[SumPlan] = None) -> torch.Tensor:
+    """Per-destination softmax over edges; logits (E, ...), index (E,).
+    The denominator is a :func:`scatter_sum` (the kernel on the card, over
+    ``plan``, the :func:`sum_plan` of ``index, n, mask``: it skips the
+    masked edges, whose terms are 0 here, so the sum keeps the bits of the
+    reference's unmasked one)."""
+    big_neg = -1e30
+    shape = (-1,) + (1,) * (logits.dim() - 1)
+    if mask is not None:
+        logits = torch.where(mask.reshape(shape), logits, big_neg)
+    seg_max = segment_max(logits, index, n)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    ex = torch.exp(logits - gather(seg_max, index))
+    if mask is not None:
+        ex = ex * mask.reshape(shape)
+    denom = scatter_sum(ex, index, n, plan=plan)
+    return ex / torch.clamp(gather(denom, index), min=1e-30)
+
+
+def bessel_rbf(dist: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
+    """Bessel radial basis with polynomial cutoff envelope (NequIP-style)."""
+    d = torch.clamp(dist, min=1e-6)[..., None]
+    n = torch.arange(1, n_rbf + 1, dtype=torch.float32, device=dist.device)
+    basis = math.sqrt(2.0 / cutoff) * torch.sin(n * math.pi * d / cutoff) / d
+    x = torch.clamp(dist / cutoff, 0.0, 1.0)[..., None]
+    env = 1.0 - 10.0 * x ** 3 + 15.0 * x ** 4 - 6.0 * x ** 5
+    return basis * env
 
 
 def mlp_init(dims: Sequence[int], generator: torch.Generator,
@@ -97,3 +208,30 @@ def mlp_apply(params, x, act=F.silu, final_act=False):
         if i < len(params) - 1 or final_act:
             x = act(x)
     return x
+
+
+def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+def edge_geometry(batch: Dict, cutoff: float):
+    """The equivariant models' edge vectors ``r = pos[src] - pos[dst]``,
+    their lengths, and the edge mask less the edges at or past
+    ``cutoff``."""
+    src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
+    r = gather(batch["positions"], src) - gather(batch["positions"], dst)
+    dist = torch.linalg.norm(r + 1e-9, dim=-1)
+    return r, dist, batch["edge_mask"] & (dist < cutoff)
+
+
+def message_plans(batch: Dict, emask: torch.Tensor,
+                  n_graphs: int) -> Dict[str, Optional[SumPlan]]:
+    """The equivariant models' plans, one a set of segments: ``"messages"``
+    into their destinations under ``emask`` (:func:`edge_geometry`'s) and
+    ``"pool"``, the atoms' energies into their graphs (None without
+    ``graph_id``)."""
+    gid = batch.get("graph_id")
+    return {"messages": sum_plan(batch["edge_dst"].long(), batch["node_feat"].shape[0], emask),
+            "pool": None if gid is None else sum_plan(gid.long(), n_graphs)}

@@ -92,7 +92,8 @@ class AdamW:
         with torch.no_grad():
             for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
                 new = (p, m, v) if inplace else tuple(torch.empty_like(t) for t in (p, m, v))
-                views = [t.view(-1) for t in (p, g, m, v)]
+                # a gradient may be a strided view (an einsum's); it is only read
+                views = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
                 dst = [t.view(-1) for t in new]
                 for lo in range(0, p.numel(), CHUNK):
                     part = upd(*(t[lo:lo + CHUNK] for t in views))

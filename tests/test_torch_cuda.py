@@ -445,7 +445,7 @@ def _plain_inputs(which, rng):
     if which.startswith("scatter_sum"):
         vals = torch.as_tensor(rng.normal(size=(e, 7)), dtype=torch.float32)
         mask = torch.as_tensor(rng.random(e) < 0.7) if "masked" in which else None
-        return common.scatter_sum, (vals, dst, n, mask)
+        return common.scatter_sum_plain, (vals, dst, n, mask)
     if which.startswith("vm_step"):
         L, N = 3, 23
         return vm_step_reference, (
@@ -1323,6 +1323,82 @@ def test_segment_spmm_backward_kernel_bitwise_vs_cpu(card, F):
     assert torch.equal(x.grad.cpu(), want)
     with pytest.raises(ValueError):
         segment_spmm_csr(x, csr_c, wc.clone().requires_grad_())
+
+
+@pytest.mark.parametrize("F", [7, 64, 6272])
+def test_scatter_sum_kernel_bitwise_vs_plain(card, F):
+    """``scatter_sum`` on the card is one ``segment_spmm`` launch over the
+    edge-id CSR, bitwise the plain scatter's on the card and on the CPU;
+    masked edges hold NaN and reach no sum; the gradient of the values is
+    one backward launch, bitwise the plain backward's."""
+    import repro_torch.models.gnn.common as common
+    from repro_torch.kernels.segment_spmm.ops import segment_spmm_csr, segment_spmm_csr_backward
+
+    rng = np.random.default_rng(F)
+    n, e = 500, 6000 if F > 1000 else 40000
+    idx = rng.integers(0, n - 50, e)                       # the last 50 rows stay empty
+    idx[:e // 8] = 3                                       # a hub row
+    vals = torch.as_tensor(rng.normal(size=(e, F)), dtype=torch.float32)
+    mask = torch.as_tensor(rng.random(e) < 0.8)
+    vals[~mask] = float("nan")
+    index = torch.as_tensor(idx)
+    want = common.scatter_sum_plain(vals, index, n, mask)
+    v_c, i_c, m_c = vals.to(card), index.to(card), mask.to(card)
+    before = segment_spmm_csr.launches
+    got = common.scatter_sum(v_c, i_c, n, m_c)
+    torch.cuda.synchronize()
+    assert segment_spmm_csr.launches == before + 1
+    assert torch.equal(got.cpu(), want) and not torch.isnan(got).any()
+    assert torch.equal(got, common.scatter_sum_plain(v_c, i_c, n, m_c))
+    # no mask: every edge live
+    assert torch.equal(common.scatter_sum(v_c.nan_to_num(), i_c, n).cpu(),
+                       common.scatter_sum_plain(vals.nan_to_num(), index, n))
+    # the values' gradient: the output gradient gathered at each live edge
+    x = v_c.nan_to_num().requires_grad_()
+    g = torch.as_tensor(rng.normal(size=(n, F)), dtype=torch.float32, device=card)
+    before = segment_spmm_csr_backward.launches
+    common.scatter_sum(x, i_c, n, m_c).backward(g)
+    torch.cuda.synchronize()
+    assert segment_spmm_csr_backward.launches == before + 1
+    want_g = torch.where(m_c[:, None], g[i_c], 0.0)
+    assert torch.equal(x.grad, want_g)
+
+
+def test_gin_forward_and_backward_bitwise_vs_plain(card, monkeypatch):
+    """GIN (gin-tu, reduced, node-level and pooled) through the kernel
+    against the same model with every ``segment_spmm`` call (forward and
+    backward) on its plain version on the card: logits, loss and every
+    gradient leaf bit for bit."""
+    import repro_torch.kernels.segment_spmm.ops as spmm_ops
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.graphs import batch_to_device, random_graph_batch
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
+    from repro_torch.models.gnn import api
+    from repro_torch.utils import tree
+
+    cfg = get_config("gin-tu").reduced()
+    shapes = {s.name: s for s in GNN_SHAPES}
+
+    def run(cell):
+        shape = shapes[cell]
+        batch = batch_to_device(random_graph_batch(cfg, shape, seed=2, scale=0.05), card)
+        params = api.init(cfg, shape, seed=0, device=card)
+        (loss, _), grads = tree.value_and_grad(
+            lambda p: api.loss_fn(p, batch, cfg, shape), params)
+        return [loss] + tree.leaves(grads)
+
+    for cell in ("molecule", "full_graph_sm"):
+        before = (spmm_ops.segment_spmm_csr.launches,
+                  spmm_ops.segment_spmm_csr_backward.launches)
+        kernel = run(cell)
+        assert spmm_ops.segment_spmm_csr.launches > before[0]
+        assert spmm_ops.segment_spmm_csr_backward.launches > before[1]
+        with monkeypatch.context() as m:
+            m.setattr(spmm_ops, "_spmm", lambda x, csr, w, counter:
+                      segment_spmm_csr_reference(x, csr.row_ptr, csr.src, w))
+            plain = run(cell)
+        assert all(torch.equal(a, b) for a, b in zip(kernel, plain)), cell
 
 
 def test_kernel_wrapper_outputs_have_a_grad_fn(card):

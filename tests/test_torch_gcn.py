@@ -61,13 +61,28 @@ def test_api_matches_reference(cell):
     assert s == rs and np.dtype(dt) == np.dtype(rdt)
 
 
-def test_unported_cells_and_kinds_raise():
-    cfg = get_config("gcn-cora")
-    with pytest.raises(ValueError, match="not ported"):
-        random_graph_batch(cfg, SHAPES["molecule"], scale=0.1)
-    with pytest.raises(ValueError, match="not ported"):
-        api.init(dataclasses.replace(cfg, kind="gin"), SHAPES["full_graph_sm"],
-                 device="cpu")
+@pytest.mark.parametrize("arch", ["gcn-cora", "gin-tu", "nequip", "equiformer-v2"])
+@pytest.mark.parametrize("cell", [s.name for s in GNN_SHAPES])
+def test_every_cell_and_kind_builds_and_inits(arch, cell):
+    """Every shape cell of ``GNN_SHAPES`` builds a batch for each of the
+    four GNN configs, bitwise the reference's, with the reference's target
+    spec; ``api.init`` gives the reference's tree and shapes on the CPU."""
+    cfg, ref = get_config(arch), r_get_config(arch)
+    shape, r_shape = SHAPES[cell], R_SHAPES[cell]
+    ours = random_graph_batch(cfg, shape, seed=3, scale=0.002)
+    theirs = r_random_graph_batch(ref, r_shape, seed=3, scale=0.002)
+    assert set(ours) == set(theirs)
+    for k in ours:
+        assert ours[k].dtype == theirs[k].dtype and np.array_equal(ours[k], theirs[k]), k
+    n = ours["node_feat"].shape[0]
+    assert ours["node_feat"].shape[1] == api.feature_dim(cfg, shape)
+    assert "positions" in ours or not api.needs_positions(cfg)
+    (s, dt), (rs, rdt) = api.target_spec(cfg, shape, n), r_api.target_spec(ref, r_shape, n)
+    assert s == rs and np.dtype(dt) == np.dtype(rdt)
+    params = api.init(cfg, shape, seed=0, device="cpu")
+    r_params = jax.eval_shape(lambda k: r_api.init(k, ref, r_shape)[0], jax.random.PRNGKey(0))
+    assert jax.tree.map(lambda a: a.shape, r_params) == \
+        jax.tree.map(lambda t: tuple(t.shape), params)
 
 
 def test_scatter_sum_and_degrees_match_reference():
