@@ -216,9 +216,13 @@ Phases (any failure exits non-zero and prints no result line):
    float32 whole-path gradient
    gate (the model at full width cut to 2 layers, 2,048 tokens: every
    gradient leaf through the kernels against the same step through the
-   plain versions), then the backward's float32 route (the CUDA cores) at
+   plain versions), then the backward's float32 route (3xTF32 mma.sync) at
    that shape on seeded inputs: its time, the plain backward's, SDPA's
-   float32 backward and the bound; ``dlrm-rm2`` at path 2's width (multi_hot 8), three
+   float32 backward and the bound, and its time and bound at 4 x 4,096;
+   ``gemma3-4b``'s attention backward in bf16 at head size 256 (1 x 4,096,
+   8 / 4 heads; global, and local with its 1,024-token window) through
+   the wrapper: time, errors, a second launch bitwise, the bound and SDPA's
+   bf16 backward; ``dlrm-rm2`` at path 2's width (multi_hot 8), three
    ``make_train_step`` steps on train_batch click logs, the table's dense
    gradient from the backward kernel bitwise the plain backward's; the GCN
    on path 4's graph, three steps, x's gradient through the transposed
@@ -243,7 +247,8 @@ serving path, the cluster path, the row placement and the expert
 placement; ``segment_spmm`` on GCN's, GIN's, NequIP's, Equiformer's and
 the partitioned GCN's paths; ``flash_attention`` at qwen3's two shapes and
 olmoe's 4 x 4,096; ``flash_attention_f32``; the backward kernels of path
-8, the attention's bf16 and float32 routes apart);
+8, the attention's bf16 route, its float32 route and bf16 at D = 256
+apart);
 the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
@@ -462,6 +467,11 @@ QWEN3_4B_PARAMS = 4_411_424_256
 #: the forward kernel's three TF32 products carry ~22 bits)
 TRAIN_GATE_LAYERS, TRAIN_GATE_TOKENS = 2, 2048
 TRAIN_GRAD_TOL = 1e-4
+#: the backward's float32 route is also timed at the float32 forward's
+#: batch x tokens (row 4f's 4 x 4,096)
+B_F32_4K, S_F32_4K = 4, 4096
+#: gemma3-4b's attention backward (bf16, head size 256): batch x tokens
+GEMMA_BWD_BATCH, GEMMA_BWD_TOKENS = 1, 4096
 #: the backward kernel against the plain backward on the same inputs, as a
 #: share of the largest plain gradient plus ATTN_BWD_ATOL: float32 sums in
 #: other orders; bf16 gradients rounded once each (one bf16 step of the
@@ -599,16 +609,21 @@ def tensor_core_instructions(libs):
     check(counts["flash_attention_f32"][2] > 0 and counts["flash_attention_f32"][0] == 0,
           "the float32 attention kernel has no TF32 HMMA, or has HGMMA")
     # the backward: bf16 at D <= 128 on wgmma over tiles that TMA loads
-    # (UTMALDG), with no atomic (ATOM, RED) anywhere in the library
+    # (UTMALDG); float32 as TF32 mma.sync and bf16 at D = 256 as bf16
+    # mma.sync (HMMA.16816.F32.BF16); no atomic (ATOM, RED) anywhere
     sass = subprocess.run([tool, "-sass", str(libs["flash_attention_bwd"])],
                           capture_output=True, text=True, timeout=300, check=True).stdout
-    bwd = {op: len(re.findall(rf"\b{op}\b", sass))
-           for op in ("HGMMA", "UTMALDG", "ATOM", "ATOMS", "ATOMG", "RED")}
+    bwd = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
+           for op in ("HGMMA", "UTMALDG", "HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16", "ATOM",
+                      "ATOMS", "ATOMG", "RED")}
     atomics = bwd["ATOM"] + bwd["ATOMS"] + bwd["ATOMG"] + bwd["RED"]
     log(f"[build] flash_attention_bwd: {bwd['HGMMA']} HGMMA, {bwd['UTMALDG']} UTMALDG (TMA "
-        f"loads), {atomics} atomics in the SASS")
-    check(bwd["HGMMA"] > 0 and bwd["UTMALDG"] > 0 and atomics == 0,
-          "the attention backward has no HGMMA or no TMA load, or has an atomic")
+        f"loads), {bwd['HMMA.1688.F32.TF32']} HMMA.1688.F32.TF32, "
+        f"{bwd['HMMA.16816.F32.BF16']} HMMA.16816.F32.BF16, {atomics} atomics in the SASS")
+    check(bwd["HGMMA"] > 0 and bwd["UTMALDG"] > 0 and bwd["HMMA.1688.F32.TF32"] > 0
+          and bwd["HMMA.16816.F32.BF16"] > 0 and atomics == 0,
+          "the attention backward lacks HGMMA, TMA loads or either mma.sync route, or has "
+          "an atomic")
     return counts
 
 
@@ -5122,68 +5137,196 @@ def _plain_attention(torch):
 
 
 def _attn_bwd_f32_at_gate_shape(torch, device, B, S, H, KV, D):
-    """The backward kernel's float32 route (the CUDA cores) at the float32
-    gate's shape, on seeded q, k, v and output gradient (the forward
-    kernel's o and log-sum-exp): its time a launch, its gradients against
-    the plain backward's (ATTN_BWD_TOL), the plain backward's time, SDPA's
-    float32 backward (the memory-efficient back end over k and v repeated
-    to the query heads, the backward alone timed) and the bound: 10 D
-    operations a kept pair and head, each a float32-accurate product the
-    card does fastest as three TF32 tensor-core products (3xTF32, as the
-    float32 forward's bound counts them), so 3 x 10 D at the TF32 peak;
-    every input read and every gradient written once.  The bound at the
-    float32 CUDA-core peak, the route this kernel takes, is logged beside
-    it."""
+    """The backward kernel's float32 route (3xTF32 mma.sync) at the float32
+    gate's shape, then at B_F32_4K x S_F32_4K (the float32 forward's row-4f
+    shape); the first's record with the second's time and bound beside it."""
+    gate = _attn_bwd_f32(torch, device, B, S, H, KV, D, 11, "the float32 gate's shape",
+                         library=True)
+    big = _attn_bwd_f32(torch, device, B_F32_4K, S_F32_4K, H, KV, D, 12,
+                        "the float32 forward's 4 x 4,096")
+    return dict(gate, err=max(gate["err"], big["err"]), ms_4k=big["ms"],
+                bound_4k=big["bound_ms"])
+
+
+def _attn_bwd_f32(torch, device, B, S, H, KV, D, seed, what, library=False):
+    """The float32 route on seeded causal q, k, v and output gradient (the
+    forward kernel's o and log-sum-exp): its time a launch, its gradients
+    against the plain backward's (ATTN_BWD_TOL), a second launch bitwise
+    the first, and the bound: 10 D operations a kept pair and head, each a
+    float32-accurate product the card does fastest as three TF32
+    tensor-core products (3xTF32, as the float32 forward's bound counts
+    them), so 3 x 10 D at the TF32 peak; every input read and every
+    gradient written once.  With ``library`` also the plain backward's
+    time and SDPA's float32 backward (the memory-efficient back end over k
+    and v repeated to the query heads, the backward alone)."""
     import numpy as np
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_backward_cuda,
                                                             flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import flash_attention_backward_reference
 
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     q, k, v, do = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=device)
                    for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
     o, lse = flash_attention_cuda("flash_attention_f32", q, k, v, True, None, with_lse=True)
-    ms = _time_ms(torch, lambda: flash_attention_backward_cuda(q, k, v, o, lse, do, True, None),
-                  3)
-    plain_ms = _time_ms(torch, lambda: flash_attention_backward_reference(
-        q, k, v, o, lse, do, True, None), 1)
-    got = flash_attention_backward_cuda(q, k, v, o, lse, do, True, None)
-    want = flash_attention_backward_reference(q, k, v, o, lse, do, True, None)
-    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    args = (q, k, v, o, lse, do, True, None)
+    ms = _time_ms(torch, lambda: flash_attention_backward_cuda(*args), 3)
+    first = flash_attention_backward_cuda(*args)
+    second = flash_attention_backward_cuda(*args)
+    repeat = all(bool(torch.equal(x, y)) for x, y in zip(first, second))
+    del second
+    want = flash_attention_backward_reference(*args)
+    errs = [float((a - b).abs().max()) for a, b in zip(first, want)]
     ok = all(e <= ATTN_BWD_TOL["float32"] * float(b.abs().max()) + ATTN_BWD_ATOL
              for e, b in zip(errs, want))
-    del got, want
-    # in float32 only the memory-efficient back end runs, and it takes no
-    # GQA: k and v repeated to the query heads first, outside the timing
-    qt = q.transpose(1, 2).contiguous().requires_grad_()
-    kt, vt = (t.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous()
-              .requires_grad_() for t in (k, v))
-    dot = do.transpose(1, 2).contiguous()
-    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        library_ms = _time_ms(torch, lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), 3)
-    del out, qt, kt, vt, dot
+    del first, want
+    plain_ms = library_ms = None
+    if library:
+        plain_ms = _time_ms(torch, lambda: flash_attention_backward_reference(*args), 1)
+        # in float32 only the memory-efficient back end runs, and it takes
+        # no GQA: k and v repeated to the query heads first, outside the
+        # timing
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (t.transpose(1, 2).repeat_interleave(H // KV, dim=1).contiguous()
+                  .requires_grad_() for t in (k, v))
+        dot = do.transpose(1, 2).contiguous()
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            library_ms = _time_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), 3)
+        del out, qt, kt, vt, dot
     pairs = int(_keys_per_row(S, S, True, None).sum())
     flops = 10 * D * pairs * B * H
     bytes_moved = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
     bound_ms, bound_by = _bound(bytes_moved, 3 * flops, PEAK_TF32_FLOPS)
-    cores_ms, _ = _bound(bytes_moved, flops, PEAK_F32_FLOPS)
-    log(f"[train] flash_attention backward, float32 route (CUDA cores) at B={B} S={S} H={H} "
-        f"KV={KV} D={D} causal (the float32 gate's shape, seeded inputs): kernel {ms:.4f} ms "
-        f"a launch ({flops / ms / 1e9:.2f} TFLOP/s, {ms / library_ms:.3f}x SDPA's float32 "
-        f"backward, {bound_ms / ms:.4f} of the bound), plain {plain_ms:.4f} ms, SDPA "
-        f"backward (float32, memory-efficient, k and v repeated) {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by} (3 x {flops} FLOP, 3xTF32, at the TF32 "
-        f"tensor-core {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {bytes_moved} B; at the float32 "
-        f"CUDA-core {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s {cores_ms:.4f} ms, "
-        f"{cores_ms / ms:.4f} of it); vs the "
-        f"plain backward max_abs_err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
-        f"within {ATTN_BWD_TOL['float32']} of the largest: {ok}; {device_line()}")
-    check(ok, "the float32 attention backward disagrees with the plain backward")
+    extra = ("" if library_ms is None else
+             f", {ms / library_ms:.3f}x SDPA's float32 backward), plain {plain_ms:.4f} ms, "
+             f"SDPA backward (float32, memory-efficient, k and v repeated) {library_ms:.4f} ms")
+    log(f"[train] flash_attention backward, float32 route at B={B} S={S} H={H} KV={KV} D={D} "
+        f"causal ({what}, seeded inputs): kernel {ms:.4f} ms a launch ({flops / ms / 1e9:.2f} "
+        f"TFLOP/s, {bound_ms / ms:.4f} of the bound{extra or ')'}, bound {bound_ms:.4f} ms by "
+        f"{bound_by} (3 x {flops} FLOP, 3xTF32, at the TF32 tensor-core "
+        f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {bytes_moved} B); vs the plain backward "
+        f"max_abs_err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} within "
+        f"{ATTN_BWD_TOL['float32']} of the largest: {ok}; two launches bitwise equal: "
+        f"{repeat}; {device_line()}")
+    check(ok and repeat, f"the float32 attention backward at {what} disagrees with the plain "
+                         f"backward or with itself")
+    del q, k, v, do, o, lse, args
+    torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, err=max(errs))
+
+
+def _sdpa_backward_ms(torch, q, k, v, do, reps, **kwargs):
+    """``(ms, back end)`` of SDPA's backward alone on (B, S, heads, D)
+    q, k, v and output gradient ``do``, at the first of the fused back ends
+    that takes the call (flash, cuDNN, memory-efficient), else the math
+    one."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, **kwargs)
+                ms = _time_ms(torch, lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True), reps)
+            return ms, backend.name
+        except RuntimeError:
+            continue
+    check(False, f"no SDPA back end takes {sorted(kwargs)}")
+
+
+def attn_bwd_gemma3(torch, device):
+    """gemma3-4b's attention backward in bf16 at its head size 256 (8 query
+    and 4 KV heads, GEMMA_BWD_BATCH x GEMMA_BWD_TOKENS seeded tokens): the
+    global (causal) and the local case (causal, its sliding window) each
+    through the wrapper with autograd (the forward kernel, then the backward
+    kernel: the launch counts), then the backward kernel on the same q, k,
+    v, o, lse and output gradient: its time a launch, its gradients against
+    the plain backward's (ATTN_BWD_TOL) and autograd's, a second launch
+    bitwise the first, the plain backward's time, the bound (10 D a kept
+    pair and head at the bf16 tensor-core peak; every input read and every
+    gradient written once) and SDPA's bf16 backward on the same inputs
+    (global: ``is_causal`` with ``enable_gqa``; local: k and v repeated to
+    the query heads and the window as a boolean mask).  Returns the
+    ``flash_attention/bwd_d256`` record, timed at the global case."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_backward_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_backward_reference
+
+    cfg = get_config("gemma3-4b")
+    B, S, H, KV, D = GEMMA_BWD_BATCH, GEMMA_BWD_TOKENS, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    rng = np.random.default_rng(13)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32).to(
+        device=device, dtype=torch.bfloat16)
+        for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    cases = {"global": None, "local": cfg.sliding_window}
+    saved = {}
+    reset_counts()                                  # the path starts here
+    for name, window in cases.items():
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        out = flash_attention(qg, kg, vg, causal=True, window=window)
+        lse = out.grad_fn.saved_tensors[4]
+        out.backward(do)
+        saved[name] = (out.detach(), lse, (qg.grad, kg.grad, vg.grad))
+        del qg, kg, vg, out
+    counts = read_counts("gemma3-4b attention backward",
+                         ["flash_attention", "flash_attention/bwd"])
+    check(counts["flash_attention/bwd"] == len(cases),
+          "gemma3-4b: one backward launch a case")
+    rec = {}
+    for name, window in cases.items():
+        o, lse, auto = saved.pop(name)
+        args = (q, k, v, o, lse, do, True, window)
+        ms = _time_ms(torch, lambda: flash_attention_backward_cuda(*args), 10)
+        first = flash_attention_backward_cuda(*args)
+        second = flash_attention_backward_cuda(*args)
+        repeat = all(bool(torch.equal(x, y)) for x, y in zip(first, second))
+        same = all(bool(torch.equal(x, y)) for x, y in zip(first, auto))
+        plain_ms = _time_ms(torch, lambda: flash_attention_backward_reference(*args), 2)
+        want = flash_attention_backward_reference(*args)
+        errs = [float((x.float() - y.float()).abs().max()) for x, y in zip(first, want)]
+        ok = all(e <= ATTN_BWD_TOL["bfloat16"] * float(y.float().abs().max()) + ATTN_BWD_ATOL
+                 for e, y in zip(errs, want)) and all(bool(torch.isfinite(x).all())
+                                                      for x in first)
+        del first, second, want, auto
+        if window is None:
+            library_ms, backend = _sdpa_backward_ms(torch, q, k, v, do, 10, is_causal=True,
+                                                    enable_gqa=True)
+        else:
+            i = torch.arange(S, device=device)
+            mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+            kr, vr = (t.repeat_interleave(H // KV, dim=2) for t in (k, v))
+            library_ms, backend = _sdpa_backward_ms(torch, q, kr, vr, do, 10, attn_mask=mask)
+            del kr, vr, mask
+        pairs = int(_keys_per_row(S, S, True, window).sum())
+        flops = 10 * D * pairs * B * H
+        bytes_moved = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        bound_ms, bound_by = _bound(bytes_moved, flops, PEAK_BF16_FLOPS)
+        log(f"[train] flash_attention backward, gemma3-4b {name} (window {window}) at B={B} "
+            f"S={S} H={H} KV={KV} D={D} causal bf16, seeded inputs: kernel {ms:.4f} ms a "
+            f"launch ({flops / ms / 1e9:.2f} TFLOP/s, {ms / library_ms:.3f}x SDPA's backward, "
+            f"{bound_ms / ms:.4f} of the bound), plain {plain_ms:.4f} ms, SDPA backward "
+            f"({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops} "
+            f"FLOP at the bf16 tensor-core {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {bytes_moved} "
+            f"B); vs the plain backward max_abs_err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
+            f"{errs[2]:.3e} within {ATTN_BWD_TOL['bfloat16']} of the largest: {ok}; two "
+            f"launches bitwise equal: {repeat}; autograd's gradients the kernel's: {same}; "
+            f"{device_line()}")
+        check(ok and repeat and same, f"gemma3-4b's {name} attention backward disagrees with "
+                                      f"the plain backward, with itself or with autograd's")
+        rec[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, err=max(errs))
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return dict(rec["global"], launches=counts["flash_attention/bwd"],
+                err=max(r["err"] for r in rec.values()))
 
 
 def train_f32_gate(torch, device):
@@ -5503,12 +5646,14 @@ def train_resume(torch, device):
 
 def train_path(torch, device):
     """Path 8: the backward sweep, qwen3-4b's training at full width, the
-    float32 gradient gate, DLRM and GCN training steps and the bitwise
-    resume; returns the three backward entries' records."""
+    float32 gradient gate, gemma3-4b's attention backward (bf16, D = 256),
+    DLRM and GCN training steps and the bitwise resume; returns the backward
+    entries' records."""
     t0 = time.perf_counter()
     errs = attention_backward_sweep(torch)
     lm = train_lm(torch, device)
     gate = train_f32_gate(torch, device)
+    d256 = attn_bwd_gemma3(torch, device)
     bag = train_dlrm(torch, device)
     gnn = train_gcn(torch, device)
     train_resume(torch, device)
@@ -5518,7 +5663,7 @@ def train_path(torch, device):
         f"{lm['peak_share']:.4f} of the bf16 peak, {lm['peak_gb']:.2f} GB; float32 gate "
         f"{gate['err']:.3e}; dlrm {bag['step_s']:.4f} s a step; gcn {gnn['step_s']:.4f} s "
         f"a step")
-    return dict(attn=lm, bag=bag, spmm=gnn, attn_f32=gate["bwd"])
+    return dict(attn=lm, bag=bag, spmm=gnn, attn_f32=gate["bwd"], attn_d256=d256)
 
 
 def _all_finite(torch, t):
@@ -5750,6 +5895,8 @@ def main() -> int:
              "src/repro/models/dlrm.py:36", trained["bag"]),
             ("flash_attention/bwd_f32", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              "src/repro/models/layers.py:93", trained["attn_f32"]),
+            ("flash_attention/bwd_d256", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "src/repro/models/layers.py:93", trained["attn_d256"]),
             ("segment_spmm/bwd", "src/repro_torch/kernels/csrc/segment_spmm.cu",
              "src/repro/models/gnn/gcn.py:28", trained["spmm"]))
     ]}

@@ -27,31 +27,29 @@
 //     path): wgmma on operands that TMA brings into shared memory under
 //     mbarriers, p and ds rounded to bf16 as the register A operand of the
 //     next product (the section "bf16 on Hopper's tensor cores" below);
-//   * float32, and bf16 at head size 256: every product on the CUDA cores
-//     in float32 (the float32 gradient gate's route).
+//   * float32 at every head size (the float32 gradient gate's route), and
+//     bf16 at head size 256 (gemma3-4b's): mma.sync on tiles that cp.async
+//     double-buffers, each float32 product as three TF32 products
+//     (3xTF32), each bf16 one as one bf16 product (the section "float32
+//     and bf16 at head size 256 on mma.sync" below).
 //
 // Launches, none with an atomic, so the gradient repeats bit for bit:
 //   1. delta, one warp per (b, i, h) row;
-//   2. dk and dv (one launch on the CUDA cores; a dv launch, then a dk
-//      launch on the tensor cores): one block per (batch * KV head, key
-//      tile), which recomputes p from q, k and lse for every q tile that
-//      can see its keys, and loops over the query heads of its KV head in
-//      order, so the GQA sum has one fixed order;
+//   2. dv, then dk: one block per (batch * KV head, key tile), which
+//      recomputes p from q, k and lse for every q tile that can see its
+//      keys, and loops over the query heads of its KV head in order, so
+//      the GQA sum has one fixed order;
 //   3. dq: one block per (batch * head, q tile), looping over the kv tiles
 //      its rows can see (q tiles issued last-first, as in the forward, so
 //      the longest causal rows start first).
-// On the CUDA-core route a thread owns a 16 x 16 lattice of a tile: scores (i, j) = (ty + 16 a,
-// tx + 16 b), and output (row, dim) = (ty + 16 a, tx + 16 b), in registers;
-// tiles are staged in shared memory as float32 with a row stride of D + 1
-// (BK + 1 for p and ds), so a warp's column reads fall on distinct banks.
 //
 // What bounds it on an H100: operations.  The backward does five products
 // of q/dout/k/v size, 10 D FLOP a kept (q, k) pair and head against the
 // forward's 4 D; at qwen3-4b's 1 x 4,096 x 32 heads of 128, causal, that is
-// 3.44e11 FLOP: 0.35 ms at the bf16 tensor cores' 989 TFLOP/s, 5.1 ms at
-// the float32 CUDA cores' 67 TFLOP/s, while its 168 MB of inputs and
-// gradients take 0.05 ms at 3.35 TB/s.  What the tensor-core route does
-// about it:
+// 3.44e11 FLOP: 0.35 ms at the bf16 tensor cores' 989 TFLOP/s (in float32
+// three TF32 products each, 2.1 ms at 495 TFLOP/s), while its 168 MB of
+// inputs and gradients take 0.05 ms at 3.35 TB/s.  What the wgmma route
+// does about it:
 //   * every product is a wgmma, the only instruction that reaches the
 //     tensor cores' full rate on Hopper (the mma.sync m16n8k16 design it
 //     replaced ran at 0.13 of the bound);
@@ -77,9 +75,11 @@
 // warpgroups of a block fill each other's gaps.  The products whose B tile
 // both consumer warpgroups read from shared memory at N = 64 (s^T and dp^T
 // in dk, s and dp in dq) ask for 128 bytes a cycle, all that shared memory
-// gives; the dv launch's N = 128 tiles ask for 96.  The CUDA-core route
-// reads its operands from shared memory (about one load for two FMAs) and
-// runs well below the float32 peak.
+// gives; the dv launch's N = 128 tiles ask for 96.  The mma.sync route
+// reaches a part of the TF32 rate that wgmma would (wgmma takes TF32 only
+// K-major, so dv's and dk's updates would need q and dout transposed in
+// shared memory), and splits every operand into two TF32 parts on the
+// ALUs beside its products.
 //
 // Offsets are 64-bit.  The launchers return any launch error.
 
@@ -91,147 +91,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // a 16 x 16 lattice
+constexpr int kThreads = 256;   // the delta launch's block: a warp a row
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <int D, int BQ, int BK>
-struct Plan {
-  static constexpr int kLd = D + 1;      // row stride of the q, dout, k and v tiles
-  static constexpr int kLdP = BK + 1;    // row stride of p and ds
-  static constexpr int kMR = BQ / 16;    // score rows a thread owns
-  static constexpr int kMC = BK / 16;    // score columns a thread owns
-  static constexpr int kKR = BK / 16;    // dk / dv rows a thread owns
-  static constexpr int kQR = BQ / 16;    // dq rows a thread owns
-  static constexpr int kDC = D / 16;     // head dims a thread owns
-  // q, dout (BQ rows), k, v (BK rows), p and ds, lse and delta
-  static constexpr int kFloats = 2 * BQ * kLd + 2 * BK * kLd + 2 * BQ * kLdP + 2 * BQ;
-  static constexpr int kSmem = 4 * kFloats;
-  static_assert(D % 16 == 0 && BQ % 16 == 0 && BK % 16 == 0, "tile shape");
-  static_assert(kSmem <= 232448, "tile plan exceeds shared memory");
-};
-
-// rows [row0, row0 + ROWS) of one head of a (.., S, heads, D) tensor into
-// shared memory as float32, row stride LD; rows at or past S are zeros
-template <typename T, int D, int ROWS, int LD>
-__device__ __forceinline__ void stage(float* dst, const T* base, long long row_stride,
-                                      long long row0, long long S) {
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const long long row = row0 + r;
-    dst[r * LD + c] = row < S ? to_f(base[row * row_stride + c]) : 0.f;
-  }
-}
-
-// acc[a][b] = sum_d A[(ty + 16 a) LD + d] B[(tx + 16 b) LD + d]
-template <int D, int LD, int MR, int MC>
-__device__ __forceinline__ void dot_tile(float (&acc)[MR][MC], const float* A, const float* Bm,
-                                         int ty, int tx) {
-#pragma unroll
-  for (int a = 0; a < MR; ++a)
-#pragma unroll
-    for (int b = 0; b < MC; ++b) acc[a][b] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[MR], bv[MC];
-#pragma unroll
-    for (int a = 0; a < MR; ++a) av[a] = A[(ty + 16 * a) * LD + d];
-#pragma unroll
-    for (int b = 0; b < MC; ++b) bv[b] = Bm[(tx + 16 * b) * LD + d];
-#pragma unroll
-    for (int a = 0; a < MR; ++a)
-#pragma unroll
-      for (int b = 0; b < MC; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-  }
-}
-
-// acc[a][b] += sum_{i < ROWS} A[i LDA + ty + 16 a] X[i LDX + tx + 16 b]  (A transposed)
-template <int ROWS, int LDA, int LDX, int MR, int NC>
-__device__ __forceinline__ void acc_tn(float (&acc)[MR][NC], const float* A, const float* X,
-                                       int ty, int tx) {
-#pragma unroll 4
-  for (int i = 0; i < ROWS; ++i) {
-    float av[MR], xv[NC];
-#pragma unroll
-    for (int a = 0; a < MR; ++a) av[a] = A[i * LDA + ty + 16 * a];
-#pragma unroll
-    for (int b = 0; b < NC; ++b) xv[b] = X[i * LDX + tx + 16 * b];
-#pragma unroll
-    for (int a = 0; a < MR; ++a)
-#pragma unroll
-      for (int b = 0; b < NC; ++b) acc[a][b] = fmaf(av[a], xv[b], acc[a][b]);
-  }
-}
-
-// acc[a][b] += sum_{j < COLS} A[(ty + 16 a) LDA + j] X[j LDX + tx + 16 b]
-template <int COLS, int LDA, int LDX, int MR, int NC>
-__device__ __forceinline__ void acc_nn(float (&acc)[MR][NC], const float* A, const float* X,
-                                       int ty, int tx) {
-#pragma unroll 4
-  for (int j = 0; j < COLS; ++j) {
-    float av[MR], xv[NC];
-#pragma unroll
-    for (int a = 0; a < MR; ++a) av[a] = A[(ty + 16 * a) * LDA + j];
-#pragma unroll
-    for (int b = 0; b < NC; ++b) xv[b] = X[j * LDX + tx + 16 * b];
-#pragma unroll
-    for (int a = 0; a < MR; ++a)
-#pragma unroll
-      for (int b = 0; b < NC; ++b) acc[a][b] = fmaf(av[a], xv[b], acc[a][b]);
-  }
-}
-
-__device__ __forceinline__ bool visible(long long qp, long long kp, int Sq, int Skv, int causal,
-                                        int has_window, long long window) {
-  bool ok = qp < Sq && kp < Skv;
-  if (causal) ok = ok && kp <= qp;
-  if (has_window) ok = ok && kp > qp - window;
-  return ok;
-}
-
-// p and ds of one (BQ x BK) tile from its scores s = q k^T and dp = dout
-// v^T: p into P (when P is given) and ds into DS, both at row stride LDP
-template <int MR, int MC, int LDP>
-__device__ __forceinline__ void softmax_grad(const float (&s)[MR][MC], const float (&dp)[MR][MC],
-                                             float* P, float* DS, const float* Ls,
-                                             const float* Ds, long long q0, long long k0,
-                                             int ty, int tx, int Sq, int Skv, int causal,
-                                             int has_window, long long window,
-                                             float scale_log2) {
-#pragma unroll
-  for (int a = 0; a < MR; ++a) {
-    const int i = ty + 16 * a;
-#pragma unroll
-    for (int b = 0; b < MC; ++b) {
-      const int j = tx + 16 * b;
-      const float p = visible(q0 + i, k0 + j, Sq, Skv, causal, has_window, window)
-                          ? exp2f(fmaf(s[a][b], scale_log2, -Ls[i]))
-                          : 0.f;
-      if (P != nullptr) P[i * LDP + j] = p;
-      DS[i * LDP + j] = p * (dp[a][b] - Ds[i]);
-    }
-  }
-}
-
-// lse (in log2 units) and delta of q rows [q0, q0 + BQ) of one head
-template <int BQ>
-__device__ __forceinline__ void stage_rows(float* Ls, float* Ds, const float* lse_h,
-                                           const float* delta_h, long long q0, int Sq) {
-  for (int i = threadIdx.x; i < BQ; i += kThreads) {
-    const long long qp = q0 + i;
-    Ls[i] = qp < Sq ? lse_h[qp] * kLog2e : 0.f;
-    Ds[i] = qp < Sq ? delta_h[qp] : 0.f;
-  }
 }
 
 template <typename T, int D>
@@ -254,188 +120,6 @@ attn_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __res
     const long long h = r % H;
     delta[(b * H + h) * Sq + i] = sum;
   }
-}
-
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const T* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Sq,
-              int Skv, int H, int KV, int causal, int has_window, long long window,
-              float scale) {
-  using P = Plan<D, BQ, BK>;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * P::kLd;
-  float* Ks = dOs + BQ * P::kLd;
-  float* Vs = Ks + BK * P::kLd;
-  float* Ps = Vs + BK * P::kLd;
-  float* dSs = Ps + BQ * P::kLdP;
-  float* Ls = dSs + BQ * P::kLdP;
-  float* Ds = Ls + BQ;
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV, G = H / KV;
-  const long long k0 = static_cast<long long>(blockIdx.y) * BK;
-  const long long q_stride = static_cast<long long>(H) * D;
-  const long long kv_stride = static_cast<long long>(KV) * D;
-  const long long kv_off = (static_cast<long long>(b) * Skv * KV + kvh) * D;
-  const float scale_log2 = scale * kLog2e;
-
-  stage<T, D, BK, P::kLd>(Ks, k + kv_off, kv_stride, k0, Skv);
-  stage<T, D, BK, P::kLd>(Vs, v + kv_off, kv_stride, k0, Skv);
-
-  float acc_k[P::kKR][P::kDC], acc_v[P::kKR][P::kDC];
-#pragma unroll
-  for (int a = 0; a < P::kKR; ++a)
-#pragma unroll
-    for (int c = 0; c < P::kDC; ++c) acc_k[a][c] = acc_v[a][c] = 0.f;
-
-  // the q rows that may see a key of this tile
-  long long qlo = causal ? k0 : 0, qhi = Sq;
-  if (has_window) qhi = min(qhi, k0 + BK - 1 + window);
-  qlo = qlo / BQ * BQ;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const long long q_off = (static_cast<long long>(b) * Sq * H + h) * D;
-    const long long row_off = (static_cast<long long>(b) * H + h) * Sq;
-    for (long long q0 = qlo; q0 < qhi; q0 += BQ) {
-      __syncthreads();   // the last tile's readers are done
-      stage<T, D, BQ, P::kLd>(Qs, q + q_off, q_stride, q0, Sq);
-      stage<T, D, BQ, P::kLd>(dOs, dout + q_off, q_stride, q0, Sq);
-      stage_rows<BQ>(Ls, Ds, lse + row_off, delta + row_off, q0, Sq);
-      __syncthreads();
-      float s[P::kMR][P::kMC], dp[P::kMR][P::kMC];
-      dot_tile<D, P::kLd>(s, Qs, Ks, ty, tx);
-      dot_tile<D, P::kLd>(dp, dOs, Vs, ty, tx);
-      softmax_grad<P::kMR, P::kMC, P::kLdP>(s, dp, Ps, dSs, Ls, Ds, q0, k0, ty, tx, Sq, Skv,
-                                             causal, has_window, window, scale_log2);
-      __syncthreads();
-      acc_tn<BQ, P::kLdP, P::kLd>(acc_v, Ps, dOs, ty, tx);    // dv += p^T dout
-      acc_tn<BQ, P::kLdP, P::kLd>(acc_k, dSs, Qs, ty, tx);    // dk += ds^T q
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < P::kKR; ++a) {
-    const long long kp = k0 + ty + 16 * a;
-    if (kp >= Skv) continue;
-    const long long off = kv_off + kp * kv_stride + tx;
-#pragma unroll
-    for (int c = 0; c < P::kDC; ++c) {
-      dv[off + 16 * c] = from_f<T>(acc_v[a][c]);
-      dk[off + 16 * c] = from_f<T>(acc_k[a][c] * scale);
-    }
-  }
-}
-
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int H, int KV,
-            int causal, int has_window, long long window, float scale) {
-  using P = Plan<D, BQ, BK>;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * P::kLd;
-  float* Ks = dOs + BQ * P::kLd;
-  float* Vs = Ks + BK * P::kLd;
-  float* dSs = Vs + BK * P::kLd;
-  float* Ls = dSs + 2 * BQ * P::kLdP;
-  float* Ds = Ls + BQ;
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / (H / KV);
-  const long long q0 = static_cast<long long>(gridDim.y - 1 - blockIdx.y) * BQ;
-  const long long q_stride = static_cast<long long>(H) * D;
-  const long long kv_stride = static_cast<long long>(KV) * D;
-  const long long q_off = (static_cast<long long>(b) * Sq * H + h) * D;
-  const long long kv_off = (static_cast<long long>(b) * Skv * KV + kvh) * D;
-  const long long row_off = (static_cast<long long>(b) * H + h) * Sq;
-  const float scale_log2 = scale * kLog2e;
-
-  stage<T, D, BQ, P::kLd>(Qs, q + q_off, q_stride, q0, Sq);
-  stage<T, D, BQ, P::kLd>(dOs, dout + q_off, q_stride, q0, Sq);
-  stage_rows<BQ>(Ls, Ds, lse + row_off, delta + row_off, q0, Sq);
-
-  float acc[P::kQR][P::kDC];
-#pragma unroll
-  for (int a = 0; a < P::kQR; ++a)
-#pragma unroll
-    for (int c = 0; c < P::kDC; ++c) acc[a][c] = 0.f;
-
-  // the kv tiles that hold a key some row of this q tile may see
-  long long klo = 0, khi = Skv;
-  if (causal) khi = min(khi, q0 + BQ);
-  if (has_window) klo = max(0LL, q0 - window + 1);
-  klo = klo / BK * BK;
-
-  for (long long k0 = klo; k0 < khi; k0 += BK) {
-    __syncthreads();   // the last tile's readers are done
-    stage<T, D, BK, P::kLd>(Ks, k + kv_off, kv_stride, k0, Skv);
-    stage<T, D, BK, P::kLd>(Vs, v + kv_off, kv_stride, k0, Skv);
-    __syncthreads();
-    float s[P::kMR][P::kMC], dp[P::kMR][P::kMC];
-    dot_tile<D, P::kLd>(s, Qs, Ks, ty, tx);
-    dot_tile<D, P::kLd>(dp, dOs, Vs, ty, tx);
-    softmax_grad<P::kMR, P::kMC, P::kLdP>(s, dp, nullptr, dSs, Ls, Ds, q0, k0, ty, tx, Sq, Skv,
-                                           causal, has_window, window, scale_log2);
-    __syncthreads();
-    acc_nn<BK, P::kLdP, P::kLd>(acc, dSs, Ks, ty, tx);     // dq += ds k
-  }
-
-#pragma unroll
-  for (int a = 0; a < P::kQR; ++a) {
-    const long long qp = q0 + ty + 16 * a;
-    if (qp >= Sq) continue;
-    const long long off = q_off + qp * q_stride + tx;
-#pragma unroll
-    for (int c = 0; c < P::kDC; ++c) dq[off + 16 * c] = from_f<T>(acc[a][c] * scale);
-  }
-}
-
-template <typename T, int D, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Sq,
-                   int Skv, int H, int KV, int causal, int has_window, long long window,
-                   float scale, cudaStream_t stream) {
-  using P = Plan<D, BQ, BK>;
-  const long long kv_tiles = (Skv + BK - 1) / BK, q_tiles = (Sq + BQ - 1) / BQ;
-  if (kv_tiles > 65535 || q_tiles > 65535) return cudaErrorInvalidValue;
-  auto dkdv = attn_bwd_dkdv<T, D, BQ, BK>;
-  auto dqk = attn_bwd_dq<T, D, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         P::kSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
-  if (err != cudaSuccess) return err;
-
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  const long long rows = static_cast<long long>(B) * Sq * H;
-  const long long delta_blocks = (rows * 32 + kThreads - 1) / kThreads;
-  attn_bwd_delta<T, D><<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(o), tdo, delta, Sq, H, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (Skv > 0) {
-    const dim3 grid_kv(static_cast<unsigned>(B) * static_cast<unsigned>(KV),
-                       static_cast<unsigned>(kv_tiles));
-    dkdv<<<grid_kv, kThreads, P::kSmem, stream>>>(tq, tk, tv, tdo, lse, delta,
-                                                   static_cast<T*>(dk), static_cast<T*>(dv), Sq,
-                                                   Skv, H, KV, causal, has_window, window, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid_q(static_cast<unsigned>(B) * static_cast<unsigned>(H),
-                    static_cast<unsigned>(q_tiles));
-  dqk<<<grid_q, kThreads, P::kSmem, stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
-                                              Sq, Skv, H, KV, causal, has_window, window, scale);
-  return cudaGetLastError();
 }
 
 // ---- bf16 on Hopper's tensor cores (wgmma, TMA, mbarriers), head sizes 32 to 128 ----
@@ -1230,23 +914,686 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   return static_cast<int>(cerr);
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const void* o,
-                     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                     void* dv, int B, int Sq, int Skv, int H, int KV, int causal,
-                     int has_window, long long window, float scale, cudaStream_t st) {
-#define FA_BWD_PLAN(d, bq, bk)                                                               \
-  if (D == d)                                                                              \
-    return launch<T, d, bq, bk>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, KV, \
-                                causal, has_window, window, scale, st);
-  FA_BWD_PLAN(32, 64, 64)
-  FA_BWD_PLAN(64, 64, 64)
-  FA_BWD_PLAN(128, 64, 64)
-  FA_BWD_PLAN(256, 32, 32)
-#undef FA_BWD_PLAN
-  return cudaErrorInvalidValue;
+// ---- float32 and bf16 at head size 256 on mma.sync ----
+//
+// Three kernels of one shape, four warps a block, each warp owning 16 rows
+// (the M side of every product) and a block 64 (kRows):
+//   * dv, then dk: a block owns (batch, KV head, 64 keys) and stages its K
+//     (and V) once; q and dout arrive by cp.async in steps of BQ rows, ST
+//     steps in flight, with each step's lse and delta, over the query heads
+//     of its KV head in order and, within a head, the q rows that can see
+//     its keys.  A warp computes s^T = K q^T for its 16 keys, p^T =
+//     exp2(s^T scale log2e - lse log2e) and dv += p^T dout; or s^T and
+//     dp^T = V dout^T, ds^T = p^T (dp^T - delta) and dk += ds^T q;
+//   * dq: a block owns (batch, head, 64 q rows), stages q and dout once and
+//     takes k and v in steps of BK keys; s = q K^T, dp = dout V^T, ds, dq +=
+//     ds K.  q tiles are issued last-first, key tiles first to last, so the
+//     longest causal walks start first.
+// Eight products for the bound's five (s^T twice, dp twice), no atomic, and
+// every sum in one order.  dv follows delta in stream order; dk and dq are
+// programmatic dependents, so the long walks of all three launches share
+// the card instead of each launch's tail waiting for its longest block.
+//
+// The products (the policy Tc<T>).  float32: each operand x split as hi =
+// rna(x) to TF32 and lo = rna(x - hi), a product as hi.lo + lo.hi + hi.hi on
+// mma.sync.m16n8k8 (tf32 in, float32 out), as flash_attention_f32.cu does;
+// bf16: one mma.sync.m16n8k16 (bf16 in, float32 out), p and ds rounded to
+// bf16 from the accumulator fragments as the wgmma route rounds them.  A
+// 16-wide k unit is two TF32 k-steps or one bf16 k-step:
+//   * over head dims (s, dp and their transposes): thread t reads 4 dims of
+//     a row in one 16-byte (8-byte) load; float32 takes dims dc .. dc + 3 of
+//     unit u, dc = 32 (u / 2) + 8 t + 4 (u % 2), as k slots t and t + 4 of
+//     two k-steps; bf16 takes dc = 64 (u / 4) + 8 (u % 4) + 32 (t % 2) + 4
+//     (t / 2) as k slots 2t, 2t + 1, 2t + 8, 2t + 9 (any bijection of dims
+//     to k slots gives the same sum when A and B share it; these two keep
+//     a quarter-warp's (half-warp's) loads on distinct banks);
+//   * over rows (dv, dk, dq): the score accumulator's fragment (row g,
+//     columns 2t, 2t + 1 of two 8-column tiles) is the A operand as it
+//     stands, and B reads rows 2t, 2t + 1, 2t + 8, 2t + 9 of the 16-row unit
+//     at 4 dims (32 mb + 4 g ..), one load a row for four 8-dim n-tiles; a
+//     thread's output dims are then 8 t .. 8 t + 7 of each 32-dim block.
+// The tensor core rounds its float32 sums toward zero, so a long run of
+// products into one accumulator drifts (4 heads x 2,048 rows into one dv
+// key: ~1,024 ulp, past the 1e-4 tolerance): a score's three products sum
+// in three accumulators, and each (head, q step) of dv or dk, each key step
+// of dq, is summed from 0 in a 32-dim block's own accumulator and added to
+// the running float32 sum with one rounded add.
+// Tiles are kept in the input type at a row stride of D plus 16 bytes.
+
+constexpr int kMmaWarps = 4;
+constexpr int kRows = 16 * kMmaWarps;   // keys a dv or dk block owns, q rows a dq block owns
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kScoreUnroll = 4;         // k units unrolled in a score product above D = 64
+
+// Shared memory of a tile plan (kernel.py's smem_bytes_bwd_f32 for float):
+// dv and dk K (and V) and ST steps of q, dout (BQ rows), lse and delta; dq
+// q, dout and ST steps of K and V (BK rows).
+template <typename T, int D, int BQ, int BK, int ST>
+struct MmaPlan {
+  static constexpr int kLd = D + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kTile = static_cast<int>(sizeof(T)) * kLd;   // bytes a staged row
+  static constexpr int kSmemDv = kRows * kTile + 2 * ST * BQ * kTile + 8 * ST * BQ;
+  static constexpr int kSmemDk = kSmemDv + kRows * kTile;
+  static constexpr int kSmemDq = 2 * kRows * kTile + 2 * ST * BK * kTile;
+  static_assert(D % 32 == 0 && BQ % 16 == 0 && BK % 16 == 0 && ST >= 2, "tile shape");
+  static_assert(sizeof(T) == 4 || D % 64 == 0, "bf16 takes head dims in blocks of 64");
+  static_assert(kSmemDk <= 232448 && kSmemDq <= 232448, "tile plan exceeds shared memory");
+};
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok (nothing read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// rows [row0, row0 + ROWS) of one head of a (.., S, heads, D) tensor into
+// shared memory at row stride LD, 16 bytes a copy; rows at or past S are zeros
+template <typename T, int D, int ROWS, int LD>
+__device__ __forceinline__ void stage_tile(T* dst, const T* base, long long row_stride,
+                                           long long row0, long long S) {
+  constexpr int kE = 16 / static_cast<int>(sizeof(T));
+  constexpr int kC = D / kE;
+  for (int i = threadIdx.x; i < ROWS * kC; i += kMmaThreads) {
+    const int r = i / kC, c = (i % kC) * kE;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + r * LD + c, ok ? base + (row0 + r) * row_stride + c : base, ok);
+  }
+}
+
+// floats [row0, row0 + ROWS) of a row array of length S; zeros past S
+template <int ROWS>
+__device__ __forceinline__ void stage_floats(float* dst, const float* src, long long row0,
+                                             long long S) {
+  for (int i = threadIdx.x; i < ROWS; i += kMmaThreads) {
+    const bool ok = row0 + i < S;
+    cp_async4(dst + i, ok ? src + row0 + i : src, ok);
+  }
+}
+
+// x rounded to TF32, to nearest with ties away from zero (cvt.rna.tf32.f32
+// for finite x), and x = hi + lo in two TF32 parts
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The product policy.  A 16-wide k unit's values, in k order: r0 of row g,
+// r8 of row g + 8 (A), v of a B column.
+template <typename T>
+struct Tc;
+
+// float32: 3xTF32; k-step s takes values 2s and 2s + 1 as slots t and t + 4
+// (A registers (row g, slot t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B
+// (slot t, col g), (t + 4, g)).
+template <>
+struct Tc<float> {
+  static constexpr int kParts = 3;   // a score's accumulators: hi.lo, lo.hi, hi.hi
+  struct A {
+    uint32_t h[2][4], l[2][4];
+  };
+  struct B {
+    uint32_t h[2][2], l[2][2];
+  };
+  struct Rows {   // rows 2t, 2t + 1, 2t + 8, 2t + 9 of a unit, 4 dims each
+    float4 r[4];
+  };
+  static __device__ __forceinline__ int dcol(int u, int t) {
+    return 32 * (u >> 1) + 8 * t + 4 * (u & 1);
+  }
+  static __device__ __forceinline__ A a_of(const float (&r0)[4], const float (&r8)[4]) {
+    A a;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      split(r0[2 * s], a.h[s][0], a.l[s][0]);
+      split(r8[2 * s], a.h[s][1], a.l[s][1]);
+      split(r0[2 * s + 1], a.h[s][2], a.l[s][2]);
+      split(r8[2 * s + 1], a.h[s][3], a.l[s][3]);
+    }
+    return a;
+  }
+  static __device__ __forceinline__ B b_of(const float (&v)[4]) {
+    B b;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      split(v[2 * s], b.h[s][0], b.l[s][0]);
+      split(v[2 * s + 1], b.h[s][1], b.l[s][1]);
+    }
+    return b;
+  }
+  static __device__ __forceinline__ A a_rows(const float* p0, const float* p8) {
+    const float4 x = *reinterpret_cast<const float4*>(p0);
+    const float4 y = *reinterpret_cast<const float4*>(p8);
+    return a_of({x.x, x.y, x.z, x.w}, {y.x, y.y, y.z, y.w});
+  }
+  static __device__ __forceinline__ B b_row(const float* p) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    return b_of({x.x, x.y, x.z, x.w});
+  }
+  // the A operand from two accumulator n-tiles (columns 2t, 2t + 1 of c0,
+  // then of c1)
+  static __device__ __forceinline__ A a_acc(const float (&c0)[4], const float (&c1)[4]) {
+    return a_of({c0[0], c0[1], c1[0], c1[1]}, {c0[2], c0[3], c1[2], c1[3]});
+  }
+  static __device__ __forceinline__ Rows rows(const float* p, int ld) {
+    const float4* x = reinterpret_cast<const float4*>(p);
+    return Rows{{x[0], x[ld / 4], x[2 * ld], x[9 * ld / 4]}};
+  }
+  static __device__ __forceinline__ float lane_of(const float4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+  static __device__ __forceinline__ B b_rows(const Rows& x, int n) {
+    return b_of({lane_of(x.r[0], n), lane_of(x.r[1], n), lane_of(x.r[2], n), lane_of(x.r[3], n)});
+  }
+  // c += a b in three products a k-step, the small terms first
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mma_tf32(c, a.h[s], b.l[s]);
+      mma_tf32(c, a.l[s], b.h[s]);
+      mma_tf32(c, a.h[s], b.h[s]);
+    }
+  }
+  static __device__ __forceinline__ void mma_parts(float (&c)[3][4], const A& a, const B& b) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mma_tf32(c[0], a.h[s], b.l[s]);
+      mma_tf32(c[1], a.l[s], b.h[s]);
+      mma_tf32(c[2], a.h[s], b.h[s]);
+    }
+  }
+  static __device__ __forceinline__ float total(const float (&c)[3][4], int i) {
+    return __fadd_rn(__fadd_rn(c[0][i], c[1][i]), c[2][i]);
+  }
+  static __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+  }
+};
+
+// bf16: one m16n8k16; values 0, 1 are k slots 2t, 2t + 1 and values 2, 3
+// slots 2t + 8, 2t + 9, a pair in one register, the lower k in the low half
+// (A registers (row g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..);
+// B (2t.., col g), (2t + 8.., g)).
+template <>
+struct Tc<__nv_bfloat16> {
+  static constexpr int kParts = 1;
+  struct A {
+    uint32_t r[4];
+  };
+  struct B {
+    uint32_t r[2];
+  };
+  struct Rows {
+    uint2 r[4];
+  };
+  static __device__ __forceinline__ int dcol(int u, int t) {
+    return 64 * (u >> 2) + 8 * (u & 3) + 32 * (t & 1) + 4 * (t >> 1);
+  }
+  static __device__ __forceinline__ A a_rows(const __nv_bfloat16* p0, const __nv_bfloat16* p8) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p0);
+    const uint2 y = *reinterpret_cast<const uint2*>(p8);
+    return A{{x.x, y.x, x.y, y.y}};
+  }
+  static __device__ __forceinline__ B b_row(const __nv_bfloat16* p) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    return B{{x.x, x.y}};
+  }
+  static __device__ __forceinline__ A a_acc(const float (&c0)[4], const float (&c1)[4]) {
+    return A{{pack_bf16(c0[0], c0[1]), pack_bf16(c0[2], c0[3]), pack_bf16(c1[0], c1[1]),
+              pack_bf16(c1[2], c1[3])}};
+  }
+  static __device__ __forceinline__ Rows rows(const __nv_bfloat16* p, int ld) {
+    const uint2* x = reinterpret_cast<const uint2*>(p);
+    return Rows{{x[0], x[ld / 4], x[2 * ld], x[9 * ld / 4]}};
+  }
+  // dim n of two rows as a bf16 pair, the first row in the low half
+  static __device__ __forceinline__ uint32_t pair(const uint2& lo, const uint2& hi, int n) {
+    return __byte_perm(n < 2 ? lo.x : lo.y, n < 2 ? hi.x : hi.y, (n & 1) ? 0x7632 : 0x5410);
+  }
+  static __device__ __forceinline__ B b_rows(const Rows& x, int n) {
+    return B{{pair(x.r[0], x.r[1], n), pair(x.r[2], x.r[3], n)}};
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
+  }
+  static __device__ __forceinline__ void mma_parts(float (&c)[1][4], const A& a, const B& b) {
+    mma(c[0], a, b);
+  }
+  static __device__ __forceinline__ float total(const float (&c)[1][4], int i) { return c[0][i]; }
+  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c,
+                                                float d) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(a, b), pack_bf16(c, d));
+  }
+};
+
+// C (16 x 8 NT) = A B^T over D: A the warp's 16 rows (aw: its row g), B NT
+// 8-row n-tiles of a tile (bt: its row 0); both (rows, D) tiles at stride LD
+template <typename T, int D, int NT, int LD>
+__device__ __forceinline__ void score(float (&c)[NT][Tc<T>::kParts][4], const T* aw,
+                                      const T* bt, int t, int g) {
+  using Op = Tc<T>;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int p = 0; p < Op::kParts; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[j][p][i] = 0.f;
+#pragma unroll(D <= 64 ? D / 16 : kScoreUnroll)
+  for (int u = 0; u < D / 16; ++u) {
+    const int dc = Op::dcol(u, t);
+    const typename Op::A a = Op::a_rows(aw + dc, aw + 8 * LD + dc);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) Op::mma_parts(c[j], a, Op::b_row(bt + (8 * j + g) * LD + dc));
+  }
+}
+
+// acc (16 x D) += P X, P (16 x KR) in accumulator fragments, X KR rows of a
+// (rows, D) tile at stride LD: each 32-dim block's share summed from 0,
+// then added to acc in one rounding.  acc[mb][n][2 r + c] is row g + 8 r,
+// dim 32 mb + 8 t + 4 c + n.
+template <typename T, int D, int KR, int LD>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 32][4][4], const float (&p)[KR / 8][4],
+                                           const T* x, int t, int g) {
+  using Op = Tc<T>;
+  typename Op::A a[KR / 16];
+#pragma unroll
+  for (int u = 0; u < KR / 16; ++u) a[u] = Op::a_acc(p[2 * u], p[2 * u + 1]);
+#pragma unroll
+  for (int mb = 0; mb < D / 32; ++mb) {
+    float part[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < KR / 16; ++u) {
+      const typename Op::Rows r = Op::rows(x + (16 * u + 2 * t) * LD + 32 * mb + 4 * g, LD);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) Op::mma(part[n], a[u], Op::b_rows(r, n));
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mb][n][i] = __fadd_rn(acc[mb][n][i], part[n][i]);
+  }
+}
+
+// a warp's 16 rows (row0: its row g) of acc to (.., S, heads, D) memory,
+// times mul; rows at or past S skipped
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* base, long long row_stride, long long row0,
+                                           long long S, const float (&acc)[D / 32][4][4],
+                                           float mul, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = row0 + 8 * r;
+    if (row >= S) continue;
+    T* dst = base + row * row_stride + 8 * t;
+#pragma unroll
+    for (int mb = 0; mb < D / 32; ++mb)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        Tc<T>::store4(dst + 32 * mb + 4 * c, acc[mb][0][2 * r + c] * mul,
+                      acc[mb][1][2 * r + c] * mul, acc[mb][2][2 * r + c] * mul,
+                      acc[mb][3][2 * r + c] * mul);
+  }
+}
+
+// dv (kDK false) or dk (kDK true) of kRows keys.
+template <typename T, int D, int BQ, int ST, bool kDK>
+__global__ void __launch_bounds__(kMmaThreads)
+attn_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ out, int Sq, int Skv, int H,
+                 int KV, int causal, int has_window, long long window, float scale) {
+  using Op = Tc<T>;
+  constexpr int kLd = MmaPlan<T, D, BQ, 16, ST>::kLd;
+  constexpr int kNT = BQ / 8;
+  extern __shared__ float4 smem4[];
+  T* Ks = reinterpret_cast<T*>(smem4);
+  T* Vs = Ks + kRows * kLd;                            // dk only
+  T* Qs = Ks + (kDK ? 2 : 1) * kRows * kLd;           // step s at Qs + s BQ kLd
+  T* Os = Qs + ST * BQ * kLd;                          // dout, likewise
+  float* Ls = reinterpret_cast<float*>(Os + ST * BQ * kLd);   // lse of step s at Ls + s BQ
+  float* Ds = Ls + ST * BQ;                                    // delta, likewise (dk)
+
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV, G = H / KV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long k0 = static_cast<long long>(blockIdx.y) * kRows;
+  const long long kw0 = k0 + 16 * warp;                // this warp's keys
+  const long long q_stride = static_cast<long long>(H) * D;
+  const long long kv_stride = static_cast<long long>(KV) * D;
+  const long long kv_off = (static_cast<long long>(b) * Skv * KV + kvh) * D;
+  const float scale_log2 = scale * kLog2e;
+  const int win = has_window ? static_cast<int>(max(min(window, 1LL << 30), -(1LL << 30)))
+                             : 1 << 30;
+
+  // the q rows that may see a key of this block, in steps of BQ, for each
+  // query head of the group in order
+  long long qlo = causal ? k0 : 0, qhi = Sq;
+  if (has_window) qhi = min(qhi, k0 + kRows - 1 + window);
+  qlo = qlo / BQ * BQ;
+  const int n_qt = qhi > qlo ? static_cast<int>((qhi - qlo + BQ - 1) / BQ) : 0;
+  const long long n_it = static_cast<long long>(G) * n_qt;
+
+  int st_g = 0, st_qt = 0;   // the next step to stage: query head st_g of the group, q step st_qt
+  auto stage_step = [&](int s) {
+    const int h = kvh * G + st_g;
+    const long long q0 = qlo + static_cast<long long>(st_qt) * BQ;
+    if (++st_qt == n_qt) {
+      st_qt = 0;
+      ++st_g;
+    }
+    const long long q_off = (static_cast<long long>(b) * Sq * H + h) * D;
+    const long long r_off = (static_cast<long long>(b) * H + h) * Sq;
+    stage_tile<T, D, BQ, kLd>(Qs + s * BQ * kLd, q + q_off, q_stride, q0, Sq);
+    stage_tile<T, D, BQ, kLd>(Os + s * BQ * kLd, dout + q_off, q_stride, q0, Sq);
+    stage_floats<BQ>(Ls + s * BQ, lse + r_off, q0, Sq);
+    if (kDK) stage_floats<BQ>(Ds + s * BQ, delta + r_off, q0, Sq);
+  };
+
+  // K (and V) with the first ST - 1 steps: one commit group a step
+  stage_tile<T, D, kRows, kLd>(Ks, k + kv_off, kv_stride, k0, Skv);
+  if (kDK) stage_tile<T, D, kRows, kLd>(Vs, v + kv_off, kv_stride, k0, Skv);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n_it) stage_step(i);
+    cp_async_commit();
+  }
+  // the next launch of the backward may start on SMs this grid leaves idle
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+
+  float acc[D / 32][4][4];
+#pragma unroll
+  for (int mb = 0; mb < D / 32; ++mb)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mb][n][i] = 0.f;
+
+  int qt = 0;   // this step's q step
+  const T* Kw = Ks + (16 * warp + g) * kLd;
+  const T* Vw = Vs + (16 * warp + g) * kLd;
+  for (long long it = 0; it < n_it; ++it) {
+    {   // the step ST - 1 ahead, into the slot the last iteration read
+      const long long ahead = it + ST - 1;
+      if (ahead < n_it) stage_step(static_cast<int>(ahead % ST));
+      cp_async_commit();
+    }
+    cp_async_wait<ST - 1>();
+    __syncthreads();
+    const int s = static_cast<int>(it % ST);
+    const long long q0 = qlo + static_cast<long long>(qt) * BQ;
+    if (++qt == n_qt) qt = 0;
+    // no pair of this warp's keys and the step's rows is seen
+    const bool none = kw0 >= Skv || (causal && q0 + BQ - 1 < kw0) ||
+                      (has_window && q0 >= kw0 + 15 + window);
+    if (!none) {
+      const T* Qt = Qs + s * BQ * kLd;
+      const T* Ot = Os + s * BQ * kLd;
+      const float* L = Ls + s * BQ;
+      const bool full = q0 + BQ <= Sq && kw0 + 16 <= Skv && (!causal || kw0 + 15 <= q0) &&
+                        (!has_window || kw0 > q0 + BQ - 1 - window);
+      // s^T = K q^T; p^T: element i of n-tile j is key kw0 + g + 8 (i / 2),
+      // q row q0 + 8 j + 2 t + i % 2
+      float st[kNT][Op::kParts][4];
+      score<T, D, kNT, kLd>(st, Kw, Qt, t, g);
+      float p[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qi = 8 * j + 2 * t + (i & 1);
+          float x = exp2f(fmaf(Op::total(st[j], i), scale_log2, -L[qi] * kLog2e));
+          if (!full && !seen(static_cast<int>(q0) + qi, static_cast<int>(kw0) + g + 8 * (i >> 1),
+                             Sq, Skv, causal, win))
+            x = 0.f;
+          p[j][i] = x;
+        }
+      if (kDK) {   // ds^T = p^T (dp^T - delta), dp^T = V dout^T
+        const float* Dl = Ds + s * BQ;
+        score<T, D, kNT, kLd>(st, Vw, Ot, t, g);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            p[j][i] *= Op::total(st[j], i) - Dl[8 * j + 2 * t + (i & 1)];
+      }
+      accumulate<T, D, BQ, kLd>(acc, p, kDK ? Qt : Ot, t, g);   // dv += p^T dout, dk += ds^T q
+    }
+    __syncthreads();   // every warp is done with this slot before it is refilled
+  }
+  cp_async_wait<0>();
+  store_rows<T, D>(out + kv_off, kv_stride, kw0 + g, Skv, acc, kDK ? scale : 1.f, t);
+  // finish no earlier than the launch before, so that the backward's last
+  // launch completes after all of them
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// dq of kRows q rows of one head.
+template <typename T, int D, int BK, int ST>
+__global__ void __launch_bounds__(kMmaThreads)
+attn_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int H,
+                int KV, int causal, int has_window, long long window, float scale) {
+  using Op = Tc<T>;
+  constexpr int kLd = MmaPlan<T, D, 16, BK, ST>::kLd;
+  constexpr int kNT = BK / 8;
+  extern __shared__ float4 smem4[];
+  T* Qs = reinterpret_cast<T*>(smem4);
+  T* Os = Qs + kRows * kLd;
+  T* Ks = Os + kRows * kLd;        // step s at Ks + s BK kLd
+  T* Vs = Ks + ST * BK * kLd;      // likewise
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / (H / KV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long q0 = static_cast<long long>(gridDim.y - 1 - blockIdx.y) * kRows;
+  const long long qw0 = q0 + 16 * warp;                // this warp's rows
+  const long long q_stride = static_cast<long long>(H) * D;
+  const long long kv_stride = static_cast<long long>(KV) * D;
+  const long long q_off = (static_cast<long long>(b) * Sq * H + h) * D;
+  const long long kv_off = (static_cast<long long>(b) * Skv * KV + kvh) * D;
+  const long long r_off = (static_cast<long long>(b) * H + h) * Sq;
+  const float scale_log2 = scale * kLog2e;
+  const int win = has_window ? static_cast<int>(max(min(window, 1LL << 30), -(1LL << 30)))
+                             : 1 << 30;
+
+  // the kv steps that hold a key some row of this tile may see
+  long long lo = 0, hi = Skv;
+  if (causal) hi = min(hi, q0 + kRows);
+  if (has_window) lo = max(0LL, q0 - window + 1);
+  lo = lo / BK * BK;
+  const long long n_it = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+
+  auto stage_step = [&](long long it, int s) {
+    stage_tile<T, D, BK, kLd>(Ks + s * BK * kLd, k + kv_off, kv_stride, lo + it * BK, Skv);
+    stage_tile<T, D, BK, kLd>(Vs + s * BK * kLd, v + kv_off, kv_stride, lo + it * BK, Skv);
+  };
+  // delta was complete before the dv launch began: this launch reads it
+  // before any griddepcontrol.wait
+  stage_tile<T, D, kRows, kLd>(Qs, q + q_off, q_stride, q0, Sq);
+  stage_tile<T, D, kRows, kLd>(Os, dout + q_off, q_stride, q0, Sq);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n_it) stage_step(i, i);
+    cp_async_commit();
+  }
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+
+  // this thread's rows qw0 + g + 8 r: lse (log2 units) and delta
+  float L[2], Dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = qw0 + g + 8 * r;
+    L[r] = row < Sq ? lse[r_off + row] * kLog2e : 0.f;
+    Dl[r] = row < Sq ? delta[r_off + row] : 0.f;
+  }
+  float acc[D / 32][4][4];
+#pragma unroll
+  for (int mb = 0; mb < D / 32; ++mb)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mb][n][i] = 0.f;
+
+  const T* Qw = Qs + (16 * warp + g) * kLd;
+  const T* Ow = Os + (16 * warp + g) * kLd;
+  for (long long it = 0; it < n_it; ++it) {
+    {
+      const long long ahead = it + ST - 1;
+      if (ahead < n_it) stage_step(ahead, static_cast<int>(ahead % ST));
+      cp_async_commit();
+    }
+    cp_async_wait<ST - 1>();
+    __syncthreads();
+    const int s = static_cast<int>(it % ST);
+    const long long kv0 = lo + it * BK;
+    const bool none = qw0 >= Sq || (causal && kv0 > qw0 + 15) ||
+                      (has_window && kv0 + BK - 1 <= qw0 - window);
+    if (!none) {
+      const T* Kt = Ks + s * BK * kLd;
+      const bool full = qw0 + 16 <= Sq && kv0 + BK <= Skv &&
+                        (!causal || kv0 + BK - 1 <= qw0) &&
+                        (!has_window || kv0 > qw0 + 15 - window);
+      // s = q K^T; p: element i of n-tile j is row qw0 + g + 8 (i / 2), key
+      // kv0 + 8 j + 2 t + i % 2
+      float sc[kNT][Op::kParts][4];
+      score<T, D, kNT, kLd>(sc, Qw, Kt, t, g);
+      float p[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = exp2f(fmaf(Op::total(sc[j], i), scale_log2, -L[i >> 1]));
+          if (!full && !seen(static_cast<int>(qw0) + g + 8 * (i >> 1),
+                             static_cast<int>(kv0) + 8 * j + 2 * t + (i & 1), Sq, Skv, causal,
+                             win))
+            x = 0.f;
+          p[j][i] = x;
+        }
+      // ds = p (dp - delta), dp = dout V^T
+      score<T, D, kNT, kLd>(sc, Ow, Vs + s * BK * kLd, t, g);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[j][i] *= Op::total(sc[j], i) - Dl[i >> 1];
+      accumulate<T, D, BK, kLd>(acc, p, Kt, t, g);   // dq += ds K
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  store_rows<T, D>(dq + q_off, q_stride, qw0 + g, Sq, acc, scale, t);
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// delta, then dv, dk and dq.
+template <typename T, int D, int BQ, int BK, int ST>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int B, int Sq, int Skv, int H, int KV, int causal,
+                       int has_window, long long window, float scale, cudaStream_t stream) {
+  using P = MmaPlan<T, D, BQ, BK, ST>;
+  const long long kv_tiles = (Skv + kRows - 1) / kRows, q_tiles = (Sq + kRows - 1) / kRows;
+  if (kv_tiles > 65535 || q_tiles > 65535) return cudaErrorInvalidValue;
+  auto dvk = attn_bwd_dkv_mma<T, D, BQ, ST, false>;
+  auto dkk = attn_bwd_dkv_mma<T, D, BQ, ST, true>;
+  auto dqk = attn_bwd_dq_mma<T, D, BK, ST>;
+  cudaError_t err = cudaFuncSetAttribute(dvk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         P::kSmemDv);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dkk, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemDk);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemDq);
+  if (err != cudaSuccess) return err;
+
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const long long rows = static_cast<long long>(B) * Sq * H;
+  const long long delta_blocks = (rows * 32 + kThreads - 1) / kThreads;
+  attn_bwd_delta<T, D><<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(o), tdo, delta, Sq, H, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // dv follows delta in plain stream order, so delta is complete before dk
+  // and dq read it; dk and dq are programmatic dependents of the launch
+  // before them (none reads another's output), so the longest causal
+  // walks of all three run side by side
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float* cdelta = delta;
+  if (Skv > 0) {
+    cfg.gridDim = dim3(static_cast<unsigned>(B) * static_cast<unsigned>(KV),
+                       static_cast<unsigned>(kv_tiles));
+    cfg.dynamicSmemBytes = P::kSmemDv;
+    err = cudaLaunchKernelEx(&cfg, dvk, tq, tk, tv, tdo, lse, cdelta, static_cast<T*>(dv), Sq,
+                             Skv, H, KV, causal, has_window, window, scale);
+    if (err != cudaSuccess) return err;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.dynamicSmemBytes = P::kSmemDk;
+    err = cudaLaunchKernelEx(&cfg, dkk, tq, tk, tv, tdo, lse, cdelta, static_cast<T*>(dk), Sq,
+                             Skv, H, KV, causal, has_window, window, scale);
+    if (err != cudaSuccess) return err;
+  }
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * static_cast<unsigned>(H),
+                     static_cast<unsigned>(q_tiles));
+  cfg.dynamicSmemBytes = P::kSmemDq;
+  return cudaLaunchKernelEx(&cfg, dqk, tq, tk, tv, tdo, lse, cdelta, static_cast<T*>(dq), Sq,
+                            Skv, H, KV, causal, has_window, window, scale);
+}
+
+// float32 at head size D on plan (BQ, BK, ST), and bf16 on the same plan
+// at D = 256
+template <int D, int BQ, int BK, int ST>
+cudaError_t launch_plan(int is_bf16, const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse, float* delta,
+                        void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
+                        int causal, int has_window, long long window, float scale,
+                        cudaStream_t st) {
+  if constexpr (D == 256) {
+    if (is_bf16)
+      return launch_mma<__nv_bfloat16, D, BQ, BK, ST>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                                      B, Sq, Skv, H, KV, causal, has_window,
+                                                      window, scale, st);
+  }
+  if (is_bf16) return cudaErrorInvalidValue;
+  return launch_mma<float, D, BQ, BK, ST>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv,
+                                          H, KV, causal, has_window, window, scale, st);
+}
 }  // namespace
 
 // Plain C entry point for ctypes.  q, o, dout and dq are contiguous (B, Sq,
@@ -1277,14 +1624,19 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   if (is_bf16 && Skv > 0 && D == 32)
     return launch_wgmma<32>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, KV, causal,
                             has_window, window, scale, st, 15);
-  cudaError_t err;
-  if (is_bf16)
-    err = launch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, KV,
-                                  causal, has_window, window, scale, st);
-  else
-    err = launch_d<float>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Skv, H, KV, causal,
-                          has_window, window, scale, st);
-  return static_cast<int>(err);
+  // float32, and bf16 at D = 256: the tile plans of kernel.py's TILE_PLAN_BWD_F32
+#define FA_BWD_F32_PLAN(d, bq, bk, stages)                                                  \
+  if (D == d)                                                                             \
+    return static_cast<int>(launch_plan<d, bq, bk, stages>(is_bf16, q, k, v, o, dout, l, dl, \
+                                                           dq, dk, dv, B, Sq, Skv, H, KV,   \
+                                                           causal, has_window, window,      \
+                                                           scale, st));
+  FA_BWD_F32_PLAN(32, 32, 32, 2)
+  FA_BWD_F32_PLAN(64, 32, 32, 2)
+  FA_BWD_F32_PLAN(128, 16, 16, 2)
+  FA_BWD_F32_PLAN(256, 16, 16, 2)
+#undef FA_BWD_F32_PLAN
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The bf16 tensor-core route's launches one by one, for timing each: the

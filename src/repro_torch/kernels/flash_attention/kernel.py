@@ -13,16 +13,19 @@ input type; see each source for its design:
       double buffering; the float32 model and its whole-path gate);
   flash_attention_bwd  — ``csrc/flash_attention_bwd.cu``: the backward of
       either (dq, dk, dv from q, k, v, o, the forward's row log-sum-exp and
-      the output's gradient): bf16 at head sizes up to 128 on the tensor
-      cores (wgmma, TMA, mbarriers: delta, then dv, dk and dq launches),
-      float32 and bf16 at 256 on the CUDA cores; it
+      the output's gradient), every product on the tensor cores: bf16 at
+      head sizes up to 128 on wgmma (TMA, mbarriers: delta, then dv, dk
+      and dq launches), float32 as three TF32 ``mma.sync`` products and
+      bf16 at 256 as one bf16 ``mma.sync`` product, on the same delta, dv,
+      dk and dq launches over ``cp.async`` double-buffered tiles; it
       replaces no TPU kernel (the JAX package differentiates its plain
       ``jnp`` attention).
 
 The shared libraries are built from the checkout at first use
 (``kernels/build.py``) and launched on PyTorch's current stream.
-``TILE_PLAN`` and ``TILE_PLAN_F32`` are the two kernels' tilings per head
-size; each source instantiates exactly its plans and rejects any other.
+``TILE_PLAN`` and ``TILE_PLAN_F32`` are the two forward kernels' tilings
+per head size, ``TILE_PLAN_BWD_F32`` the backward's ``mma.sync`` route's;
+each source instantiates exactly its plans and rejects any other.
 """
 from __future__ import annotations
 
@@ -54,6 +57,25 @@ TILE_PLAN: Dict[int, TilePlan] = {32: TilePlan(128, 64, 2), 64: TilePlan(128, 64
 #: for one block an SM (D = 128) or not fit (D = 256)
 TILE_PLAN_F32: Dict[int, TilePlan] = {32: TilePlan(64, 64, 2), 64: TilePlan(64, 64, 2),
                                       128: TilePlan(64, 32, 2), 256: TilePlan(64, 32, 2)}
+
+
+class BwdTilePlan(NamedTuple):
+    bq: int        # q rows a step of a dv or dk block (BWD_ROWS keys)
+    bk: int        # keys a step of a dq block (BWD_ROWS q rows)
+    stages: int    # steps in flight (cp.async)
+
+
+#: rows a block of the backward's mma.sync route owns: four warps of 16
+#: (keys in the dv and dk launches, q rows in the dq launch)
+BWD_ROWS = 64
+#: the backward's float32 tiles per head size D (bf16 at D = 256 takes the
+#: same): a warp's s^T of 16 keys x bq rows in three accumulators of bq / 2
+#: registers; 32-row steps up to D = 64, 16 above, where the dk block's K
+#: and V with two 32-row steps of q and dout would leave one block an SM
+#: (D = 128) or not fit (D = 256)
+TILE_PLAN_BWD_F32: Dict[int, BwdTilePlan] = {
+    32: BwdTilePlan(32, 32, 2), 64: BwdTilePlan(32, 32, 2),
+    128: BwdTilePlan(16, 16, 2), 256: BwdTilePlan(16, 16, 2)}
 #: each kernel's plans by name
 TILE_PLANS = {"flash_attention_bf16": TILE_PLAN, "flash_attention_f32": TILE_PLAN_F32}
 #: shared memory one block may use on an H100 (227 KB)
@@ -72,6 +94,19 @@ def smem_bytes_f32(d: int, plan: TilePlan) -> int:
     float32 Q tile and ``stages`` K tiles at a row stride of d + 16 floats,
     ``stages`` V tiles at d + 4 (the source's ``Plan::kSmem``)."""
     return 4 * ((plan.bq + plan.stages * plan.bk) * (d + 16) + plan.stages * plan.bk * (d + 4))
+
+
+def smem_bytes_bwd_f32(d: int, plan: BwdTilePlan, itemsize: int = 4) -> int:
+    """Dynamic shared memory of the backward's ``mma.sync`` route at head
+    size ``d``, the largest of its launches (the source's ``MmaPlan``): rows
+    staged at ``d`` elements plus 16 bytes; dk holds K and V of its
+    BWD_ROWS keys, ``stages`` steps of q and dout (``bq`` rows) and their
+    lse and delta; dq q and dout of its BWD_ROWS rows and ``stages`` steps
+    of K and V (``bk`` rows).  ``itemsize`` 2 for bf16."""
+    row = itemsize * d + 16
+    dk = 2 * BWD_ROWS * row + 2 * plan.stages * plan.bq * row + 8 * plan.stages * plan.bq
+    dq = 2 * BWD_ROWS * row + 2 * plan.stages * plan.bk * row
+    return max(dk, dq)
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,9 +174,8 @@ def _bwd_launcher(parts: bool = False):
 def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                                   causal: bool, window: Optional[int]):
-    """Launch ``csrc/flash_attention_bwd.cu`` (delta, then dk and dv, then
-    dq: dv and dk are two launches on the bf16 tensor-core route); returns
-    ``(dq, dk, dv)`` in q's dtype.  Arguments are checked by
+    """Launch ``csrc/flash_attention_bwd.cu`` (delta, dv, dk, then dq);
+    returns ``(dq, dk, dv)`` in q's dtype.  Arguments are checked by
     ``ops.flash_attention_backward``."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]

@@ -1150,7 +1150,9 @@ def test_flash_attention_backward_kernel_matches_plain(card, dtype):
 #: Sq and Skv off the tiles and Sq != Skv both ways, windows across a tile
 #: edge, G = 1 / 2 / 4 / 8 at D = 64 and 128, rows that see no key
 #: (window 17 ends past Skv = 100; window 2 leaves the diagonal and one),
-#: and G = 8 at D = 64 with a non-causal window and Sq < Skv
+#: and G = 8 at D = 64 with a non-causal window and Sq < Skv; run in
+#: float32 too (the mma.sync route's tiles: 64-row blocks, steps of 32 or
+#: 16 rows)
 ATTN_BWD_TILE_CASES = [
     (1, 300, 200, 2, 1, 128, True, None),
     (1, 200, 300, 1, 2, 64, True, None),
@@ -1161,21 +1163,39 @@ ATTN_BWD_TILE_CASES = [
     (1, 513, 640, 1, 4, 64, True, 256),
     (1, 250, 390, 2, 8, 64, False, 100),
 ]
+#: the mma.sync route's tiles (float32 at every head size, bf16 at 256)
+#: cut off the edge: Sq and Skv off the 64-row blocks and the 16- or
+#: 32-row steps both ways, windows across a step's edge, G = 1 / 2 / 4 /
+#: 8, rows that see no key (window 17 past Skv = 100, window 0, a window
+#: of 2 beside Sq > Skv: rows past Skv see none)
+ATTN_BWD_MMA_CASES = [
+    (1, 300, 200, 2, 1, 32, True, None, torch.float32),
+    (2, 97, 161, 2, 4, 32, False, 40, torch.float32),
+    (1, 200, 300, 1, 2, 64, True, None, torch.float32),
+    (1, 150, 100, 1, 8, 64, False, 17, torch.float32),
+    (1, 129, 129, 4, 8, 128, True, 2, torch.float32),
+    (1, 79, 47, 2, 2, 128, True, 2, torch.float32),
+    (2, 257, 385, 2, 4, 256, True, 130, torch.float32),
+    (1, 150, 100, 1, 8, 256, False, 17, torch.float32),
+    (1, 300, 200, 2, 1, 256, True, None, torch.bfloat16),
+    (1, 200, 300, 1, 2, 256, False, 100, torch.bfloat16),
+    (2, 257, 385, 2, 4, 256, True, 130, torch.bfloat16),
+    (1, 150, 100, 1, 8, 256, False, 17, torch.bfloat16),
+    (1, 64, 64, 1, 1, 256, True, 0, torch.bfloat16),
+]
 
 
-@pytest.mark.parametrize("case", ATTN_BWD_TILE_CASES)
-def test_flash_attention_backward_tiles_off_the_edge(card, case):
-    """The bf16 backward (wgmma + TMA at D <= 128) against the plain
-    backward on the same q, k, v, o, lse and output gradient, within
-    ATTN_BWD_TOL; rows with no valid key get exactly zero dq; a second
-    launch on the same inputs gives the same bits."""
+def _backward_off_the_edge(card, b, sq, skv, kv, g, d, causal, window, dtype):
+    """The backward kernel against the plain backward on the same q, k, v,
+    o, lse and output gradient, within ATTN_BWD_TOL; rows with no valid key
+    get exactly zero dq; a second launch on the same inputs gives the same
+    bits."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_backward
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_backward_reference, flash_attention_reference)
 
-    b, sq, skv, kv, g, d, causal, window = case
-    q, k, v = _attn_inputs(500 + sq, b, sq, skv, kv, g, d, torch.bfloat16, card)
-    do = next(_attn_inputs(600 + sq, b, sq, sq, kv * g, 1, d, torch.bfloat16, card))
+    q, k, v = _attn_inputs(500 + sq, b, sq, skv, kv, g, d, dtype, card)
+    do = next(_attn_inputs(600 + sq, b, sq, sq, kv * g, 1, d, dtype, card))
     o, lse = flash_attention_reference(q, k, v, causal, window, return_lse=True)
     args = (q, k, v, o, lse, do, causal, window)
     got = flash_attention_backward(*args)
@@ -1186,11 +1206,28 @@ def test_flash_attention_backward_tiles_off_the_edge(card, case):
         assert torch.equal(x, z), name
         scale = float(y.float().abs().max())
         err = float((x.float() - y.float()).abs().max())
-        assert err <= ATTN_BWD_TOL[torch.bfloat16] * scale + 1e-6, (name, err, scale)
+        assert err <= ATTN_BWD_TOL[dtype] * scale + 1e-6, (name, err, scale)
     dead = ~torch.isfinite(lse[0, 0])
     assert bool((got[0][:, dead] == 0).all())
-    if window == 17:
+    if window in (17, 0):
         assert bool(dead.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ATTN_BWD_TILE_CASES)
+def test_flash_attention_backward_tiles_off_the_edge(card, case, dtype):
+    """The backward (bf16: wgmma + TMA at D <= 128; float32: 3xTF32
+    mma.sync) on the bf16 route's edge cases: within ATTN_BWD_TOL of the
+    plain backward, zero dq on rows with no key, bitwise on a second
+    launch."""
+    _backward_off_the_edge(card, *case, dtype)
+
+
+@pytest.mark.parametrize("case", ATTN_BWD_MMA_CASES)
+def test_flash_attention_backward_mma_tiles_off_the_edge(card, case):
+    """The mma.sync route (float32 at D 32-256, bf16 at 256) on its own
+    tiles' edge cases, as above."""
+    _backward_off_the_edge(card, *case)
 
 
 @pytest.mark.parametrize("d", [64, 17, 300])

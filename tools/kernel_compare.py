@@ -29,9 +29,12 @@ host-bound):
       q, k, v in bf16 (the log-sum-exp pointer, where an entry point takes
       one, null: the serving path's launch);
   flash_attention_bwd at qwen3-4b's training shape, 1 x 4,096 tokens, 32
-      query and 8 KV heads of 128, causal, bf16: random q, k, v and output
-      gradient, o and the row log-sum-exp from this checkout's forward
-      kernel;
+      query and 8 KV heads of 128, causal, bf16 (the wgmma route); in
+      float32 (the mma.sync route) at the float32 gate's 1 x 2,048 and at
+      4 x 4,096; and in bf16 at gemma3-4b's head size 256 (1 x 4,096, 8
+      query and 4 KV heads, causal, and causal with a window of 1,024):
+      random q, k, v and output gradient, o and the row log-sum-exp from
+      this checkout's forward kernel;
   embedding_bag_bwd at DLRM's train_batch (path 8's last step's
       ClickLogPipeline ids: 1,703,936 bags of 8 over the 33,762,577-row
       table, d = 64; random output gradient): each checkout's kernels from
@@ -50,13 +53,15 @@ backward on the card) and the two vm_step kernels must agree bit for bit
 (vm_step also with its plain version), and so must the two float32 and the
 two bf16 attention outputs; both float32 attention kernels within 2e-5 of
 the plain version.  Each checkout's attention backward must give dq, dk
-and dv within 2^-7 of the largest plain gradient (plus 1e-6) of the plain
-backward, and the same bits on a second launch; the two checkouts'
+and dv within 2^-7 (bf16) or 1e-4 (float32) of the largest plain gradient
+(plus 1e-6) of the plain backward, and the same bits on a second launch; the two checkouts'
 backwards are not held to each other's bits (their sums may run in other
 orders).  Each ``--plan`` builds this checkout's ``flash_attention_bwd.cu``
-once more with the named ``constexpr int`` constants of its tensor-core
-route replaced (its tile plan: ``kRowsV``, ``kStagesV``, ``kRowsK``,
-``kStagesK``, ``kKeysB``, ``kStagesB``), and the attention backward times
+once more with the named ``constexpr int`` constants replaced (the wgmma
+route's tile plan: ``kRowsV``, ``kStagesV``, ``kRowsK``, ``kStagesK``,
+``kKeysB``, ``kStagesB``; the mma.sync route's ``kMmaWarps``, its
+``kScoreUnroll`` and, as ``plan<D>=bq/bk/stages``, its tile plan at head
+size D), and the attention backward times
 and checks that build in the same turns, for example
 ``--plan dv64:kRowsV=64 --plan k128:kRowsK=128``; a plan that does not
 build is reported and left out.  ``--only`` runs the named sections
@@ -100,8 +105,14 @@ def plan_sources(specs):
         plan = text
         for sub in filter(None, subs.split(",")):
             const, value = sub.split("=")
-            plan, n = re.subn(rf"constexpr int {const} = \d+;",
-                              f"constexpr int {const} = {int(value)};", plan)
+            if const.startswith("plan"):   # plan<D>=bq/bk/stages of the mma.sync route
+                d = int(const[4:])
+                bq, bk, st = (int(x) for x in value.split("/"))
+                plan, n = re.subn(rf"FA_BWD_F32_PLAN\({d}, \d+, \d+, \d+\)\n",
+                                  f"FA_BWD_F32_PLAN({d}, {bq}, {bk}, {st})\n", plan)
+            else:
+                plan, n = re.subn(rf"constexpr int {const} = \d+;",
+                                  f"constexpr int {const} = {int(value)};", plan)
             if n != 1:
                 raise SystemExit(f"--plan {name}: the source has no constant {const}")
         out[name] = plan
@@ -413,28 +424,71 @@ def attention_section(torch, np, c):
     return 0
 
 
-def attention_bwd_section(torch, np, c):
-    """flash_attention_bwd (and each --plan) in turns at qwen3-4b's training shape."""
-    card, libs, roots, dev, stream = c.card, c.libs, c.roots, c.dev, c.stream
-    gen = torch.Generator(device=dev).manual_seed(2)
-    H, KV, D = 32, 8, 128
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import flash_attention_backward_reference
+#: the attention backward's shapes: (label, B, S, H, KV, D, dtype, window,
+#: reps): qwen3-4b's training shape in bf16 (the wgmma route), the float32
+#: route at the float32 gate's shape and at the float32 forward's 4 x
+#: 4,096, and bf16 at gemma3-4b's head size 256, global and local (window
+#: 1,024); all causal
+BWD_SHAPES = [("bf16", 1, 4096, 32, 8, 128, "bfloat16", None, 10),
+              ("f32 gate", 1, 2048, 32, 8, 128, "float32", None, 5),
+              ("f32 4x4k", 4, 4096, 32, 8, 128, "float32", None, 2),
+              ("bf16 d256 global", 1, 4096, 8, 4, 256, "bfloat16", None, 10),
+              ("bf16 d256 local", 1, 4096, 8, 4, 256, "bfloat16", 1024, 10)]
 
-    B, S = 1, 4096
-    q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
-             for _ in range(2))
-    k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
-    o, lse = flash_attention_cuda("flash_attention_bf16", q, k, v, True, None, with_lse=True)
+
+def attention_bwd_section(torch, np, c):
+    """flash_attention_bwd (and each --plan) in turns at BWD_SHAPES."""
     bwd = {}
-    for (tag, name), lib in libs.items():
+    for (tag, name), lib in c.libs.items():
         if name != "flash_attention_bwd":
             continue
         bwd[tag] = ctypes.CDLL(str(lib)).flash_attention_bwd_launch
         bwd[tag].argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                              + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
         bwd[tag].restype = ctypes.c_int
+    return max(attention_bwd_shape(torch, c, bwd, *shape) for shape in BWD_SHAPES)
+
+
+def bwd_split(torch, fn, reps):
+    """{launch: device ms a call} of an attention backward (delta, dv, dk,
+    dq) from a ``torch.profiler`` trace of ``reps`` calls: each launch's
+    intervals, which overlap where a launch is a programmatic dependent."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = ("delta" if "bwd_delta" in e.name else "dq" if "bwd_dq" in e.name
+                else "dk" if re.search(r"bwd_dkv\w*<[^>]*(true|\(bool\)1)>", e.name)
+                else "dv" if "bwd_dkv" in e.name else short_name(e.name))
+        out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
+def attention_bwd_shape(torch, c, bwd, label, B, S, H, KV, D, dtype, window, reps):
+    """Each checkout's backward at one shape, in turns: random q, k, v and
+    output gradient, o and the row log-sum-exp from this checkout's forward
+    kernel; each within 2^-7 (bf16) or 1e-4 (float32) of the largest plain
+    gradient (plus 1e-6) and equal to itself on a second launch.  Returns 1
+    on a failure."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_backward_reference
+
+    card, dev, stream = c.card, c.dev, c.stream
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dt) for _ in range(2))
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev).to(dt) for _ in range(2))
+    fwd = "flash_attention_bf16" if dtype == "bfloat16" else "flash_attention_f32"
+    o, lse = flash_attention_cuda(fwd, q, k, v, True, window, with_lse=True)
     grads = {tag: [(torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
                    for _ in range(2)] for tag in bwd}
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
@@ -443,35 +497,41 @@ def attention_bwd_section(torch, np, c):
         dq, dk, dv = grads[tag][i]
         err = bwd[tag](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                       dv.data_ptr(), B, S, S, H, KV, D, 1, 1, 0, 0, 1.0 / math.sqrt(D), stream)
+                       dv.data_ptr(), B, S, S, H, KV, D, int(dtype == "bfloat16"), 1,
+                       int(window is not None), window or 0, 1.0 / math.sqrt(D), stream)
         if err:
             raise SystemExit(f"flash_attention_bwd ({tag}) launch failed: error {err}")
 
-    ms = in_turns(torch, {tag: (lambda tag=tag: backward(tag)) for tag in bwd}, 10)
+    ms = in_turns(torch, {tag: (lambda tag=tag: backward(tag)) for tag in bwd}, reps)
     for tag in bwd:
         backward(tag, 1)
     torch.cuda.synchronize()
-    want = flash_attention_backward_reference(q, k, v, o, lse, do, True, None)
-    flops = 10 * D * (S * (S + 1) // 2) * B * H
-    print(f"[attn bwd] B={B} S={S} H={H} KV={KV} D={D} causal bf16: the bound "
-          f"{flops / 989e12 * 1e3:.4f} ms ({flops} FLOP at the bf16 tensor-core rate); {card}",
-          flush=True)
+    want = flash_attention_backward_reference(q, k, v, o, lse, do, True, window)
+    pairs = sum(min(i + 1, window or i + 1) for i in range(S))
+    flops = 10 * D * pairs * B * H
+    tol = 2.0 ** -7 if dtype == "bfloat16" else 1e-4
+    # bf16 at the tensor-core rate; float32 as three TF32 products at theirs
+    bound = (flops / 989e12 if dtype == "bfloat16" else 3 * flops / 495e12) * 1e3
+    print(f"[attn bwd] {label}: B={B} S={S} H={H} KV={KV} D={D} causal window={window} "
+          f"{dtype}: the bound {bound:.4f} ms ({flops} FLOP"
+          f"{'' if dtype == 'bfloat16' else ' x 3, 3xTF32'}); {card}", flush=True)
     ok = True
     for tag in bwd:
         errs = [float((x.float() - y.float()).abs().max()) for x, y in zip(grads[tag][0], want)]
-        right = all(e <= 2.0 ** -7 * float(y.float().abs().max()) + 1e-6
-                    for e, y in zip(errs, want))
+        right = all(e <= tol * float(y.float().abs().max()) + 1e-6 for e, y in zip(errs, want))
         repeat = all(bool(torch.equal(x, y)) for x, y in zip(*grads[tag]))
         ok = ok and right and repeat
-        print(f"[attn bwd] {tag}: ms per launch {' / '.join(f'{t:.4f}' for t in ms[tag])} "
-              f"({flops / min(ms[tag]) / 1e9:.1f} TFLOP/s); max_abs_err dq/dk/dv vs plain "
-              f"{'/'.join(f'{e:.3e}' for e in errs)} (within 2^-7 of the largest: {right}); "
-              f"equal to itself on a second launch: {repeat}; {card}", flush=True)
-    if not ok:
-        return 1
+        split = bwd_split(torch, lambda tag=tag: backward(tag), 2)
+        print(f"[attn bwd] {label} {tag}: device ms by launch "
+              + ", ".join(f"{k} {t:.4f}" for k, t in split.items()), flush=True)
+        print(f"[attn bwd] {label} {tag}: ms per launch "
+              f"{' / '.join(f'{t:.4f}' for t in ms[tag])} ({flops / min(ms[tag]) / 1e9:.1f} "
+              f"TFLOP/s, {bound / min(ms[tag]):.4f} of the bound); max_abs_err dq/dk/dv vs "
+              f"plain {'/'.join(f'{e:.3e}' for e in errs)} (within {tol} of the largest: "
+              f"{right}); equal to itself on a second launch: {repeat}; {card}", flush=True)
     del q, k, v, o, lse, do, grads, delta, want
     torch.cuda.empty_cache()
-    return 0
+    return 0 if ok else 1
 
 
 def bag_bwd_section(torch, np, c):
