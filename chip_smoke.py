@@ -48,7 +48,11 @@ Phases (any failure exits non-zero and prints no result line):
    under the drift trigger, two mutation batches) with the ``cuda`` field
    on the card and the ``torch`` field on the CPU, every request's result,
    each partition after an invocation and the invocation count equal
-   (4d); the degradation ladder on the card: four injected invocation
+   (4d); ``python -m repro_torch.launch.serve`` through its ``main`` at its
+   defaults (N = 8,000, k = 8, 10 ticks of 100 requests; provgen and
+   musicbrainz) on the card and on the CPU, every tick's record (ipt a
+   request, invocations, drift) equal; the degradation ladder on the
+   card: four injected invocation
    faults walk ``cuda -> torch``, the ``torch`` rung's field on the card,
    a healthy commit probes back to ``cuda`` and the next commit launches
    ``vm_step`` (4e); ``benchmarks/serve_loop.py``'s setting with the
@@ -69,7 +73,8 @@ Phases (any failure exits non-zero and prints no result line):
    around a crashed follower; the benchmark's three timing targets
    printed as met or NOT MET (4h);
 5. path 1, TAPER at the paper's ProvGen scale: one ``Taper.invoke`` on
-   ``provgen_like(1_000_000)``, k=8, PQ1-4, kernel field, with per-iteration
+   ``provgen_like(1_000_000)``, k=8, PQ1-4, kernel field, 4 iterations (cut
+   from 8 to make room for the paper's own cell), with per-iteration
    field/kernel/swap times and each evaluation's split (its ``vm_step``
    launches, the rest of its wall time), a bitwise repeat of the field, one
    more evaluation under ``torch.profiler`` (host ops by self time, the
@@ -82,7 +87,7 @@ Phases (any failure exits non-zero and prints no result line):
    each evaluation's wall, exchange and ``vm_step`` device time, the halo
    bytes a depth and the halo ratio, the device memory before and after,
    and the kernel at shard 0's shapes (alpha the shard's rows and its
-   halo); then the online path on that graph and final partition: an ``OnlineTaper`` over four ticks of mixed
+   halo); then the online path on that graph and final partition: an ``OnlineTaper`` over three ticks of mixed
    mutations (n/2000 new vertices and m/2000 churned edges a tick) with
    only the topology trigger live, so each invocation is mutation-local
    (3 iterations at most); per tick the host times of the batch,
@@ -129,7 +134,19 @@ Phases (any failure exits non-zero and prints no result line):
    commit shipping latency, per invocation its field and swap, bootstrap,
    promotion, first answer and rejoin seconds, read batch times and hedged
    reads, device memory at five points, WAL and snapshot bytes, and the
-   kernel at the promoted node's last launch's shapes;
+   kernel at the promoted node's last launch's shapes; then the paper's own
+   cell, ``taper_paper`` (5e; the JAX package plans it in
+   ``launch/specs.py``'s ``_taper_cell``): one extroversion-field refine
+   step over ``musicbrainz_like(10_000_000)`` (45.5M directed edges), k =
+   512, ``synthetic_trie(12, 4, branching=2)`` (N = 46, three launches an
+   evaluation), ``dense_ext_to=False``, at a hash start and at a label-rank
+   block start, and the MQ1-3 trie on the block start (the synthetic trie's
+   label pairs are no musicbrainz edge type, so its field is 0 past the
+   depth-1 priors); each case's field twice through ``extroversion_field``
+   and once with its copies back timed apart, all bitwise equal and bitwise
+   the plain field on the card; each launch's time, the kernel against its
+   plain version, its bound and gather yardstick; host seconds by part and
+   peak memory; the graph freed before path 2;
 6. path 2, DLRM serving at full ``dlrm-rm2`` width with ``multi_hot=8``
    (33,762,577 x 64 table on the card): 20 ``serve_p99`` and 3
    ``serve_bulk`` requests through ``serve_step``, kernel forward against
@@ -232,7 +249,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 ``python3 chip_smoke.py --only moe`` runs the build and paths 6 and 7
 alone, ``--only gnn`` the build and phase 8b, ``--only train`` the build
-and path 8; none prints result lines.
+and path 8, ``--only taper_paper`` the build, the serving launcher's phase
+and phase 5e; none prints result lines.
 
 The gather yardstick of a ``segment_spmm`` or ``vm_step`` launch counts
 the 32-byte sectors its live edges' gathered rows touch, once per edge,
@@ -241,10 +259,11 @@ bound (each input byte once) it shows how much of a kernel's gap is the
 graph's randomness.  Each path runs with every kernel's launch count set to
 0 just before it and read just after; a path that launched none of its
 kernels fails.  The line
-before the last is the ``kernels`` JSON record (``vm_step`` on seven
+before the last is the ``kernels`` JSON record (``vm_step`` on eight
 paths: the provgen invocation, the sharded field, the online path, the
-serving path, the cluster path, the row placement and the expert
-placement; ``segment_spmm`` on GCN's, GIN's, NequIP's, Equiformer's and
+serving path, the cluster path, the paper's cell, the row placement and
+the expert placement; ``segment_spmm`` on GCN's, GIN's, NequIP's,
+Equiformer's and
 the partitioned GCN's paths; ``flash_attention`` at qwen3's two shapes and
 olmoe's 4 x 4,096; ``flash_attention_f32``; the backward kernels of path
 8, the attention's bf16 route, its float32 route and bf16 at D = 256
@@ -291,13 +310,21 @@ ONLINE_2000 = [
     (2020, 9078, 230615, 331805, True, True, "topology"),
 ]
 ONLINE_2000_INVOCATIONS = 4
-#: full-size cell: the paper's ProvGen scale (~1M vertices, paper §6.1)
+#: full-size cell: the paper's ProvGen scale (~1M vertices, paper §6.1);
+#: the invocation's iterations, cut from 8 to make room for the paper's
+#: own cell (iterations 5-8 took ~119 s of host swap on an H100's host)
 FULL_N = 1_000_000
-FULL_MAX_ITERS = 8
+FULL_MAX_ITERS = 4
+#: the paper's own cell (configs/taper_paper.py; the JAX package plans it in
+#: launch/specs.py's _taper_cell): the graph's seed and the kernel field's
+#: evaluations through the entry point a start (bitwise equal)
+TAPER_SEED = 0
+TAPER_EVALS = 2
 #: the online path on path 1's graph and partition: ticks of mixed
-#: mutations (n/2000 new vertices, m/2000 churned edges a tick), queries
-#: observed a tick, and the online invocations' iteration cap
-ONLINE_TICKS = 4
+#: mutations (n/2000 new vertices, m/2000 churned edges a tick; 3, cut from
+#: 4 beside the paper's cell), queries observed a tick, and the online
+#: invocations' iteration cap
+ONLINE_TICKS = 3
 ONLINE_BATCH = 300
 ONLINE_MAX_ITERS = 3
 #: slack per live tensor on the device-memory check of the online path:
@@ -349,10 +376,6 @@ SERVE_FULL_CAP_S = 240.0
 SERVE_FULL_SAMPLE = 0.05
 SERVE_FULL_ENUM = 64
 SERVE_FULL_LOG_S = 15.0
-#: enumerations of the fixed batch in each arm of the field-beside-serving
-#: measurement (alone, beside field evaluations, beside memoized calls);
-#: one, cut from three with the batches above
-SERVE_FULL_FIELD_REPS = 1
 #: how soon after an invocation's window opens the worker is back in a
 #: micro-batch (it starts the invocation's thread between micro-batches)
 SERVE_FULL_DISPATCH_S = 0.05
@@ -1386,6 +1409,33 @@ def serving_2000(torch, device):
           "serve2000: the card run left the cuda rung")
 
 
+def launch_serve(torch, device):
+    """``python -m repro_torch.launch.serve`` through its ``main`` at its
+    defaults (N = 8,000, k = 8, 10 ticks of 100 requests), for both
+    datasets: on the card (its default device, the ``cuda`` field) and on
+    the CPU, every tick's record (ipt a request, invocations, drift) equal."""
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    for dataset in ("provgen", "musicbrainz"):
+        reset_counts()
+        t0 = time.perf_counter()
+        card = serve.main(["--dataset", dataset])
+        t_card = time.perf_counter() - t0
+        launches = read_counts(f"launch_serve/{dataset}", ["vm_step"])["vm_step"]
+        t0 = time.perf_counter()
+        cpu = serve.main(["--dataset", dataset, "--device", "cpu"])
+        t_cpu = time.perf_counter() - t0
+        log(f"[launch_serve] {dataset}: {len(card)} ticks, invocations "
+            f"{card[-1]['invocations']}, last tick ipt/request "
+            f"{card[-1]['ipt_per_request']:.2f} drift {card[-1]['drift']:.3f}; card "
+            f"{t_card:.2f} s ({launches} vm_step launches), CPU {t_cpu:.2f} s; records "
+            f"equal {card == cpu}")
+        check(card == cpu, f"launch_serve: {dataset} tick records differ from the CPU's")
+        check(card[-1]["invocations"] >= 1, f"launch_serve: {dataset} never invoked TAPER")
+    log(f"[launch_serve] phase {time.perf_counter() - t_phase:.2f} s")
+
+
 def ladder_on_card(torch, device):
     """The degradation ladder on the card (the twin of
     tests/test_faults.py's fallback test): four injected invocation faults
@@ -2093,6 +2143,182 @@ def _vm_at_path_shapes(torch, path, args):
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: the paper's own cell
+# ---------------------------------------------------------------------------
+
+
+def _label_rank_blocks(labels, k):
+    """The block start: each vertex's rank within its label class cut into
+    k equal blocks, ``((v - first[l(v)]) * k) // count[l(v)]``.  The
+    generator stripes each class over its layer-0 communities in id order,
+    so the blocks keep those communities together: the stand-in for the
+    paper's METIS start (``metis_like_partition`` is host-bound at 10M)."""
+    import numpy as np
+
+    count = np.bincount(labels)
+    first = np.concatenate([[0], np.cumsum(count)[:-1]])
+    rank = np.arange(labels.size, dtype=np.int64) - first[labels]
+    return ((rank * k) // count[labels]).astype(np.int32)
+
+
+def _field_arrays(f):
+    """The field's outputs by name (``ext_to`` is None: dense_ext_to=False)."""
+    return {name: getattr(f, name) for name in FIELD_NAMES if name != "ext_to"}
+
+
+def taper_paper_cell(torch, device):
+    """The ``taper_paper`` cell: one extroversion-field refine step over
+    ``musicbrainz_like(10M)`` with k = 512 and ``synthetic_trie(12, 4,
+    branching=2)`` (N = 46: three ``vm_step`` launches an evaluation),
+    ``dense_ext_to=False``, at a hash start and at the label-rank block
+    start.  The synthetic trie's label pairs (Area.Credit, Artist.Track,
+    ...) are none of musicbrainz's edge types, so its field is 0 past the
+    depth-1 priors (the kernel's work is the same: it gathers every live
+    edge); the MQ1-3 workload's trie (N = 16, depth 5) on the block start
+    checks values that are not 0.  Each case: the field twice through
+    ``extroversion_field`` and once through ``_field`` with its copies back
+    timed apart, all bitwise equal and bitwise the plain ``torch`` field on
+    the card; each launch's device time; the kernel at the case's shapes
+    against its plain version, its bound and gather yardstick; host seconds
+    by part and peak memory."""
+    import gc
+
+    import numpy as np
+    import repro_torch.core.visitor as visitor
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tpstry import TPSTry, synthetic_trie
+    from repro_torch.core.visitor import extroversion_field
+    from repro_torch.graphs.generators import musicbrainz_like
+    from repro_torch.graphs.metrics import partition_balance
+    from repro_torch.graphs.partition import hash_partition
+    from repro_torch.kernels.vm_step.ops import vm_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("taper_paper")
+    k, plan_edges = cfg.k_partitions, cfg.shapes[0].dim("n_edges")
+    host = {}
+    t0 = time.perf_counter()
+    g = musicbrainz_like(cfg.n_vertices, avg_degree=cfg.avg_degree, seed=TAPER_SEED)
+    host["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g.vm_csr()
+    pre = {"cnt": g.cached_neighbor_label_counts(), "lab_vcount": g.label_counts()}
+    host["pack and CSR"] = time.perf_counter() - t0
+    trie = synthetic_trie(cfg.n_labels, cfg.trie_depth, branching=2)
+    mq = TPSTry.from_workload(_workload(MQ, MQ_FREQ)).compile(g.label_names)
+    N, depths = trie.n_nodes, trie.max_depth
+    log(f"[taper_paper] musicbrainz_like n={g.n} m={g.m} directed edges (the plan's "
+        f"n_edges {plan_edges} = n x avg degree {cfg.avg_degree}; the generator drops "
+        f"duplicates: {g.m / plan_edges:.4f} of it), {g.n_labels} labels, k={k}; "
+        f"synthetic_trie({cfg.n_labels}, {cfg.trie_depth}, branching=2): N={N}, depth "
+        f"{depths}, {depths - 1} vm_step launches an evaluation; alpha {g.n * N} floats "
+        f"(the kernel's int32 guard at {2 ** 31 - 1}); dense_ext_to=False")
+    check(g.n == cfg.n_vertices and N == 46 and depths == cfg.trie_depth,
+          "taper_paper: the cell's graph or trie is not the configuration's")
+    t0 = time.perf_counter()
+    visitor._device_inputs(g, pre, pre["cnt"], pre["lab_vcount"], device)
+    torch.cuda.synchronize()
+    host["device inputs"] = time.perf_counter() - t0
+    starts = {"hash": hash_partition(g.n, k, seed=1),
+              "block": _label_rank_blocks(g.labels, k)}
+    cases = {"hash": ("hash", trie), "block": ("block", trie), "block/MQ": ("block", mq)}
+
+    def field(part, tr, backend):
+        return extroversion_field(g, tr, part, k, device=device, backend=backend,
+                                  dense_ext_to=False, _precomputed=pre)
+
+    timer = _KernelTimer(torch, vm_step)
+    visitor.vm_step = timer
+    runs = {}
+    try:
+        reset_counts()                              # the path starts here
+        for name, (start, tr) in cases.items():
+            first, evals, wall = len(timer.events), [], []
+            for _ in range(TAPER_EVALS):
+                t0 = time.perf_counter()
+                evals.append(_field_arrays(field(starts[start], tr, "cuda")))
+                wall.append(time.perf_counter() - t0)
+            # once more with the device work and the copies back timed apart
+            t0 = time.perf_counter()
+            out = visitor._field(g, tr, starts[start], k, tr.max_depth, pre, False, "cuda",
+                                 device)
+            torch.cuda.synchronize()
+            t_field = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            split = {nm: t.cpu().numpy() for nm, t in zip(FIELD_NAMES, out) if t is not None}
+            t_copy = time.perf_counter() - t0
+            del out
+            runs[name] = dict(evals=evals + [split], wall=wall, field_s=t_field,
+                              copy_s=t_copy, events=timer.events[first:],
+                              args=timer.last_args)
+        launches = read_counts("taper_paper", ["vm_step"])["vm_step"]  # ... ends here
+    finally:
+        visitor.vm_step = vm_step
+    torch.cuda.synchronize()
+    peak_path = torch.cuda.max_memory_allocated()
+    check(launches == sum((TAPER_EVALS + 1) * (tr.max_depth - 1) for _, tr in cases.values()),
+          f"taper_paper: {launches} vm_step launches")
+
+    results = {}
+    for name, (start, tr) in cases.items():
+        run, part = runs.pop(name), starts[start]
+        ref = run["evals"][0]
+        for other in run["evals"][1:]:
+            for nm, a in ref.items():
+                check(np.array_equal(a, other[nm]), f"taper_paper/{name}: field {nm} "
+                      "not bitwise repeatable")
+        for nm, a in ref.items():
+            check(bool(np.isfinite(a).all()), f"taper_paper/{name}: field {nm} not finite")
+        check(ref["alpha"].shape == (g.n, tr.n_nodes) and ref["edge_mass"].shape == (g.m,),
+              f"taper_paper/{name}: field output shapes")
+        t0 = time.perf_counter()
+        plain = _field_arrays(field(part, tr, "torch"))
+        t_plain = time.perf_counter() - t0
+        same = all(np.array_equal(a, plain[nm]) for nm, a in ref.items())
+        del plain
+        check(same, f"taper_paper/{name}: the cuda field differs from the plain field")
+        deep = int(np.count_nonzero(ref["alpha"][:, tr.depth >= 2]))
+        extro = float(ref["extro_mass"].sum())
+        if tr is mq:
+            check(deep > 0 and extro > 0, "taper_paper/block/MQ: the field is 0 past depth 1")
+        local = int((part[g.src] == part[g.dst]).sum())
+        ms = [a.elapsed_time(b) for a, b in run["events"]]
+        per_eval = tr.max_depth - 1
+        log(f"[taper_paper/{name}] start {start}: {local} of {g.m} edges local "
+            f"({local / g.m:.4f}), balance {partition_balance(part, k):.4f}; trie N="
+            f"{tr.n_nodes}, depth {tr.max_depth}; nonzero alpha entries past depth 1: "
+            f"{deep}; total extroversion {extro!r}")
+        for i in range(len(run["evals"])):
+            launch_ms = ms[i * per_eval:(i + 1) * per_eval]
+            how = (f"extroversion_field {run['wall'][i]:.3f} s" if i < TAPER_EVALS else
+                   f"_field {run['field_s']:.3f} s + copies back {run['copy_s']:.3f} s")
+            log(f"[taper_paper/{name}] evaluation {i}: {how}; vm_step launches "
+                f"(depths 2..{tr.max_depth}) " + ", ".join(f"{t:.4f}" for t in launch_ms)
+                + f" ms, {sum(launch_ms):.4f} ms in all")
+        log(f"[taper_paper/{name}] the fields bitwise equal ({len(run['evals'])} "
+            f"evaluations) and bitwise the plain torch field on the card "
+            f"({t_plain:.3f} s)")
+        host[f"field ({name})"] = run["field_s"]
+        host[f"copies back ({name})"] = run["copy_s"]
+        del ref, run["evals"]
+        results[name] = _vm_at_path_shapes(torch, f"taper_paper/{name}", run["args"])
+        del run
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[taper_paper] host seconds: " + ", ".join(f"{nm} {t:.2f}" for nm, t in host.items())
+        + f"; peak device memory {peak_path / 2**30:.2f} GiB on the path, "
+        f"{peak / 2**30:.2f} GiB with the plain fields and the kernel's checks; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    del g, pre, timer, starts
+    gc.collect()
+    torch.cuda.empty_cache()
+    block = results["block"]
+    return dict(launches=launches, err=max(r["err"] for r in results.values()),
+                **{key: block[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+
+
+# ---------------------------------------------------------------------------
 # phase 5a: the sharded field at full size
 # ---------------------------------------------------------------------------
 
@@ -2526,65 +2752,6 @@ def _invocations_from_traces(loop, host_t):
     return out
 
 
-def _field_beside_serving(torch, loop, fixed):
-    """The worker's enumeration of the fixed batch alone; beside field
-    evaluations run back to back on another thread (two partitions in turn,
-    so none is memoized: each launches vm_step and copies its results to
-    pageable host memory); and beside back-to-back copies of one field's
-    results from the card to pageable host memory, the copies alone.
-    Returns the enumeration times of each arm, and for the two threads
-    their count of evaluations / copy rounds, mean wall and bytes a round."""
-    import threading
-
-    import numpy as np
-
-    taper, ex = loop.ot.taper, loop.executor
-    arrays = taper.build_trie(loop.ot.sketch.workload(loop.ot.policy.min_freq)).compile(
-        loop.g.label_names)
-    p0 = loop.part
-    p1 = p0.copy()
-    p1[: p1.size // 100] = (p1[: p1.size // 100] + 1) % loop.k
-    fld = taper.field(p0, arrays)                 # warm: the first call is cold
-    outs = [torch.from_numpy(np.ascontiguousarray(getattr(fld, name))).to(taper.device)
-            for name in FIELD_NAMES if getattr(fld, name) is not None]
-    copy_bytes = sum(t.numel() * t.element_size() for t in outs)
-
-    def enum_times():
-        out = []
-        for _ in range(SERVE_FULL_FIELD_REPS):
-            t0 = time.perf_counter()
-            ex.enumerate_paths_many(fixed, max_results=loop.cfg.max_results_per_query,
-                                    part=p0)
-            out.append(time.perf_counter() - t0)
-        return out
-
-    def beside(work):
-        stop, walls = threading.Event(), []
-
-        def body():
-            while not stop.is_set():
-                t0 = time.perf_counter()
-                work(len(walls))
-                walls.append(time.perf_counter() - t0)
-
-        t = threading.Thread(target=body, name="beside-serving", daemon=True)
-        t.start()
-        try:
-            times = enum_times()
-        finally:
-            stop.set()
-            t.join(SERVE_WAIT_S)
-        check(not t.is_alive(), f"serve: the thread beside serving did not stop "
-                                f"within {SERVE_WAIT_S:.0f} s")
-        return times, len(walls), sum(walls) / max(len(walls), 1)
-
-    alone = enum_times()
-    fields = beside(lambda i: taper.field((p0, p1)[i % 2], arrays))
-    copies = beside(lambda i: [t.cpu() for t in outs])
-    torch.cuda.synchronize()
-    return alone, fields, copies, copy_bytes
-
-
 def serving_full(torch, device, g, part):
     """A ServingLoop on path 1's graph and final partition: one worker,
     invocations overlapped on their own thread with the kernel field, a
@@ -2786,18 +2953,6 @@ def serving_full(torch, device, g, part):
     log(f"[serve] enumerate_paths_many over {SERVE_FULL_ENUM} PQ1-4 requests "
         f"({t_many:.3f} s) == enumerate_paths_ref (paths and ipt): {same}")
     check(same, "serve: batched enumeration differs from the reference DFS")
-
-    # the field's effect on the worker: the enumeration beside field
-    # evaluations, and beside the field's copies to pageable memory alone
-    alone, fields, copies, copy_bytes = _field_beside_serving(torch, loop, fixed)
-    a = float(np.median(alone))
-    log(f"[serve] field beside serving: the {SERVE_FULL_ENUM}-request enumeration "
-        f"alone {[round(x, 4) for x in alone]} s; beside {fields[1]} field evaluations "
-        f"(mean {fields[2]:.4f} s each) {[round(x, 4) for x in fields[0]]} s, median "
-        f"x{float(np.median(fields[0])) / a:.3f}; beside {copies[1]} rounds of copying "
-        f"one field's results ({copy_bytes} B) to pageable memory (mean "
-        f"{copies[2]:.4f} s each) {[round(x, 4) for x in copies[0]]} s, median "
-        f"x{float(np.median(copies[0])) / a:.3f}")
 
     # restore from the snapshot and the WAL: bitwise the live loop
     loop.snapshot(sync=True)
@@ -5709,6 +5864,12 @@ def main() -> int:
         gnn_path(torch, device)
         log(f"[done] the GNN phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--only", "taper_paper"]:
+        # this slice's phases alone: no result lines
+        launch_serve(torch, device)
+        taper_paper_cell(torch, device)
+        log(f"[done] the taper_paper phases passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--only", "train"]:
         # the training slice's path alone: no result lines
         train_path(torch, device)
@@ -5722,6 +5883,7 @@ def main() -> int:
     online_2000(torch, device)
     sharded_2000(torch, device)
     serving_2000(torch, device)
+    launch_serve(torch, device)
     ladder_on_card(torch, device)
     serve_loop_setting(torch, device)
     chaos_on_card(torch, device)
@@ -5737,6 +5899,7 @@ def main() -> int:
     del g_serve
     clustered = cluster_full(torch, device, g_cluster, full.pop("part"))
     del g_cluster
+    paper = taper_paper_cell(torch, device)
     serve = dlrm_serving(torch, device)
     place = row_placement(torch, device)
     gnn = gcn_inference(torch, device)
@@ -5809,6 +5972,17 @@ def main() -> int:
          "max_abs_err": max(errs["vm_step"], experts["err_all"]),
          "ms": experts["ms"], "plain_ms": experts["plain_ms"],
          "bound_ms": experts["bound_ms"], "bound_by": experts["bound_by"],
+         "library_ms": None},
+        # the same kernel at the paper's own cell (taper_paper: musicbrainz
+        # 10M, k = 512, N = 46); its launches are both starts', its times at
+        # the block start's shapes (the hash start's are printed)
+        {"name": "vm_step/taper_paper", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vm_step.cu",
+         "replaces": "src/repro/kernels/vm_step/kernel.py:26",
+         "launches": paper["launches"],
+         "max_abs_err": max(errs["vm_step"], paper["err"]),
+         "ms": paper["ms"], "plain_ms": paper["plain_ms"],
+         "bound_ms": paper["bound_ms"], "bound_by": paper["bound_by"],
          "library_ms": None},
         {"name": "vm_step/sharded", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vm_step.cu",

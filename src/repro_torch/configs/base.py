@@ -1,6 +1,6 @@
 """Architecture and shape configuration dataclasses (the port's share).
 
-The port carries the LM, GNN and DLRM families; each configuration is a
+The port carries the LM, GNN, DLRM and TAPER families; each configuration is a
 frozen dataclass with the exact dimensions of the JAX package's
 ``configs/base.py``, plus a ``reduced()`` variant for CPU tests.  Shape
 cells (``prefill_32k``, ``serve_p99``, ``ogb_products``, ...) are
@@ -246,3 +246,32 @@ class DLRMConfig:
         )
 
     shapes = property(lambda self: DLRM_SHAPES)
+
+
+@dataclass(frozen=True)
+class TaperSystemConfig:
+    """The paper's own technique as a cell: one extroversion-field refine
+    step over a partitioned graph."""
+
+    name: str = "taper_paper"
+    n_vertices: int = 10_000_000
+    avg_degree: float = 6.0
+    n_labels: int = 12
+    n_trie_nodes: int = 24
+    trie_depth: int = 4
+    k_partitions: int = 512
+    family: str = "taper"
+
+    def reduced(self) -> "TaperSystemConfig":
+        return dataclasses.replace(self, n_vertices=2000, k_partitions=8)
+
+    shapes = property(
+        lambda self: (
+            ShapeSpec("refine_step", "taper",
+                      _dims(n_vertices=self.n_vertices,
+                            n_edges=int(self.n_vertices * self.avg_degree))),
+        )
+    )
+
+
+ArchConfig = (LMConfig, GNNConfig, DLRMConfig, TaperSystemConfig)

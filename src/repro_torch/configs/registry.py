@@ -1,5 +1,4 @@
-"""Architecture registry: ``--arch <id>`` resolution, for the
-configurations the port carries."""
+"""Architecture registry: ``--arch <id>`` resolution."""
 from __future__ import annotations
 
 from importlib import import_module
@@ -16,6 +15,7 @@ _ARCH_MODULES = {
     "gin-tu": "repro_torch.configs.gin_tu",
     "nequip": "repro_torch.configs.nequip",
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
+    "taper_paper": "repro_torch.configs.taper_paper",
 }
 
 

@@ -46,7 +46,10 @@ The backends:
 All backends round every product and add every sum in the order of the
 reference's fused ``jnp`` field: each per-edge message is
 ``((alpha * cond_p) * inv_cnt) * local``; per-edge masses sum a depth's
-trie columns left to right; every segment sum runs over contiguous,
+trie columns left to right (where all of a depth's nodes share a label,
+each message after the first as one fused multiply-add, as the JAX
+package's compiled field adds them on the CPU: ``_depth_mass``); every
+segment sum runs over contiguous,
 pre-sorted runs, each summed in edge order from 0 — the order of a
 sequential scatter-add (``torch.segment_reduce`` on 2-D values, no
 atomics).  So the field repeats bitwise from run to run, on any device.
@@ -256,6 +259,46 @@ def _row_sum(contrib: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once to float32, on any
+    device: the product is exact in float64, the sum is rounded to float64
+    with its error kept (TwoSum), and where that rounding left the sum
+    exactly halfway between two floats (the low 29 bits of its float64
+    fraction ``1 << 28``) the error decides the side.  Exact while the
+    result is a normal float32."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    half = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where(half & (err != 0), torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _depth_mass(contrib, alpha, nodes_d, trie, cond_p, src, dst_lab, inv_cnt):
+    """Per-edge mass of one depth: the sum of its messages ``contrib``
+    (``_depth_contrib``), left to right.  Where every trie node of the
+    depth has the same label (and there are two or more), each message
+    after the first is added as one fused multiply-add of its factors
+    ``alpha[src, parent(c)] * cond_p(c)`` and ``1 / cnt[src, l(c)]``: the JAX
+    package's ``jnp`` field on the CPU, whose compiler turns the label mask
+    into one row predicate outside the row sum and contracts each product
+    into the sum."""
+    labs = trie.label[nodes_d]
+    if len(nodes_d) < 2 or (labs != labs[0]).any():
+        return _row_sum(contrib)
+    lab = int(labs[0])
+    ic = inv_cnt[src, lab] if inv_cnt.dim() == 2 else inv_cnt
+    live = dst_lab == lab
+    out = contrib[:, 0]
+    for c in nodes_d[1:]:
+        p = alpha[:, int(trie.parent[c])][src] * cond_p[c]
+        out = torch.where(live, _fma32(p, ic, out), out)
+    return out
+
+
 def _field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray, k: int,
            depth_cap: int, pre: Dict, dense_ext_to: bool, backend: str,
            device: torch.device):
@@ -288,7 +331,8 @@ def _field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray, k: int,
         contrib = _depth_contrib(alpha, nodes_d, trie, cond_p, dev["src"],
                                  dev["dst_lab"], dev["inv_cnt"])
         # per-edge mass of the depth step over ALL edges (cut + local)
-        mass = mass + _row_sum(contrib)
+        mass = mass + _depth_mass(contrib, alpha, nodes_d, trie, cond_p, dev["src"],
+                                  dev["dst_lab"], dev["inv_cnt"])
         if backend == "cuda":
             # the DP itself advances over local edges only — vm_step kernel
             beta = vm_step(beta, par, val, dev["csr"], w, dev["labels_i32"])
@@ -494,9 +538,12 @@ def _sharded_field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray,
                                           round_cap)])
         exchange_s += time.perf_counter() - t0
         # per-slot mass of the depth step over ALL edges (cut + local)
-        slot_mass = slot_mass + _row_sum(_depth_contrib(
-            a_in, nodes_d, trie, cond_p, csr.src.long(), shard["dst_label"],
-            shard["inv_cnt"]))
+        src = csr.src.long()
+        contrib = _depth_contrib(a_in, nodes_d, trie, cond_p, src, shard["dst_label"],
+                                 shard["inv_cnt"])
+        slot_mass = slot_mass + _depth_mass(contrib, a_in, nodes_d, trie, cond_p, src,
+                                            shard["dst_label"], shard["inv_cnt"])
+        del contrib
         # the DP advances over local edges only: the kernel, or the plain step
         if backend == "cuda_sharded":
             beta = vm_step(a_in, par, val, csr, w, shard["row_label"])

@@ -66,6 +66,15 @@ def _zipf_pick(rng: np.random.Generator, n: int, size: int, skew: float) -> np.n
     return np.minimum(idx, n - 1)
 
 
+def _stable_order(keys: np.ndarray, bound: int) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")`` for keys in ``[0, bound)``: as
+    16-bit keys where they fit, which numpy sorts by radix (a stable sort's
+    order is unique, so the result is the same)."""
+    if bound <= 1 << 16:
+        keys = keys.astype(np.uint16)
+    return np.argsort(keys, kind="stable")
+
+
 def schema_graph(
     n: int,
     label_names: Sequence[str],
@@ -127,15 +136,20 @@ def schema_graph(
         comm[0, lo:hi] = stripes
         for layer in range(1, n_layers):
             comm[layer, lo:hi] = stripes[rng.permutation(hi - lo)]
-    # index vertices per (label, layer, community)
+    # index vertices per (label, layer, community): a stable sort of each
+    # class's community column, cut where the community changes, keeps
+    # every cell's members in ascending id order (the JAX package scans
+    # the column once per community, ~n_comm * n comparisons)
     cell_members = {}
     for li in range(len(label_names)):
         lo, hi = offsets[li], offsets[li + 1]
         for layer in range(n_layers):
-            for c in range(n_comm):
-                sel = lo + np.nonzero(comm[layer, lo:hi] == c)[0]
-                if sel.size:
-                    cell_members[(li, layer, c)] = sel
+            col = comm[layer, lo:hi]
+            order = _stable_order(col, n_comm)
+            keys = col[order]
+            cuts = np.concatenate([[0], np.nonzero(np.diff(keys))[0] + 1, [order.size]])
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                cell_members[(li, layer, int(keys[a]))] = lo + order[a:b]
 
     target_edges = int(n * avg_degree / 2)
     weights = np.asarray([e[2] for e in edge_schema], dtype=np.float64)
@@ -156,12 +170,14 @@ def schema_graph(
         uc = comm[layer, us]
         intra_idx = np.nonzero(intra)[0]
         if intra_idx.size:
-            order = np.argsort(uc[intra_idx], kind="stable")
+            order = _stable_order(uc[intra_idx], n_comm)
             sorted_idx = intra_idx[order]
             sorted_comm = uc[sorted_idx]
-            bounds = np.nonzero(np.diff(sorted_comm))[0] + 1
-            for grp in np.split(sorted_idx, bounds):
-                cell = cell_members.get((iv, layer, int(uc[grp[0]])))
+            bounds = np.concatenate([[0], np.nonzero(np.diff(sorted_comm))[0] + 1,
+                                     [sorted_idx.size]])
+            for a, b in zip(bounds[:-1], bounds[1:]):
+                grp = sorted_idx[a:b]
+                cell = cell_members.get((iv, layer, int(sorted_comm[a])))
                 if cell is not None:
                     vs[grp] = cell[_zipf_pick(rng, cell.size, grp.size, skew)]
         chunks.append(np.stack([us, vs], axis=1))

@@ -309,14 +309,26 @@ class LabelledGraph:
             edges = edges.reshape(0, 2)
         keep = edges[:, 0] != edges[:, 1]  # paper fn.6: no self loops
         edges = edges[keep]
-        sym = np.concatenate([edges, edges[:, ::-1]], axis=0)
-        if dedup and len(sym):
-            key = sym[:, 0] * np.int64(n) + sym[:, 1]
-            _, idx = np.unique(key, return_index=True)
-            sym = sym[idx]
         labels = np.asarray(labels, dtype=np.int32)
         if label_names is None:
             label_names = [f"L{i}" for i in range(int(labels.max(initial=-1)) + 1)]
+        if dedup:
+            # the distinct keys src * n + dst in ascending order are the
+            # (src, dst)-sorted edge list itself: no lexsort, and row_ptr
+            # from the sources' counts.  Sorted and cut by hand: numpy 2's
+            # np.unique of integers hashes, minutes for ~5e7 keys
+            key = np.concatenate([edges[:, 0] * np.int64(n) + edges[:, 1],
+                                  edges[:, 1] * np.int64(n) + edges[:, 0]])
+            key.sort()
+            if key.size:
+                key = key[np.concatenate([[True], key[1:] != key[:-1]])]
+            src = key // np.int64(max(n, 1))
+            counts = np.bincount(src, minlength=n)
+            return LabelledGraph(
+                n=n, labels=labels, label_names=list(label_names),
+                src=src.astype(np.int32), dst=(key - src * n).astype(np.int32),
+                row_ptr=np.concatenate([[0], np.cumsum(counts)]).astype(np.int64))
+        sym = np.concatenate([edges, edges[:, ::-1]], axis=0)
         return LabelledGraph(
             n=n,
             labels=labels,

@@ -1,10 +1,15 @@
-"""Process groups: the counterpart of the JAX package's ``launch/mesh.py``.
+"""Process groups and device meshes: the counterpart of the JAX package's
+``launch/mesh.py``.
 
 The JAX package deals the sharded field over a device mesh's ``model``
 axis; the port deals it over the ranks of a ``torch.distributed`` process
-group, one shard a rank.  NCCL joins ranks that each have their own GPU;
-gloo joins ranks on the CPU, or ranks that share one GPU (NCCL refuses two
-ranks on one device).  Gloo's collectives and point-to-point calls take
+group, one shard a rank.  The named meshes of the sharding rules
+(``distributed/sharding.py``) are ``DeviceMesh`` objects over the default
+group's ranks, one rank a chip: :func:`make_smoke_mesh` (1 x n,
+``("data", "model")``), :func:`make_production_mesh` (the JAX package's
+pod shapes, which need that many ranks), :func:`chips_in`.  NCCL joins
+ranks that each have their own GPU; gloo joins ranks on the CPU, or ranks
+that share one GPU (NCCL refuses two ranks on one device).  Gloo's collectives and point-to-point calls take
 CPU tensors, so :class:`Transport` stages a CUDA tensor through pinned host
 buffers when the group's backend is gloo — a transport that follows the
 group, never a fall back.
@@ -15,12 +20,13 @@ from __future__ import annotations
 
 import atexit
 import datetime
+import math
 import os
 import pickle
 import shutil
 import tempfile
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -61,6 +67,40 @@ def make_smoke_group(device: DeviceLike = None):
     dist.init_process_group(backend_for(device), store=store, rank=0,
                             world_size=1, timeout=GROUP_TIMEOUT)
     return dist.group.WORLD
+
+
+def _device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(resolve_device(device).type, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = None):
+    """16x16 = 256 chips per pod; 2 pods = 512 chips when multi_pod: a mesh
+    over the default group, which must have exactly that many ranks (raises
+    ``ValueError`` otherwise, before touching any group)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != need:
+        raise ValueError(f"the production mesh {shape} {axes} needs {need} ranks, "
+                         f"one a chip; the default process group has {world}")
+    return _device_mesh(shape, axes, device)
+
+
+def make_smoke_mesh(n_devices: Optional[int] = None, device: DeviceLike = None):
+    """A 1 x n ``("data", "model")`` mesh over the default group's ranks (n
+    defaults to the group's size), used by sharding tests; without a group,
+    :func:`make_smoke_group` makes one of one rank.  ``device`` defaults to
+    ``"cuda"`` and raises without CUDA."""
+    make_smoke_group(device)
+    return _device_mesh((1, n_devices or dist.get_world_size()), ("data", "model"),
+                        device)
+
+
+def chips_in(mesh) -> int:
+    return int(mesh.mesh.numel())
 
 
 def _rank_main(rank: int, fn: Callable, n_ranks: int, workdir: str,

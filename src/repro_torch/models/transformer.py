@@ -6,7 +6,9 @@ olmoe), QKV bias (qwen2.5), sliding-window with periodic global layers
 each layer's ``(B·S, d)`` tokens, its aux values averaged over layers.  Parameters are a plain dict of tensors in
 the JAX package's layout, layers stacked along a leading L axis; the layer
 loop is a Python loop over the stack (JAX's ``lax.scan``).  Sharding
-constraints have no counterpart (they are no-ops without a mesh).
+constraints have no counterpart (they are no-ops without a mesh); the
+logical axes of the parameters and the KV cache are the JAX package's, for
+``repro_torch.distributed.sharding``.
 
 Prefill attention runs as the hand-written ``flash_attention`` CUDA kernel
 (one launch per layer), with ``window`` the configuration's sliding window
@@ -18,8 +20,10 @@ attends over the KV cache with ``layers.attention`` (``q_offset=pos``,
 
 Entry points:
   init(cfg, seed, device)              -> params
+  param_logical_axes(cfg)              -> logical axes of ``init``'s tree
   forward(params, tokens, cfg, ...)    -> (logits, aux) or (logits, aux, cache)
   init_cache(cfg, batch, max_len, ...) -> KV cache {"k", "v", "pos"}
+  cache_logical_axes(cfg, long_context) -> logical axes of the cache
   decode_step(params, cache, tokens, cfg) -> (logits, cache)
   loss_fn(params, batch, cfg, remat)   -> (total loss, metrics)
   value_and_grad(params, batch, cfg, remat) -> ((total, metrics), grads)
@@ -115,6 +119,39 @@ def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = None) -> Dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = nrm((d, V), s_d)
     return params
+
+
+def param_logical_axes(cfg: LMConfig) -> Dict:
+    """The logical axis names of each dimension of :func:`init`'s tree (the
+    JAX package's ``init`` returns them beside the parameters): ``fsdp`` on
+    a matrix's model dimension, ``model`` / ``ffn`` / ``experts`` / ``vocab``
+    on the tensor-parallel one, the stacked layer axis unsharded."""
+    attn = {"wq": (None, "fsdp", "model"), "wk": (None, "fsdp", "model"),
+            "wv": (None, "fsdp", "model"), "wo": (None, "model", "fsdp")}
+    if cfg.attn_bias:
+        attn.update(bq=(None, "model"), bk=(None, "model"), bv=(None, "model"))
+    if cfg.qk_norm:
+        attn.update(q_norm=(None, None), k_norm=(None, None))
+    if cfg.moe:
+        ffn = {"router": {"w": (None, "fsdp", None)},
+               "gate": (None, "experts", "fsdp", None),
+               "up": (None, "experts", "fsdp", None),
+               "down": (None, "experts", None, "fsdp")}
+        if cfg.moe.n_shared:
+            ffn["shared"] = {"gate": (None, None, "fsdp", "model"),
+                             "up": (None, None, "fsdp", "model"),
+                             "down": (None, None, "model", "fsdp")}
+    else:
+        ffn = {"gate": (None, "fsdp", "ffn"), "up": (None, "fsdp", "ffn"),
+               "down": (None, "ffn", "fsdp")}
+    logical = {
+        "embed": ("vocab", "fsdp"),
+        "layers": {"attn": attn, "ffn": ffn, "ln1": (None, None), "ln2": (None, None)},
+        "final_norm": {"scale": (None,)},
+    }
+    if not cfg.tie_embeddings:
+        logical["lm_head"] = ("fsdp", "vocab")
+    return logical
 
 
 def is_global_layer(cfg: LMConfig) -> List[bool]:
@@ -256,6 +293,20 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
             "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev), "pos": 0}
+
+
+def cache_logical_axes(cfg: LMConfig, long_context: bool = False) -> Dict:
+    """KV-cache sharding: batch over data; sequence over whatever mesh axes
+    remain (the rules dedupe per-array mesh-axis reuse, so batched decode's
+    seq dim picks up only ``model`` while batch-1 long-context decode takes
+    the full mesh).  kv_heads rarely divides the model axis (4-8 heads vs 16
+    shards) — the divisibility fallback then drops it."""
+    batch_axis = None if long_context else "batch"
+    return {
+        "k": (None, batch_axis, "kv_seq", "kv_heads", None),
+        "v": (None, batch_axis, "kv_seq", "kv_heads", None),
+        "pos": (),
+    }
 
 
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, cfg: LMConfig):

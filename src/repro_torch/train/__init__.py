@@ -4,9 +4,9 @@
 atomic checkpoints (:class:`CheckpointManager`, whose atomic directory
 publish the serving snapshotter shares), resume, failure injection, a
 straggler watchdog and optional int8 gradient compression.
-:func:`repro_torch.train.elastic.movement_plan` is the byte-movement schema
-of elastic transitions; resharding a checkpoint onto a new mesh is built on
-JAX meshes in the JAX package and is not ported yet.
+:mod:`repro_torch.train.elastic` restores a checkpoint onto a new device
+mesh (``reshard_restore``), plans its byte movement (``plan_reshard``) and
+holds the schema of elastic transitions (``movement_plan``).
 """
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.trainer import Trainer, TrainerConfig

@@ -1495,3 +1495,41 @@ def test_trainer_resume_on_the_card_is_bitwise(card, tmp_path):
     for a, b in zip(tree.leaves((ref.params, ref.opt_state)),
                     tree.leaves((resumed.params, resumed.opt_state))):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("start", ["hash", "block"])
+def test_taper_paper_refine_step_on_the_card(card, start):
+    """The ``taper_paper`` refine step at n = 200,000, k = 512 (the
+    configuration's trie, ``dense_ext_to=False``) and with the MQ1-3 trie,
+    whose depth 5 holds two nodes of one label: the kernel field bitwise
+    the plain field on the card and on the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tpstry import synthetic_trie
+    from repro_torch.graphs.generators import musicbrainz_like
+
+    cfg = get_config("taper_paper")
+    g = musicbrainz_like(200_000, avg_degree=cfg.avg_degree, seed=0)
+    k = cfg.k_partitions
+    if start == "hash":
+        part = hash_partition(g.n, k, seed=1)
+    else:
+        count = np.bincount(g.labels)
+        first = np.concatenate([[0], np.cumsum(count)[:-1]])
+        part = (((np.arange(g.n) - first[g.labels]) * k) // count[g.labels]).astype(np.int32)
+    mq = [(parse_rpq("Area.Artist.(Artist|Label).Area"), 0.2),
+          (parse_rpq("Artist.Credit.(Track|Recording).Credit.Artist"), 0.3),
+          (parse_rpq("Artist.Credit.Track.Medium"), 0.5)]
+    for trie in (synthetic_trie(cfg.n_labels, cfg.trie_depth, branching=2),
+                 TPSTry.from_workload(mq).compile(g.label_names)):
+        pre = {}
+        before = vm_step.launches
+        fc = extroversion_field(g, trie, part, k, device=card, dense_ext_to=False,
+                                _precomputed=pre)
+        assert vm_step.launches - before == trie.max_depth - 1
+        fp = extroversion_field(g, trie, part, k, device=card, backend="torch",
+                                dense_ext_to=False, _precomputed=pre)
+        fcpu = extroversion_field(g, trie, part, k, device="cpu", dense_ext_to=False)
+        for name in ("alpha", "pr", "edge_mass", "extro_mass", "extroversion"):
+            assert np.array_equal(getattr(fc, name), getattr(fp, name)), name
+            assert np.array_equal(getattr(fc, name), getattr(fcpu, name)), name
+        assert fc.ext_to is None

@@ -1,5 +1,5 @@
 """The port's training loop and checkpoints: twins of tests/test_trainer.py
-(all but the elastic reshard, which waits for the port's meshes), the
+(the elastic reshard's is in tests/test_torch_sharding.py), the
 ``Trainer`` against the JAX package's over three steps, and checkpoints
 that cross packages, in one process on the CPU."""
 import json
