@@ -247,10 +247,23 @@ Phases (any failure exits non-zero and prints no result line):
    on the card (reduced qwen3-4b, six steps, a failure at step 3,
    checkpoints every 2) bitwise the uninterrupted run.
 
+13. the cells' rooflines (``launch/specs.py``, ``launch/hlo_analysis.py``):
+   taper_paper's refine step (10M vertices, 60M edges, k = 512), dlrm-rm2's
+   serve_bulk and train_batch, gin-tu on ogb_products and equiformer-v2 on
+   molecule, each planned on a one-chip mesh and its fake run analysed,
+   then its step timed on the card (one warm-up, three runs, CUDA events)
+   on seeded arguments: the roofline's compute, memory and collective
+   terms, its step, the measured median and their share (which must not
+   exceed 1), the dry-run's peak beside the step's; taper's step bitwise
+   the plain ``torch`` step on the same arguments, every ``segment_spmm``
+   launch of the GNN warm-ups bitwise its plain version; first the TAPER
+   step at 2,000 vertices on the card bitwise the CPU's.
+
 ``python3 chip_smoke.py --only moe`` runs the build and paths 6 and 7
 alone, ``--only gnn`` the build and phase 8b, ``--only train`` the build
 and path 8, ``--only taper_paper`` the build, the serving launcher's phase
-and phase 5e; none prints result lines.
+and phase 5e, ``--only rooflines [--seed N]`` the build and phase 13; none
+prints result lines.
 
 The gather yardstick of a ``segment_spmm`` or ``vm_step`` launch counts
 the 32-byte sectors its live edges' gathered rows touch, once per edge,
@@ -505,6 +518,14 @@ ATTN_BWD_ATOL = 1e-6
 #: nats on the rows with a key (float32 sums of the exponentials in other
 #: orders); both -inf on the rows without one
 ATTN_LSE_TOL = 1e-4
+#: phase 13: the cells whose roofline is held to their measured step (the
+#: five that fit one H100 at the registry's shapes), the timed runs after
+#: one warm-up, the arguments' seed
+ROOFLINE_CELLS = (("taper_paper", "refine_step"), ("dlrm-rm2", "serve_bulk"),
+                  ("dlrm-rm2", "train_batch"), ("gin-tu", "ogb_products"),
+                  ("equiformer-v2", "molecule"))
+ROOFLINE_RUNS = 3
+ROOFLINE_SEED = 0
 #: DLRM (path 2's width) and GCN (path 4's graph) training steps
 DLRM_TRAIN_STEPS = 3
 GCN_TRAIN_STEPS = 3
@@ -5821,6 +5842,256 @@ def train_path(torch, device):
     return dict(attn=lm, bag=bag, spmm=gnn, attn_f32=gate["bwd"], attn_d256=d256)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: each cell's roofline against its measured step
+# ---------------------------------------------------------------------------
+
+
+def _roofline_args(torch, device, plan, seed):
+    """The plan's arguments on the card, drawn from ``seed``: parameters
+    from the model's ``init``, optimizer state from ``AdamW.init``, and every
+    index within its range (vertex ids below n, labels below L, parts below
+    k, table ids below each field's rows)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tpstry import synthetic_trie
+    from repro_torch.data.graphs import batch_to_device, random_graph_batch
+    from repro_torch.models import dlrm
+    from repro_torch.models.gnn import api
+    from repro_torch.optim import AdamW
+
+    cfg = get_config(plan.arch)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(high, shape):
+        return torch.randint(0, high, shape, generator=gen, device=device, dtype=torch.int32)
+
+    if cfg.family == "taper":
+        n, m = plan.meta["n_vertices"], plan.meta["n_edges"]
+        L = cfg.n_labels
+        trie = synthetic_trie(cfg.n_labels, cfg.trie_depth, branching=2)
+        labels = ints(L, (n,))
+        return (ints(n, (m,)), ints(n, (m,)), labels, ints(16, (n, L)),
+                torch.bincount(labels, minlength=L).to(torch.int32),
+                ints(plan.meta["k"], (n,)),
+                torch.as_tensor(trie.p, device=device),
+                torch.as_tensor(trie.cond_p, device=device))
+    if cfg.family == "recsys":
+        params = dlrm.init(cfg, seed=seed, device=device)
+        B = plan.meta["batch"]
+        offsets = torch.as_tensor(dlrm.table_offsets(cfg)[:-1], device=device)
+        rows = torch.as_tensor(np.asarray(cfg.vocab_sizes), device=device)
+        u = torch.rand((B, cfg.n_sparse), generator=gen, device=device, dtype=torch.float64)
+        sparse = (offsets + (u * rows).long().clamp(max=rows - 1)).to(torch.int32)
+        batch = {"dense": torch.randn((B, cfg.n_dense), generator=gen, device=device),
+                 "sparse": sparse}
+        if plan.step_name == "serve_step":
+            return params, batch
+        batch["labels"] = torch.randint(0, 2, (B,), generator=gen, device=device).float()
+        return params, AdamW().init(params), batch
+    params = api.init(cfg, plan.shape, seed=seed, device=device)
+    batch = batch_to_device(random_graph_batch(cfg, plan.shape, seed=seed), device)
+    return params, AdamW().init(params), batch
+
+
+def _step_outputs_finite(torch, out) -> bool:
+    from repro_torch.utils import tree
+
+    leaves = [t for t in tree.leaves(out) if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    return bool(leaves) and all(bool(torch.isfinite(t).all()) for t in leaves)
+
+
+def _taper_step_on_card_vs_cpu(torch, device):
+    """The TAPER cell's step (``field_from_arrays``, the ``cuda`` backend) on
+    a musicbrainz graph at the reduced config's 2,000 vertices: on the card
+    bitwise the plain step on the CPU, both backends."""
+    import numpy as np
+    from repro_torch.core.tpstry import TPSTry
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.core.visitor import field_from_arrays
+    from repro_torch.graphs.generators import musicbrainz_like
+
+    g = musicbrainz_like(2000, seed=0)
+    trie = TPSTry.from_workload([(parse_rpq(q), f) for q, f in zip(MQ, MQ_FREQ)]
+                                ).compile(g.label_names)
+    part = _label_rank_blocks(np.asarray(g.labels), 8)
+    arrays = [np.asarray(a) for a in (g.src, g.dst, g.labels, g.neighbor_label_counts(),
+                                      g.label_counts(), part)]
+    arrays = [torch.as_tensor(a).to(torch.int32) for a in arrays] + [
+        torch.as_tensor(trie.p), torch.as_tensor(trie.cond_p)]
+    cpu = field_from_arrays(trie, 8, *arrays, n=g.n, m=g.m, backend="torch")
+    card = field_from_arrays(trie, 8, *(a.to(device) for a in arrays), n=g.n, m=g.m,
+                             backend="cuda")
+    for name, a, b in zip(("alpha", "pr", "mass", "extro_mass", "extroversion"), card, cpu):
+        check(torch.equal(a.cpu(), b), f"rooflines: the taper step's {name} on the card "
+              "differs from the plain step's on the CPU")
+    check(float(cpu[0][:, trie.depth >= 2].sum()) > 0, "rooflines: the MQ field is 0")
+
+
+class _PlainCheck:
+    """While active, a kernel's binding (``module.name``) holds every launch
+    to the plain version on the same inputs: each output against
+    ``plain(*args)``, bitwise.  The wrapper's launch count is untouched, and
+    the plain version launches nothing."""
+
+    def __init__(self, torch, module, name, plain):
+        self.torch, self.module, self.name, self.plain = torch, module, name, plain
+        self.real = getattr(module, name)
+        self.launches, self.unequal, self.max_err = 0, 0, 0.0
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def __call__(self, *args):
+        out = self.real(*args)
+        want = self.plain(*args)
+        self.launches += 1
+        if not self.torch.equal(out, want):
+            self.unequal += 1
+            self.max_err = max(self.max_err, float((out - want).abs().max()))
+        return out
+
+
+def _spmm_checked(torch):
+    """``segment_spmm``'s binding held to ``segment_spmm_csr_reference``
+    (forward and backward launches alike: the backward is the same kernel
+    over the transposed CSR)."""
+    import repro_torch.kernels.segment_spmm.kernel as spmm_kernel
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
+
+    return _PlainCheck(torch, spmm_kernel, "segment_spmm_cuda",
+                       lambda x, row_ptr, src, w, vec: segment_spmm_csr_reference(
+                           x, row_ptr, src, w))
+
+
+def cell_rooflines(torch, device, seed=ROOFLINE_SEED):
+    """Five cells that fit one H100 at the registry's own shapes: each plan
+    built on a one-chip mesh and its fake run analysed
+    (``launch/hlo_analysis.py``: compute, memory and collective terms, the
+    roofline step and the dry-run's peak, arguments + temporaries), then
+    its step run on the card on arguments drawn from ``seed``: one warm-up
+    and ROOFLINE_RUNS runs timed by CUDA events, the median, the share
+    (roofline over measured, which must not exceed 1: a floor above a
+    measured time means a miscount) and the peak memory the step added.
+    The LM cells do not fit one card at their registry shapes (qwen3-4b's
+    decode_32k cache alone is ~618 GB): the dry-run says so and they do not
+    run here.  The step runs the kernels its path reaches: ``vm_step``
+    (taper_paper), ``segment_spmm`` and its backward (GIN, Equiformer);
+    dlrm-rm2's registry cells are single-hot (one id a field), a row
+    gather, so they reach no kernel.  The outputs are checked: taper's last
+    timed step bitwise the same cell's step with the plain ``torch``
+    backend on the same arguments; in the GNN steps' warm-up every
+    ``segment_spmm`` launch, forward and backward, bitwise its plain
+    version on the same inputs (the plain train step at ogb_products would
+    keep each layer's (E, F) messages for its backward, more than the card
+    holds).  First the TAPER step at 2,000 vertices on the card against the
+    CPU, bitwise."""
+    import statistics
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch.specs import axis_mesh, build_cell
+    from repro_torch.utils import tree
+
+    t_phase = time.perf_counter()
+    _taper_step_on_card_vs_cpu(torch, device)
+    mesh = axis_mesh(data=1, model=1)
+    rows = {}
+    reset_counts()                                  # the path starts here
+    for arch, shape in ROOFLINE_CELLS:
+        tag = f"{arch}/{shape}"
+        plan = build_cell(arch, shape, mesh)
+        t0 = time.perf_counter()
+        run = plan.lower()
+        analysis = hlo_analysis.analyze(run, plan.meta["model_flops"], 1)
+        t_dry = time.perf_counter() - t0
+        roof, mem = analysis["roofline"], analysis["memory_analysis"]
+        dry_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        args = _roofline_args(torch, device, plan, seed)
+        got = [(tuple(a.shape), a.dtype) for a in tree.leaves(args)]
+        want = [(tuple(a.shape), a.dtype) for a in tree.leaves(plan.args)]
+        check(got == want, f"rooflines: {tag}'s arguments {got[:4]}... are not the plan's")
+        torch.cuda.synchronize()
+        t_args = time.perf_counter() - t0
+        spmm_check = _spmm_checked(torch) if get_config(arch).family == "gnn" else None
+        times, t0 = [], time.perf_counter()
+        for i in range(1 + ROOFLINE_RUNS):
+            if i == 0 and spmm_check is not None:
+                with spmm_check:                    # the warm-up, untimed
+                    out = plan.step_fn(*args)
+                torch.cuda.synchronize()
+            else:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                out = plan.step_fn(*args)
+                ev1.record()
+                torch.cuda.synchronize()
+                if i:
+                    times.append(ev0.elapsed_time(ev1) / 1e3)
+            check(_step_outputs_finite(torch, out), f"rooflines: {tag}'s step gave "
+                  "non-finite values")
+            if i < ROOFLINE_RUNS:
+                del out
+        t_runs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        if arch == "taper_paper":
+            plain = build_cell(arch, shape, mesh, backend="torch").step_fn(*args)
+            names = ("alpha", "pr", "mass", "extro_mass", "extroversion")
+            same = [n for n, a, b in zip(names, out, plain) if torch.equal(a, b)]
+            err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+            checked = (f"outputs vs the plain torch step on the same arguments: bitwise "
+                       f"{same} of {list(names)}, max |diff| {err:.3e}")
+            check(len(same) == len(names) and len(out) == len(plain),
+                  f"rooflines: {tag}'s step differs from the plain torch step: {checked}")
+            del plain
+        elif spmm_check is not None:
+            checked = (f"segment_spmm launches in the warm-up held to the plain version: "
+                       f"{spmm_check.launches}, unequal {spmm_check.unequal}, max |diff| "
+                       f"{spmm_check.max_err:.3e}")
+            check(spmm_check.launches > 0 and spmm_check.unequal == 0,
+                  f"rooflines: {tag}: {checked}")
+        else:
+            checked = "no kernel on the step's path (single-hot lookups, a row gather)"
+        del out
+        t_check = time.perf_counter() - t0
+        med = statistics.median(times)
+        share = roof["step_time_s"] / med
+        rows[tag] = {"compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+                     "collective_s": roof["collective_s"],
+                     "roofline_s": roof["step_time_s"], "dominant": roof["dominant"],
+                     "measured_s": med, "times_s": times, "share": share,
+                     "dry_peak_gb": dry_peak / 1e9, "peak_gb": peak / 1e9,
+                     "compulsory_gb": analysis["cost_analysis"]["compulsory bytes"] / 1e9}
+        log(f"[rooflines] {tag}: roofline compute {roof['compute_s'] * 1e3:.4f} ms, "
+            f"memory {roof['memory_s'] * 1e3:.4f} ms ({rows[tag]['compulsory_gb']:.3f} GB "
+            f"compulsory), collective {roof['collective_s'] * 1e3:.4f} ms -> step "
+            f"{roof['step_time_s'] * 1e3:.4f} ms ({roof['dominant']}); measured median "
+            f"{med * 1e3:.3f} ms of {[round(t * 1e3, 3) for t in times]}; share "
+            f"{share:.5f}; dry-run peak (args + temp) {dry_peak / 1e9:.3f} GB, the "
+            f"step's peak {peak / 1e9:.3f} GB (max_memory_allocated above "
+            f"{base / 1e9:.3f} GB); {checked}; host seconds: dry-run {t_dry:.1f}, "
+            f"arguments {t_args:.1f}, runs {t_runs:.1f}, check {t_check:.1f}; "
+            f"{device_line()}")
+        check(share <= 1.0, f"rooflines: {tag}'s roofline {roof['step_time_s']:.6f} s "
+              f"exceeds its measured step {med:.6f} s: a miscount")
+        del args
+        torch.cuda.empty_cache()
+    read_counts("rooflines", ["vm_step", "segment_spmm", "segment_spmm/bwd"])  # ... and ends here
+    log(f"[rooflines] phase {time.perf_counter() - t_phase:.2f} s")
+    return rows
+
+
 def _all_finite(torch, t):
     """All of ``t`` finite, checked 1,024 positions at a time (the check of
     a whole 10 GB logits tensor at once takes 25 GB of temporaries)."""
@@ -5875,6 +6146,13 @@ def main() -> int:
         train_path(torch, device)
         log(f"[done] the training path passed in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:3] == ["--only", "rooflines"]:
+        # this slice's phase alone (``--seed N`` draws other arguments): no
+        # result lines
+        seed = int(sys.argv[4]) if sys.argv[3:4] == ["--seed"] else ROOFLINE_SEED
+        cell_rooflines(torch, device, seed)
+        log(f"[done] the roofline phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     errs = {"vm_step": kernel_sweep(torch), "embedding_bag": bag_sweep(torch),
             "segment_spmm": spmm_sweep(torch), "flash_attention": attention_sweep(torch)}
     plain_repeat(torch)
@@ -5909,6 +6187,7 @@ def main() -> int:
     experts = expert_placement_on_card(torch, device, routing)
     del routing
     trained = train_path(torch, device)
+    cell_rooflines(torch, device)
     record = {"kernels": [
         # one kernel on two paths, each at its own shapes: the provgen-1M
         # invocation (23-node trie) and the row placement (677-node trie)

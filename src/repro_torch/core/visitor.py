@@ -72,6 +72,7 @@ import torch
 from repro_torch.core.tpstry import TrieArrays
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import LabelledGraph
+from repro_torch.kernels.segment_spmm.ops import EdgeCSR, csr_offsets
 from repro_torch.kernels.segment_spmm.ref import segment_sum
 from repro_torch.kernels.vm_step.ops import vm_step
 from repro_torch.kernels.vm_step.ref import transition_columns, vm_step_reference
@@ -350,6 +351,87 @@ def _field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray, k: int,
     pr, extro_mass, extroversion, ext_to = _field_aggregates(
         counted, k, dense_ext_to, alpha, mass, dev, part_dev, local, n)
     return alpha, pr, mass, extro_mass, extroversion, ext_to
+
+
+def field_from_arrays(trie: TrieArrays, k: int, src, dst, labels, cnt, lab_vcount,
+                      part, p, cond_p, *, n: int, m: int, backend: str = "torch",
+                      dense_ext_to: bool = False):
+    """The field of one partitioning from its arrays, on their device: the
+    counterpart of the JAX package's ``_build_field_fn`` function, which a
+    cell plan runs as its step (``launch/specs.py``).
+
+    ``src``, ``dst`` (m,) are the edge list in any order, ``labels`` and
+    ``part`` (n,), ``cnt`` (n, L) the neighbour label counts,
+    ``lab_vcount`` (L,) the label vertex counts, ``p`` and ``cond_p`` (N,)
+    the trie's probabilities (its topology is fixed by ``trie``).  Returns
+    ``(alpha, pr, mass, extro_mass, extroversion)``, with ``ext_to`` (n, k)
+    after them under ``dense_ext_to``.  Every intermediate has a shape that
+    ``n``, ``m`` and the trie fix (the CSRs by a stable sort and
+    :func:`csr_offsets`), so the step also runs on fake tensors.  ``cnt``
+    is read only at each edge's ``(src, label(dst))``.  ``backend`` is
+    ``"cuda"`` (the ``vm_step`` kernel: CUDA tensors launch it, CPU
+    tensors its plain version) or ``"torch"`` (the plain fused step); on a
+    graph's own arrays (edges sorted by source) the result is bitwise
+    :func:`_field`'s with the same backend."""
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"field_from_arrays: backend must be 'cuda' or 'torch', got {backend!r}")
+    device, N, max_depth = src.device, trie.n_nodes, trie.max_depth
+    src, dst, labels64 = src.long(), dst.long(), labels.long()
+    dst_lab = labels64[dst]
+    inv_cnt = 1.0 / torch.clamp_min(cnt[src, dst_lab].to(torch.float32), 1.0)
+    local = (part[src] == part[dst]).to(torch.float32)
+    alpha = _prior_columns(trie.depth, trie.label, N, labels64, lab_vcount.long(), p, n)
+    order = torch.argsort(dst, stable=True)
+    row_ptr = csr_offsets(dst[order], n)
+    if backend == "cuda":
+        csr = EdgeCSR(row_ptr=row_ptr, src=src[order].to(torch.int32), order=order)
+        # the transition's column form (``transition_columns``) with the
+        # probabilities ``cond_p`` given on the device
+        c = np.nonzero(trie.parent >= 0)[0]
+        rows = torch.as_tensor(trie.label[c], device=device).long()
+        cols = torch.as_tensor(c, device=device)
+        par = torch.zeros((trie.n_labels, N), dtype=torch.int32, device=device)
+        par[rows, cols] = torch.as_tensor(trie.parent[c], dtype=torch.int32, device=device)
+        val = torch.zeros((trie.n_labels, N), dtype=torch.float32, device=device)
+        val[rows, cols] = cond_p[cols]
+        w = inv_cnt[order] * local[order]
+        labels_i32 = labels.to(torch.int32)
+        beta = alpha
+    else:
+        in_deg = (row_ptr[1:] - row_ptr[:-1]).long()
+
+    mass = torch.zeros(m, dtype=torch.float32, device=device)
+    for nodes_d in _depth_nodes(trie, max_depth):
+        if not nodes_d:
+            break
+        contrib = _depth_contrib(alpha, nodes_d, trie, cond_p, src, dst_lab, inv_cnt)
+        mass = mass + _depth_mass(contrib, alpha, nodes_d, trie, cond_p, src,
+                                  dst_lab, inv_cnt)
+        if backend == "cuda":
+            beta = vm_step(beta, par, val, csr, w, labels_i32)
+            alpha = alpha + beta
+        else:
+            upd = segment_sum((contrib * local[:, None])[order], in_deg)
+            cols = torch.as_tensor(np.asarray(nodes_d, np.int64), device=device)
+            alpha[:, cols] += upd
+
+    pr = torch.zeros(n, dtype=torch.float32, device=device)
+    for i in range(N):
+        if 1 <= int(trie.depth[i]) < max_depth and not bool(trie.is_leaf[i]):
+            pr = pr + alpha[:, i]
+    ext_mass = mass * (1.0 - local)
+    by_src = torch.argsort(src, stable=True)
+    out_ptr = csr_offsets(src[by_src], n)
+    extro_mass = segment_sum(ext_mass[by_src], (out_ptr[1:] - out_ptr[:-1]).long())
+    extroversion = torch.where(pr > _EPS, extro_mass / torch.clamp_min(pr, _EPS), 0.0)
+    out = (alpha, pr, mass, extro_mass, extroversion)
+    if dense_ext_to:
+        key = src * k + part[dst].long()
+        by_key = torch.argsort(key, stable=True)
+        key_ptr = csr_offsets(key[by_key], n * k)
+        ext_to = segment_sum(ext_mass[by_key], (key_ptr[1:] - key_ptr[:-1]).long())
+        out += (ext_to.reshape(n, k),)
+    return out
 
 
 def _upload_shard(sp, s: int, device: torch.device, halo_exchange: str,

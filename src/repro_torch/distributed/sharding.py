@@ -63,14 +63,17 @@ def activation_sharding(mesh, rules: Optional["LogicalAxisRules"] = None):
         _ACT_CTX.reset(token)
 
 
-def constrain(x, *logical_axes):
+def constrain(x, *logical_axes, shape: Optional[Sequence[int]] = None):
     """``x`` laid out by logical names (a DTensor redistributed, a tensor
-    distributed from this rank's copy); no-op without context."""
+    distributed from this rank's copy); no-op without context.  The
+    divisibility fallback reads ``shape`` when given (a split dim's head
+    count, say), else ``x``'s own."""
     ctx = _ACT_CTX.get()
     if ctx is None:
         return x
     mesh, rules = ctx
-    return logical_to_sharding(mesh, logical_axes, rules, tuple(x.shape)).apply(x)
+    shape = tuple(x.shape) if shape is None else tuple(shape)
+    return logical_to_sharding(mesh, logical_axes, rules, shape).apply(x)
 
 
 @dataclass(frozen=True)

@@ -1,11 +1,19 @@
 """Wrapper of the ``embedding_bag`` kernel and of its backward: argument
 checks, the launch counts, and the choice between the kernels (CUDA
-tensors) and their plain versions (CPU tensors)."""
+tensors) and their plain versions (CPU tensors).
+
+Fake tensors and DTensors (``kernels.traced``) go through the
+custom ops ``repro_torch::embedding_bag`` and
+``repro_torch::embedding_bag_backward``: their fake route returns empty
+outputs, their FLOP formulas count an add per slot and column, and their
+sharding rule takes the inputs replicated, the bags split by rows, or the
+columns split."""
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import LAUNCH_LOCK
+from repro_torch.kernels import GATHERED_INPUTS, LAUNCH_LOCK, sharding_rules, traced
 from repro_torch.kernels.embedding_bag.ref import (
     bag_gradient, embedding_bag_backward_reference, embedding_bag_reference)
 
@@ -37,6 +45,12 @@ def _check(table: torch.Tensor, ids: torch.Tensor, combiner: str) -> None:
 
 
 def _forward(table: torch.Tensor, ids: torch.Tensor, combiner: str) -> torch.Tensor:
+    if traced(table, ids):
+        return _bag_op(table, ids, combiner == "mean")
+    return _launch(table, ids, combiner)
+
+
+def _launch(table: torch.Tensor, ids: torch.Tensor, combiner: str) -> torch.Tensor:
     if table.device.type == "cpu":
         return embedding_bag_reference(table, ids, combiner)
     if table.device.type != "cuda":
@@ -108,6 +122,14 @@ def embedding_bag_backward(g_out: torch.Tensor, ids: torch.Tensor, V: int,
                          f"device, got {tuple(g_out.shape)} on {g_out.device}")
     if combiner not in COMBINERS:
         raise ValueError(f"embedding_bag_backward: combiner must be one of {COMBINERS}")
+    if traced(g_out, ids):
+        return _bag_backward_op(g_out, ids, V, combiner == "mean")
+    return _launch_backward(g_out, ids, V, combiner)
+
+
+def _launch_backward(g_out: torch.Tensor, ids: torch.Tensor, V: int,
+                     combiner: str) -> torch.Tensor:
+    B, H = ids.shape
     if g_out.device.type == "cpu":
         return embedding_bag_backward_reference(g_out, ids, V, combiner)
     if g_out.device.type != "cuda":
@@ -172,3 +194,58 @@ def slot_csr(ids: torch.Tensor, V: int):
 
 #: backward kernel launches since the last reset (CPU calls do not count)
 embedding_bag_backward.launches = 0
+
+
+@torch.library.custom_op("repro_torch::embedding_bag", mutates_args=())
+def _bag_op(table: torch.Tensor, ids: torch.Tensor, mean: bool) -> torch.Tensor:
+    """The kernel or the plain version on a DTensor's local tensors."""
+    return _launch(table, ids, "mean" if mean else "sum")
+
+
+@_bag_op.register_fake
+def _(table, ids, mean):
+    return table.new_empty((ids.shape[0], table.shape[1]))
+
+
+@torch.library.custom_op("repro_torch::embedding_bag_backward", mutates_args=())
+def _bag_backward_op(g_out: torch.Tensor, ids: torch.Tensor, V: int,
+                     mean: bool) -> torch.Tensor:
+    return _launch_backward(g_out, ids, V, "mean" if mean else "sum")
+
+
+@_bag_backward_op.register_fake
+def _(g_out, ids, V, mean):
+    return g_out.new_empty((V, g_out.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.embedding_bag)
+def _(table_shape, ids_shape, *args, **kwargs) -> int:
+    return ids_shape[0] * ids_shape[1] * table_shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.embedding_bag_backward)
+def _(g_shape, ids_shape, *args, **kwargs) -> int:
+    return ids_shape[0] * ids_shape[1] * g_shape[1]
+
+
+#: the table's rows are gathered by the ids
+GATHERED_INPUTS["repro_torch::embedding_bag"] = (0,)
+
+
+@sharding_rules
+def _register_sharding() -> None:
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.embedding_bag.default)
+    def _(table, ids, mean):
+        return [([Replicate()], [Replicate(), Replicate(), None]),
+                ([Shard(0)], [Replicate(), Shard(0), None]),
+                ([Shard(1)], [Shard(1), Replicate(), None])]
+
+    @register_sharding(torch.ops.repro_torch.embedding_bag_backward.default)
+    def _(g_out, ids, V, mean):
+        return [([Replicate()], [Replicate(), Replicate(), None, None]),
+                ([Shard(1)], [Shard(1), Replicate(), None, None])]
+
+

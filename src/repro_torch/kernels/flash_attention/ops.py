@@ -5,14 +5,24 @@ the backward kernel) and the plain version (CPU tensors).
 
 The Pallas wrapper's ``block_q``/``block_k``/``interpret``/``use_pallas``
 are TPU tiling knobs and have no counterpart: the kernel picks its own
-tiles."""
+tiles.
+
+Fake tensors and DTensors (``kernels.traced``) go through the
+custom ops ``repro_torch::flash_attention`` and
+``repro_torch::flash_attention_backward`` instead: their fake route returns
+empty outputs, their FLOP formulas count the unmasked (query, key) pairs
+(:func:`attention_pairs`), and their sharding rule splits by batch or by
+heads, so the dry-run (``launch/hlo_analysis.py``) counts the kernels'
+work without the plain version's ``S x S`` temporaries."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import LAUNCH_LOCK
+from repro_torch.kernels import LAUNCH_LOCK, sharding_rules, traced
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_backward_reference, flash_attention_reference)
 
@@ -67,9 +77,28 @@ def kernel_name(q: torch.Tensor) -> Optional[str]:
     return KERNEL_BY_DTYPE[q.dtype]
 
 
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: Optional[int]) -> int:
+    """The (query, key) pairs that attention with these masks computes: key
+    j for query i where ``j <= i`` when causal and ``j > i - window`` when
+    windowed (the plain version's ``S x S`` counts every pair).  Numpy, so
+    that it runs inside a fake-tensor trace."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1, np.int64)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
 def _forward(q, k, v, causal, window, with_lse: bool):
     """The output (and with ``with_lse`` the row log-sum-exp) from the
-    kernel for ``q``'s device and type, or the plain version on the CPU."""
+    kernel for ``q``'s device and type, or the plain version on the CPU;
+    fake tensors and DTensors go through the custom op."""
+    if traced(q, k, v):
+        out, lse = _attention_op(q, k, v, causal, window, with_lse)
+        return (out, lse) if with_lse else out
+    return _launch(q, k, v, causal, window, with_lse)
+
+
+def _launch(q, k, v, causal, window, with_lse: bool):
     name = kernel_name(q)
     if name is None:
         return flash_attention_reference(q, k, v, causal, window, return_lse=with_lse)
@@ -99,7 +128,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        if do.data_ptr() % 16:          # the kernel reads 16-byte aligned rows
+        if not traced(do) and do.data_ptr() % 16:   # the kernel reads 16-byte aligned rows
             do = do.clone()
         dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, ctx.causal, ctx.window)
         return dq, dk, dv, None, None
@@ -148,6 +177,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous()):
         raise ValueError("flash_attention_backward: lse must be a contiguous float32 "
                          f"({B}, {H}, {Sq}) tensor on q's device")
+    if traced(q, k, v, do):
+        return _attention_backward_op(q, k, v, o, lse, do, causal, window)
+    return _launch_backward(q, k, v, o, lse, do, causal, window)
+
+
+def _launch_backward(q, k, v, o, lse, do, causal, window):
     if kernel_name(q) is None:
         return flash_attention_backward_reference(q, k, v, o, lse, do, causal, window)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_backward_cuda
@@ -160,3 +195,81 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 #: backward kernel launches since the last reset (CPU calls do not count)
 flash_attention_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# custom ops: the route of fake tensors and DTensors
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  window: Optional[int], with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``, ``lse`` empty without ``with_lse``: the kernel or the
+    plain version on a DTensor's local tensors."""
+    if with_lse:
+        out, lse = _launch(q, k, v, causal, window, True)
+        return out, lse
+    return _launch(q, k, v, causal, window, False), q.new_empty(0, dtype=torch.float32)
+
+
+@_attention_op.register_fake
+def _(q, k, v, causal, window, with_lse):
+    B, Sq, H, _ = q.shape
+    lse = q.new_empty((B, H, Sq) if with_lse else (0,), dtype=torch.float32)
+    return torch.empty_like(q), lse
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=())
+def _attention_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                           causal: bool, window: Optional[int]
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(_launch_backward(q, k, v, o, lse, do, causal, window))
+
+
+@_attention_backward_op.register_fake
+def _(q, k, v, o, lse, do, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _attention_flops(q_shape, k_shape, causal, window) -> int:
+    """Two products (``q k^T`` and ``p v``) over the unmasked pairs."""
+    B, Sq, H, D = q_shape
+    return 4 * B * H * D * attention_pairs(Sq, k_shape[1], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, window, with_lse, *args, **kwargs) -> int:
+    return _attention_flops(q_shape, k_shape, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, causal, window,
+      *args, **kwargs) -> int:
+    # five products: the scores again, dv, the probabilities' gradient, dq, dk
+    return 5 * _attention_flops(q_shape, k_shape, causal, window) // 2
+
+
+@sharding_rules
+def _register_sharding() -> None:
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _(q, k, v, causal, window, with_lse):
+        # replicated, by batch, or by heads (query and KV heads split alike)
+        rules = [([Replicate(), Replicate()], [Replicate()] * 3 + [None] * 3),
+                 ([Shard(0), Shard(0) if with_lse else Replicate()],
+                  [Shard(0)] * 3 + [None] * 3),
+                 ([Shard(2), Shard(1) if with_lse else Replicate()],
+                  [Shard(2)] * 3 + [None] * 3)]
+        return rules
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_backward.default)
+    def _(q, k, v, o, lse, do, causal, window):
+        return [([Replicate()] * 3, [Replicate()] * 6 + [None] * 2),
+                ([Shard(0)] * 3, [Shard(0)] * 6 + [None] * 2),
+                ([Shard(2)] * 3, [Shard(2)] * 3 + [Shard(2), Shard(1), Shard(2)] + [None] * 2)]
+
+

@@ -14,6 +14,14 @@ CSR (:class:`EdgeCSR`) instead: the packing's real slots, in packed order,
 or the same stable destination sort done on the device
 (:func:`csr_from_edges`).  Each destination row is owned by one group of
 lanes and summed in CSR order — no atomics, bitwise repeatable.
+
+Fake tensors and DTensors (``kernels.traced``) go through the
+custom op ``repro_torch::segment_spmm``: its fake route returns an empty
+output, its FLOP formula counts a multiply-add per CSR slot and column,
+and its sharding rule takes the inputs replicated or ``x`` split by
+columns.  An :class:`EdgeCSR` of such tensors is neither checked nor
+planned (that reads the device), and the CSRs are built with output shapes
+that follow from the input shapes alone, so a fake run can build them.
 """
 from __future__ import annotations
 
@@ -24,7 +32,10 @@ from typing import Union
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCH_LOCK
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels import (GATHERED_INPUTS, LAUNCH_LOCK, fake, is_dtensor,
+                                 sharding_rules, traced)
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
 
 
@@ -153,18 +164,22 @@ class EdgeCSR:
     from a packing, tensors when built on the device.  Within a row, edges
     keep their order in the edge list.
 
-    Checked once, when made: ``row_ptr`` is nondecreasing from ``>= 0`` to
-    ``len(src)``, source ids are ``>= 0``; ``src_bound`` is one past the
-    largest source id, and ``plan`` the :class:`RowPlan` of ``row_ptr``, on
-    its device.  So the kernels that read it need not check or plan it
+    Checked once, when made: ``row_ptr`` is nondecreasing from 0 to
+    ``len(src)`` (a destination outside ``[0, n)`` fails this), source ids
+    are ``>= 0``; ``src_bound`` is one past the largest source id, and
+    ``plan`` the :class:`RowPlan` of ``row_ptr``, on its device.  So the
+    kernels that read it need not check or plan it
     again (a check on the device costs a synchronisation per launch), and
-    no plan can be paired with another CSR."""
+    no plan can be paired with another CSR.  A CSR of DTensors is checked
+    and planned whole (its full tensors), its plan replicated on its mesh;
+    a CSR of fake tensors holds no values, so it is neither checked nor
+    planned."""
 
     row_ptr: Array   # (n+1,) int32 offsets per destination row
     src: Array       # (E,) int32 source id per CSR slot
     order: Array     # (E,) int64 edge-list index per CSR slot
-    src_bound: int = field(init=False)
-    plan: RowPlan = field(init=False)
+    src_bound: int = field(init=False)   # None on fake tensors
+    plan: RowPlan = field(init=False)    # None on fake tensors
     #: transposed CSRs by row count, made once by :meth:`transposed`
     _transposed: dict = field(init=False, default_factory=dict, repr=False,
                               compare=False)
@@ -173,24 +188,39 @@ class EdgeCSR:
         E = self.src.shape[0]
         if self.row_ptr.shape[0] < 1:
             raise ValueError("EdgeCSR: row_ptr needs n_rows + 1 >= 1 entries")
-        src_range = [self.src.min(), self.src.max()] if E else []
-        on_device = isinstance(self.row_ptr, torch.Tensor)
+        if isinstance(self.row_ptr, torch.Tensor) and fake(self.row_ptr, self.src):
+            object.__setattr__(self, "src_bound", None)
+            object.__setattr__(self, "plan", None)
+            return
+        row_ptr, src = self.row_ptr, self.src
+        mesh = next((t.device_mesh for t in (row_ptr, src) if is_dtensor(t)), None)
+        if mesh is not None:
+            row_ptr, src = (t.full_tensor() if is_dtensor(t) else t for t in (row_ptr, src))
+        src_range = [src.min(), src.max()] if E else []
+        on_device = isinstance(row_ptr, torch.Tensor)
         if on_device:
             # one synchronisation: row_ptr and the source range to the host
-            n1 = self.row_ptr.shape[0]
-            host = torch.cat([self.row_ptr.long()] + [v.long()[None] for v in src_range]
+            n1 = row_ptr.shape[0]
+            host = torch.cat([row_ptr.long()] + [v.long()[None] for v in src_range]
                              ).cpu().numpy()
             rp, src_range = host[:n1], host[n1:]
         else:
-            rp = np.asarray(self.row_ptr, np.int64)
+            rp = np.asarray(row_ptr, np.int64)
         smin, smax = (int(v) for v in src_range) if E else (0, -1)
-        if rp[0] < 0 or rp[-1] != E or np.any(np.diff(rp) < 0) or smin < 0:
-            raise ValueError("EdgeCSR: row_ptr must lie in [0, len(src)], be "
-                             "nondecreasing and end at len(src), and source ids "
-                             "must be >= 0")
+        if rp[0] != 0 or rp[-1] != E or np.any(np.diff(rp) < 0) or smin < 0:
+            raise ValueError("EdgeCSR: row_ptr must start at 0, be nondecreasing "
+                             "and end at len(src), and source ids must be >= 0")
         plan = row_plan(rp)
+        if on_device:
+            plan = plan.to(row_ptr.device)
+        if mesh is not None:
+            from torch.distributed.tensor import DTensor, Replicate
+
+            plan = RowPlan(*(DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                                run_check=False)
+                             for t in (plan.runs, plan.long_rows)))
         object.__setattr__(self, "src_bound", smax + 1)
-        object.__setattr__(self, "plan", plan.to(self.row_ptr.device) if on_device else plan)
+        object.__setattr__(self, "plan", plan)
 
     def transposed(self, n_src: int) -> "EdgeCSR":
         """The transposed CSR over ``n_src`` source rows: row s holds the
@@ -201,18 +231,15 @@ class EdgeCSR:
         stable sort the first time a row count is asked for, then cached on
         this CSR (the gradient of ``segment_spmm_csr`` with respect to x
         runs over it)."""
-        if n_src < self.src_bound:
+        if self.src_bound is not None and n_src < self.src_bound:
             raise ValueError(f"EdgeCSR.transposed: {n_src} rows, but a source id is "
                              f"{self.src_bound - 1}")
         if n_src not in self._transposed:
             rp = torch.as_tensor(self.row_ptr).long()
             src = torch.as_tensor(self.src).long()
-            n = rp.shape[0] - 1
-            dst = torch.repeat_interleave(torch.arange(n, device=rp.device), rp[1:] - rp[:-1])
+            dst = _slot_rows(rp, src.shape[0])
             order = torch.argsort(src, stable=True)
-            row_ptr = torch.zeros(n_src + 1, dtype=torch.int64, device=rp.device)
-            torch.cumsum(torch.bincount(src, minlength=n_src), 0, out=row_ptr[1:])
-            self._transposed[n_src] = EdgeCSR(row_ptr=row_ptr.to(torch.int32),
+            self._transposed[n_src] = EdgeCSR(row_ptr=csr_offsets(src[order], n_src),
                                               src=dst[order].to(torch.int32), order=order)
         return self._transposed[n_src]
 
@@ -227,6 +254,20 @@ class EdgeCSR:
                 getattr(self, name), device=device).to(dtype))
         object.__setattr__(moved, "plan", self.plan.to(device))
         return moved
+
+
+def csr_offsets(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``(n + 1,)`` int32 CSR offsets of nondecreasing ``keys``: entry r is
+    the count of keys below r (``cumsum(bincount)`` for keys in ``[0, n)``,
+    with a shape that the input shapes fix)."""
+    bounds = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
+    return torch.searchsorted(keys, bounds, out_int32=True)
+
+
+def _slot_rows(row_ptr: torch.Tensor, E: int) -> torch.Tensor:
+    """Each of a CSR's ``E`` slots' row (int64)."""
+    slots = torch.arange(E, dtype=torch.int64, device=row_ptr.device)
+    return torch.searchsorted(row_ptr.long(), slots, right=True) - 1
 
 
 def csr_from_packing(packed: PackedEdges, dst_global: np.ndarray,
@@ -274,10 +315,7 @@ def csr_from_edges(edge_src: torch.Tensor, edge_dst: torch.Tensor,
         raise ValueError("csr_from_edges: the CSR's int32 offsets take "
                          "fewer than 2**31 edges")
     order = torch.argsort(edge_dst, stable=True)
-    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=edge_dst.device)
-    torch.cumsum(torch.bincount(edge_dst.long(), minlength=n), 0,
-                 out=row_ptr[1:])
-    return EdgeCSR(row_ptr=row_ptr.to(torch.int32),
+    return EdgeCSR(row_ptr=csr_offsets(edge_dst[order].long(), n),
                    src=edge_src[order].to(torch.int32), order=order)
 
 
@@ -297,7 +335,7 @@ def _check(x, csr, w) -> None:
             raise ValueError(f"segment_spmm: {name} must be contiguous")
     if csr.src.shape != w.shape:
         raise ValueError("segment_spmm: src and w must have one entry per edge")
-    if csr.src_bound > x.shape[0]:
+    if csr.src_bound is not None and csr.src_bound > x.shape[0]:
         raise ValueError(f"segment_spmm: source id {csr.src_bound - 1} "
                          f"indexes past x's {x.shape[0]} rows")
 
@@ -311,14 +349,21 @@ def vector_width(x: torch.Tensor) -> int:
 
 def _spmm(x: torch.Tensor, csr: EdgeCSR, w: torch.Tensor, counter) -> torch.Tensor:
     """The kernel on CUDA tensors (one more launch on ``counter``), the
-    plain version on CPU tensors."""
+    plain version on CPU tensors, the custom op on traced ones."""
+    if traced(x, csr.row_ptr):
+        return torch.ops.repro_torch.segment_spmm(x, csr.row_ptr, csr.src, w,
+                                                  counter is segment_spmm_csr_backward)
+    return _launch(x, csr.row_ptr, csr.src, w, counter)
+
+
+def _launch(x, row_ptr, src, w, counter) -> torch.Tensor:
     if x.device.type == "cpu":
-        return segment_spmm_csr_reference(x, csr.row_ptr, csr.src, w)
+        return segment_spmm_csr_reference(x, row_ptr, src, w)
     if x.device.type != "cuda":
         raise ValueError(f"segment_spmm: no kernel for device {x.device}")
     from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
 
-    out = segment_spmm_cuda(x, csr.row_ptr, csr.src, w, vector_width(x))
+    out = segment_spmm_cuda(x, row_ptr, src, w, vector_width(x))
     with LAUNCH_LOCK:
         counter.launches += 1
     return out
@@ -399,3 +444,41 @@ def segment_spmm(x: torch.Tensor, packed: PackedEdges, edge_w: torch.Tensor,
     on_x = csr_from_packing(packed, dst, n_out).to(x.device)
     real = torch.from_numpy(packed.pad_mask).to(edge_w.device)
     return segment_spmm_csr(x, on_x, edge_w[real].contiguous())
+
+
+@torch.library.custom_op("repro_torch::segment_spmm", mutates_args=())
+def _segment_spmm_op(x: torch.Tensor, row_ptr: torch.Tensor, src: torch.Tensor,
+                     w: torch.Tensor, backward: bool) -> torch.Tensor:
+    """The kernel or the plain version on a DTensor's local tensors,
+    counted as the forward's launch or, with ``backward``, the
+    backward's."""
+    counter = segment_spmm_csr_backward if backward else segment_spmm_csr
+    return _launch(x, row_ptr, src, w, counter)
+
+
+@_segment_spmm_op.register_fake
+def _(x, row_ptr, src, w, backward):
+    return x.new_empty((row_ptr.shape[0] - 1, x.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.segment_spmm)
+def _(x_shape, row_ptr_shape, src_shape, *args, **kwargs) -> int:
+    return 2 * src_shape[0] * x_shape[1]
+
+
+#: x's rows are gathered by the CSR's sources
+GATHERED_INPUTS["repro_torch::segment_spmm"] = (0,)
+
+
+@sharding_rules
+def _register_sharding() -> None:
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.segment_spmm.default)
+    def _(x, row_ptr, src, w, backward):
+        # the sums of each column are independent: x split by columns
+        return [([Replicate()], [Replicate()] * 4 + [None]),
+                ([Shard(1)], [Shard(1)] + [Replicate()] * 3 + [None])]
+
+

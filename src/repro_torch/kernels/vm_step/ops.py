@@ -8,18 +8,25 @@ written by one lane per column, summed in a fixed order — no atomics,
 bitwise repeatable.  How the kernel splits the rows among its warps and
 blocks is the CSR's ``RowPlan``, made once with the CSR, so a launch
 needs no synchronisation.
+
+Fake tensors and DTensors (``kernels.traced``) go through the
+custom op ``repro_torch::vm_step``: its fake route returns an empty output,
+its FLOP formula counts a multiply-add per CSR slot and column, and its
+sharding rule takes every input replicated (the CSR's rows index the whole
+of ``alpha``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import LAUNCH_LOCK, KernelError
+from repro_torch.kernels import GATHERED_INPUTS, LAUNCH_LOCK, KernelError, sharding_rules, traced
 
 # the dst-sorted CSR serves both CUDA kernels; it lives with the packer
 # (re-exported here, its import path before segment_spmm was ported)
 from repro_torch.kernels.segment_spmm.ops import (  # noqa: F401
-    EdgeCSR, csr_from_packing, pack_edges)
+    EdgeCSR, RowPlan, csr_from_packing, pack_edges)
 from repro_torch.kernels.vm_step.ref import vm_step_reference
 
 
@@ -42,15 +49,16 @@ def pack_vm_inputs(edge_src, edge_dst, labels, cnt, n: int,
 
 def _check(alpha, par, val, csr, w, row_label) -> None:
     dev = alpha.device
-    named = (("alpha", alpha, torch.float32, 2),
+    named = [("alpha", alpha, torch.float32, 2),
              ("par", par, torch.int32, 2),
              ("val", val, torch.float32, 2),
              ("row_ptr", csr.row_ptr, torch.int32, 1),
              ("src", csr.src, torch.int32, 1),
              ("w", w, torch.float32, 1),
-             ("row_label", row_label, torch.int32, 1),
-             ("runs", csr.plan.runs, torch.int32, 1),
-             ("long_rows", csr.plan.long_rows, torch.int32, 1))
+             ("row_label", row_label, torch.int32, 1)]
+    if csr.plan is not None:      # a CSR of fake tensors has no plan
+        named += [("runs", csr.plan.runs, torch.int32, 1),
+                  ("long_rows", csr.plan.long_rows, torch.int32, 1)]
     for name, t, dt, ndim in named:
         if not isinstance(t, torch.Tensor):
             raise ValueError(f"vm_step: {name} must be a tensor")
@@ -71,7 +79,7 @@ def _check(alpha, par, val, csr, w, row_label) -> None:
                          f"row ({n_out}), got {row_label.shape[0]}")
     if csr.src.shape != w.shape:
         raise ValueError("vm_step: src and w must have one entry per edge")
-    if csr.src_bound > n_in:
+    if csr.src_bound is not None and csr.src_bound > n_in:
         raise ValueError(f"vm_step: source id {csr.src_bound - 1} indexes past "
                          f"alpha's {n_in} rows")
 
@@ -95,20 +103,32 @@ def vm_step(alpha: torch.Tensor, par: torch.Tensor, val: torch.Tensor,
     ``par`` in ``[0, N)``.
     """
     _check(alpha, par, val, csr, w, row_label)
-    n_out = csr.row_ptr.shape[0] - 1
+    if traced(alpha, csr.row_ptr):
+        plan = csr.plan
+        if plan is None:            # a fake CSR's: the fake route reads no plan
+            plan = RowPlan(*(csr.row_ptr.new_empty(0) for _ in range(2)))
+        return _vm_step_op(alpha, par, val, csr.row_ptr, csr.src, w, row_label,
+                           plan.runs, plan.long_rows)
+    return _launch(alpha, par, val, csr.row_ptr, csr.src, w, row_label,
+                   csr.plan.runs, csr.plan.long_rows)
+
+
+def _launch(alpha, par, val, row_ptr, src, w, row_label, runs, long_rows):
+    n_out = row_ptr.shape[0] - 1
     if alpha.device.type == "cpu":
         dst = torch.repeat_interleave(
-            torch.arange(n_out), (csr.row_ptr[1:] - csr.row_ptr[:-1]).long())
-        return vm_step_reference(alpha, par, val, csr.src, dst, w,
+            torch.arange(n_out), (row_ptr[1:] - row_ptr[:-1]).long())
+        return vm_step_reference(alpha, par, val, src, dst, w,
                                  row_label[dst], n_out)
     if alpha.device.type != "cuda":
         raise ValueError(f"vm_step: no kernel for device {alpha.device}")
     if alpha.numel() >= 2**31 - 1:
         raise KernelError("vm_step: the kernel indexes alpha with int32 offsets")
+    if runs.shape[0] < 1:
+        raise KernelError("vm_step: the CSR has no row plan (a plan has at least one run)")
     from repro_torch.kernels.vm_step.kernel import vm_step_cuda
 
-    out = vm_step_cuda(alpha, par, val, csr.row_ptr, csr.src, w, row_label,
-                       csr.plan.runs, csr.plan.long_rows)
+    out = vm_step_cuda(alpha, par, val, row_ptr, src, w, row_label, runs, long_rows)
     with LAUNCH_LOCK:
         vm_step.launches += 1
     return out
@@ -116,3 +136,38 @@ def vm_step(alpha: torch.Tensor, par: torch.Tensor, val: torch.Tensor,
 
 #: kernel launches since the last reset (CPU calls do not count)
 vm_step.launches = 0
+
+
+@torch.library.custom_op("repro_torch::vm_step", mutates_args=())
+def _vm_step_op(alpha: torch.Tensor, par: torch.Tensor, val: torch.Tensor,
+                row_ptr: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
+                row_label: torch.Tensor, runs: torch.Tensor,
+                long_rows: torch.Tensor) -> torch.Tensor:
+    """The kernel or the plain version on a DTensor's local tensors."""
+    return _launch(alpha, par, val, row_ptr, src, w, row_label, runs, long_rows)
+
+
+@_vm_step_op.register_fake
+def _(alpha, par, val, row_ptr, src, w, row_label, runs, long_rows):
+    return alpha.new_empty((row_ptr.shape[0] - 1, alpha.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.vm_step)
+def _(alpha_shape, par_shape, val_shape, row_ptr_shape, src_shape, *args, **kwargs) -> int:
+    return 2 * src_shape[0] * alpha_shape[1]
+
+
+#: alpha's rows are gathered by the CSR's sources
+GATHERED_INPUTS["repro_torch::vm_step"] = (0,)
+
+
+@sharding_rules
+def _register_sharding() -> None:
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.vm_step.default)
+    def _(*args):
+        return [([Replicate()], [Replicate()] * 9)]
+
+

@@ -100,7 +100,10 @@ def make_smoke_mesh(n_devices: Optional[int] = None, device: DeviceLike = None):
 
 
 def chips_in(mesh) -> int:
-    return int(mesh.mesh.numel())
+    """The chips of a ``DeviceMesh``, or of a mesh given by its axis sizes."""
+    from repro_torch.distributed.sharding import mesh_axis_sizes
+
+    return math.prod(mesh_axis_sizes(mesh).values())
 
 
 def _rank_main(rank: int, fn: Callable, n_ranks: int, workdir: str,

@@ -55,6 +55,18 @@ def init(cfg: DLRMConfig, seed: int = 0, device: DeviceLike = None) -> Dict:
     return {"embedding": emb, "bot": bot, "top": top}
 
 
+def param_logical_axes(cfg: DLRMConfig) -> Dict:
+    """The logical axis names of each dimension of :func:`init`'s tree (the
+    JAX package's ``init`` returns them beside the parameters): the table's
+    rows over ``rows``, the MLPs replicated."""
+    n_feat = cfg.n_sparse + 1
+    inter = n_feat * (n_feat - 1) // 2 if cfg.interaction == "dot" else 0
+    bot = (cfg.n_dense,) + cfg.bot_mlp
+    top = (inter + cfg.bot_mlp[-1],) + cfg.top_mlp
+    mlp = lambda dims: [{"w": (None, None), "b": (None,)} for _ in dims[1:]]  # noqa: E731
+    return {"embedding": ("rows", None), "bot": mlp(bot), "top": mlp(top)}
+
+
 def forward(params, batch: Dict, cfg: DLRMConfig) -> torch.Tensor:
     """batch: dense (B, n_dense) float; sparse (B, n_sparse[, multi_hot])
     int32 with *global* row ids (offsets already applied)."""

@@ -49,6 +49,17 @@ def init(cfg: GNNConfig, shape: ShapeSpec, seed: int = 0,
     return _model(cfg).init(cfg, feature_dim(cfg, shape), seed=seed, device=device)
 
 
+def param_logical_axes(cfg: GNNConfig, params: Dict) -> Dict:
+    """The logical axis names of each dimension of ``params`` (:func:`init`'s
+    tree; the JAX package's ``init`` returns them beside the parameters):
+    GCN splits its features over ``feat_model``, the other models replicate
+    every parameter."""
+    if cfg.kind == "gcn":
+        return {"layers": [{"w": (None, "feat_model"), "b": ("feat_model",)}
+                           for _ in params["layers"]]}
+    return tree.map_leaves(lambda t: (None,) * t.dim(), params)
+
+
 def _n_graphs(cfg: GNNConfig, batch: Dict, shape: ShapeSpec) -> int:
     """The pooled-graph count the model's forward takes: it follows the
     batch on the molecule cell (scaled smoke batches)."""

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import traced
 from repro_torch.kernels.segment_spmm.ops import EdgeCSR, csr_from_edges, segment_spmm_csr
 from repro_torch.kernels.segment_spmm.ref import scatter_add
 
@@ -67,8 +68,10 @@ def scatter_sum(values: torch.Tensor, index: torch.Tensor, n: int,
     (:func:`scatter_sum_csr`, over ``plan`` when given), and a CPU tensor
     through the plain scatter (:func:`scatter_sum_plain`, which needs no
     plan); both add each row's terms in edge order, from 0, and leave
-    masked edges out."""
-    if values.device.type == "cpu":
+    masked edges out.  A fake tensor or a DTensor takes the kernel's route
+    on any device (``kernels.traced``), so a dry-run counts the kernel's
+    work."""
+    if values.device.type == "cpu" and not traced(values):
         return scatter_sum_plain(values, index, n, mask)
     return scatter_sum_csr(values, index, n, mask, plan)
 
@@ -149,11 +152,14 @@ def segment_max(values: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tens
 def degrees(edge_dst: torch.Tensor, n: int,
             edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """In-degrees as float32, masked edges left out: a count, exact in any
-    order, so one ``bincount`` serves every device (no sort)."""
+    order, so one integer ``index_add_`` serves every device (no sort; its
+    output's shape follows from ``n``, so a fake run can count it)."""
     index = edge_dst.long()
     if edge_mask is not None:
         index = torch.where(edge_mask, index, n)
-    return torch.bincount(index, minlength=n + 1)[:n].to(torch.float32)
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=index.device)
+    counts = counts.index_add(0, index, torch.ones_like(index))
+    return counts[:n].to(torch.float32)
 
 
 def gather(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

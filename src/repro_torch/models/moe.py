@@ -186,7 +186,12 @@ def _router_losses(r: Routing, cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tens
     T, K = r.experts.shape
     E = cfg.n_experts
     me = r.probs.mean(dim=0)
-    ce = torch.bincount(r.experts.reshape(-1), minlength=E).float() / (T * K)
+    # each expert's share of the assignments: an integer count whose shape
+    # follows from E (a bincount's would follow from the data)
+    ids = r.experts.reshape(-1).long()
+    counts = torch.zeros(E, dtype=torch.int64, device=ids.device).index_add(
+        0, ids, torch.ones_like(ids))
+    ce = counts.float() / (T * K)
     aux = cfg.aux_coef * E * torch.sum(me * ce)
     z = cfg.router_z_coef * torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
     return aux, z

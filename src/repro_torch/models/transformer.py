@@ -5,10 +5,13 @@ olmoe), QKV bias (qwen2.5), sliding-window with periodic global layers
 (gemma3), and the mixture-of-experts FFN (olmoe, kimi-k2; ``moe.py``) on
 each layer's ``(B·S, d)`` tokens, its aux values averaged over layers.  Parameters are a plain dict of tensors in
 the JAX package's layout, layers stacked along a leading L axis; the layer
-loop is a Python loop over the stack (JAX's ``lax.scan``).  Sharding
-constraints have no counterpart (they are no-ops without a mesh); the
-logical axes of the parameters and the KV cache are the JAX package's, for
-``repro_torch.distributed.sharding``.
+loop is a Python loop over the stack (JAX's ``lax.scan``).  The logical
+axes of the parameters and the KV cache are the JAX package's, for
+``repro_torch.distributed.sharding``, and the activations are constrained
+where the JAX package's are (``constrain``: a no-op outside
+``activation_sharding``, where a dry-run on DTensors lays them out; the
+projections to heads are laid out before their split, as a DTensor cannot
+split a dim that is sharded over more chips than it has heads).
 
 Prefill attention runs as the hand-written ``flash_attention`` CUDA kernel
 (one launch per layer), with ``window`` the configuration's sliding window
@@ -43,6 +46,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import constrain
+from repro_torch.kernels import is_dtensor
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_rope, attention, cross_entropy,
@@ -172,9 +177,15 @@ def _layer_params(params: Dict, i: int) -> Dict:
     return at(params["layers"])
 
 
+def _split_heads(t: torch.Tensor, n: int, d_head: int, axis: str) -> torch.Tensor:
+    """(B, S, n·Dh) -> (B, S, n, Dh), constrained ``batch`` x ``axis``."""
+    B, S, _ = t.shape
+    t = constrain(t, "batch", None, axis, shape=(B, S, n))
+    return constrain(t.reshape(B, S, n, d_head), "batch", None, axis, None)
+
+
 def _qkv(cfg: LMConfig, h: torch.Tensor, ap: Dict):
     """q (B, S, H, Dh), k and v (B, S, KV, Dh) before rotary embedding."""
-    B, S, _ = h.shape
     q = h @ ap["wq"].to(h.dtype)
     k = h @ ap["wk"].to(h.dtype)
     v = h @ ap["wv"].to(h.dtype)
@@ -182,9 +193,9 @@ def _qkv(cfg: LMConfig, h: torch.Tensor, ap: Dict):
         q = q + ap["bq"].to(h.dtype)
         k = k + ap["bk"].to(h.dtype)
         v = v + ap["bv"].to(h.dtype)
-    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    q = _split_heads(q, cfg.n_heads, cfg.d_head, "heads")
+    k = _split_heads(k, cfg.n_kv_heads, cfg.d_head, "kv_heads")
+    v = _split_heads(v, cfg.n_kv_heads, cfg.d_head, "kv_heads")
     if cfg.qk_norm:
         q = rms_norm_nd(ap["q_norm"], q, cfg.norm_eps)
         k = rms_norm_nd(ap["k_norm"], k, cfg.norm_eps)
@@ -198,20 +209,22 @@ def _ffn(cfg: LMConfig, x: torch.Tensor, lp: Dict):
     fp = lp["ffn"]
     if cfg.moe:
         B, S, d = h2.shape
-        y, aux = moe_lib.apply_auto(fp, h2.reshape(B * S, d), cfg.moe)
+        flat = constrain(h2.reshape(B * S, d), "batch", None)
+        y, aux = moe_lib.apply_auto(fp, flat, cfg.moe)
         return y.reshape(B, S, d), aux
-    return swiglu(h2 @ fp["gate"].to(h2.dtype),
-                  h2 @ fp["up"].to(h2.dtype)) @ fp["down"].to(h2.dtype), {}
+    h_ff = constrain(swiglu(h2 @ fp["gate"].to(h2.dtype), h2 @ fp["up"].to(h2.dtype)),
+                     "batch", None, "ffn")
+    return h_ff @ fp["down"].to(h2.dtype), {}
 
 
 def _head(params: Dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(x.dtype)
+    return constrain(x @ head.to(x.dtype), "batch", None, "vocab")
 
 
 def _embed(params: Dict, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    x = params["embed"].to(_dtype(cfg))[tokens.long()]
+    x = constrain(params["embed"].to(_dtype(cfg))[tokens.long()], "batch", None, None)
     if cfg.tie_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -233,9 +246,9 @@ def _layer(cfg: LMConfig, x: torch.Tensor, lp: Dict, is_glob: bool):
     k = apply_rope(k, pos, cfg.rope_theta)
     window = None if is_glob else cfg.sliding_window
     o = flash_attention(q, k, v, causal=True, window=window)
-    x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"].to(x.dtype)
+    x = constrain(x + o.reshape(B, S, -1) @ lp["attn"]["wo"].to(x.dtype), "batch", None, None)
     y, aux = _ffn(cfg, x, lp)
-    return x + y, aux, k, v
+    return constrain(x + y, "batch", None, None), aux, k, v
 
 
 def _layer_no_cache(cfg: LMConfig, x: torch.Tensor, lp: Dict, is_glob: bool):
@@ -259,12 +272,16 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig,
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     cache = None
+    # a DTensor cannot be copied into a slice of a plain stack: a dry-run's
+    # layers' keys and values are stacked once at the end instead
+    stacked = return_cache and is_dtensor(x)
     if return_cache:
         if remat:
             raise ValueError("forward: remat and return_cache do not go together")
         shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
-        cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
-                 "v": torch.empty(shape, dtype=x.dtype, device=x.device), "pos": S}
+        cache = ({"k": [], "v": [], "pos": S} if stacked else
+                 {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
+                  "v": torch.empty(shape, dtype=x.dtype, device=x.device), "pos": S})
     aux_sum: Dict[str, torch.Tensor] = {}
     for i, glob in enumerate(is_global_layer(cfg)):
         lp = _layer_params(params, i)
@@ -275,8 +292,13 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig,
             x, aux, k, v = _layer(cfg, x, lp, glob)
         for name, value in aux.items():
             aux_sum[name] = aux_sum[name] + value if name in aux_sum else value
-        if cache is not None:
+        if stacked:
+            cache["k"].append(k)
+            cache["v"].append(v)
+        elif cache is not None:
             cache["k"][i], cache["v"][i] = k, v
+    if stacked:
+        cache.update(k=torch.stack(cache["k"]), v=torch.stack(cache["v"]))
     logits = _head(params, x, cfg)
     aux = {name: value / cfg.n_layers for name, value in aux_sum.items()}
     return (logits, aux, cache) if return_cache else (logits, aux)
@@ -334,6 +356,10 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, cfg: LMConfig):
         q, k, v = _qkv(cfg, h, lp["attn"])
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+        # the query heads laid out as the KV heads they read (a no-op
+        # outside a dry-run), so that their groups split alike
+        q = constrain(q, "batch", None, "kv_heads", None,
+                      shape=(B, 1, cfg.n_kv_heads, cfg.d_head))
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
         v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
@@ -360,7 +386,9 @@ def loss_fn(params, batch, cfg: LMConfig, remat: bool = False):
     and z losses when the model has them (``metrics``: ``loss`` and the aux
     values)."""
     logits, aux = forward(params, batch["tokens"], cfg, remat=remat)
-    loss = cross_entropy(logits, batch["labels"])
+    # the gold logit's gather reads whole rows: on a dry-run's DTensors the
+    # vocabulary is gathered first (a no-op elsewhere)
+    loss = cross_entropy(constrain(logits, "batch", None, None), batch["labels"])
     total = loss
     for k in ("moe_aux_loss", "moe_z_loss"):
         if k in aux:

@@ -12,8 +12,14 @@ moment tensors instead (the same arithmetic, bit for bit) and returns
 them: at qwen3-4b's full width on one card, new copies of the 8.8 GB of
 bf16 parameters and 35 GB of float32 moments next to the old ones do not
 fit.  Leaves are updated in chunks, so the float32 temporaries stay small
-beside a 1.8 GB stacked FFN weight or an 8.6 GB embedding table.  (``state_logical_axes`` belongs with the sharding rules, which the
-port does not carry.)
+beside a 1.8 GB stacked FFN weight or an 8.6 GB embedding table.
+
+Optimizer state follows parameter sharding (``state_logical_axes``: the
+moments take their parameters' logical axes).  On
+``torch.distributed.tensor.DTensor`` leaves each gradient is first laid
+out as its parameter (the all-reduce or reduce-scatter of a sharded step),
+the clipping norm is reduced over the mesh, and the chunks then run on
+each device's local shards, which is the same elementwise update.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.kernels import is_dtensor
 from repro_torch.utils import tree
 
 AdamWState = Dict  # {"m": tree, "v": tree, "step": int32 scalar}
@@ -56,18 +63,32 @@ class AdamW:
             "step": torch.zeros((), dtype=torch.int32, device=device),
         }
 
+    def state_logical_axes(self, param_logical) -> Dict:
+        return {
+            "m": param_logical,
+            "v": param_logical,
+            "step": (),
+        }
+
     def update(self, params, grads, state: AdamWState, inplace: bool = False):
         """``(new params, new state)`` for ``grads`` (a tree of ``params``'
         structure).  Each leaf is updated CHUNK elements at a time (the
         update is elementwise, so this changes no bit), which bounds the
         float32 temporaries to a few chunks whatever the leaf's size."""
-        step = state["step"] + 1
+        new_step = state["step"] + 1
+        flat_p = tree.leaves(params)
         flat_g = tree.leaves(grads)
+        if any(is_dtensor(p) for p in flat_p):
+            flat_g = [g.redistribute(p.device_mesh, p.placements)
+                      if is_dtensor(g) and g.placements != p.placements else g
+                      for p, g in zip(flat_p, flat_g)]
         scale = None
         if self.clip_norm is not None:
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in flat_g))
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+            scale = _local(scale, replicate=True)
 
+        step = _local(new_step, replicate=True)
         lr = self._lr(step)
         f32 = torch.tensor(0.0, dtype=torch.float32, device=step.device)
         bc1 = 1.0 - (f32 + self.b1) ** step.to(torch.float32)
@@ -86,15 +107,15 @@ class AdamW:
                 delta = delta + self.weight_decay * p.float()
             return p.float() - lr * delta, m32, v32
 
-        flat_p = tree.leaves(params)
         flat_m, flat_v = tree.leaves(state["m"]), tree.leaves(state["v"])
         out = []
         with torch.no_grad():
             for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
                 new = (p, m, v) if inplace else tuple(torch.empty_like(t) for t in (p, m, v))
                 # a gradient may be a strided view (an einsum's); it is only read
-                views = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
-                dst = [t.view(-1) for t in new]
+                views = [_local(p).view(-1), _local(g).reshape(-1),
+                         _local(m).view(-1), _local(v).view(-1)]
+                dst = [_local(t).view(-1) for t in new]
                 for lo in range(0, p.numel(), CHUNK):
                     part = upd(*(t[lo:lo + CHUNK] for t in views))
                     for d, x in zip(dst, part):
@@ -103,4 +124,12 @@ class AdamW:
         new_p = tree.unflatten(params, [o[0] for o in out])
         new_m = tree.unflatten(state["m"], [o[1] for o in out])
         new_v = tree.unflatten(state["v"], [o[2] for o in out])
-        return new_p, {"m": new_m, "v": new_v, "step": step}
+        return new_p, {"m": new_m, "v": new_v, "step": new_step}
+
+
+def _local(t, replicate: bool = False):
+    """A DTensor's local shard (made whole first with ``replicate``), or
+    the tensor itself."""
+    if not is_dtensor(t):
+        return t
+    return t.full_tensor() if replicate else t.to_local()

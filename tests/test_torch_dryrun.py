@@ -1,0 +1,115 @@
+"""The port's dry-run on the single-pod production mesh (16 x 16 fake ranks:
+``torch.testing._internal.distributed.fake_pg``).  Each run is a
+subprocess, so its fake process group never meets another test's group in
+an xdist worker: ``python -m repro_torch.launch.dryrun`` over the TAPER
+cell, a DLRM cell and a GNN cell, each record ``ok`` with its argument
+bytes the local shards' that the plan's placements give; and the
+collective accounting of one DTensor product, against bytes worked out by
+hand."""
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro_torch.launch.specs import axis_mesh, build_cell
+from repro_torch.utils import tree
+
+ROOT = Path(__file__).resolve().parents[1]
+CELLS = [("taper_paper", "refine_step"), ("dlrm-rm2", "serve_p99"), ("gin-tu", "ogb_products")]
+
+PRODUCT = r"""
+import json, torch, torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch.dryrun import fake_group
+from repro_torch.launch.hlo_analysis import CountingMode, collective_bytes
+from repro_torch.launch.mesh import make_production_mesh
+
+fake_group(256)
+mesh = make_production_mesh(device="cpu")
+with FakeTensorMode():
+    # x (4096, 2560): rows over data, columns over model; w (2560, 9728):
+    # rows over model.  x @ w is partial over model; making it replicated
+    # there all-reduces each chip's (256, 9728) float32 block
+    x = DTensor.from_local(torch.empty(256, 160), mesh, [Shard(0), Shard(1)],
+                           run_check=False, shape=(4096, 2560), stride=(2560, 1))
+    w = DTensor.from_local(torch.empty(160, 9728), mesh, [Replicate(), Shard(0)],
+                           run_check=False, shape=(2560, 9728), stride=(9728, 1))
+    with CountingMode() as c:
+        y = (x @ w).redistribute(mesh, [Shard(0), Replicate()])
+stats = collective_bytes(c.collectives)
+print(json.dumps({"flops": c.flops, "bytes": stats.bytes_by_op, "count": stats.count_by_op,
+                  "wire": stats.wire_bytes, "local": list(y.to_local().shape)}))
+dist.destroy_process_group()
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _local_bytes(plan) -> int:
+    sizes = {"data": 16, "model": 16}
+    total = 0
+    for leaf, sh in zip(tree.leaves(plan.args), tree.leaves(plan.in_shardings)):
+        split = 1
+        for entry in sh.spec:
+            for axis in ((entry,) if isinstance(entry, str) else entry or ()):
+                split *= sizes[axis]
+        total += leaf.numel() * leaf.element_size() // split
+    return total
+
+
+def test_dryrun_cells_single_pod(tmp_path):
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", "single", "--out", str(tmp_path)],
+        cwd=ROOT, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape in CELLS]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for (arch, shape), p, log in zip(CELLS, procs, logs):
+        assert p.returncode == 0, log[-3000:]
+        rec = json.loads((tmp_path / f"{arch}__{shape}__single.json").read_text())
+        assert rec["status"] == "ok" and rec["mesh"] == "single"
+        plan = build_cell(arch, shape, axis_mesh(data=16, model=16))
+        assert rec["meta"] == plan.meta
+        assert rec["memory_analysis"]["argument_size_in_bytes"] == _local_bytes(plan)
+        roof = rec["roofline"]
+        assert roof["n_chips"] == 256 and roof["step_time_s"] > 0
+        assert roof["memory_s"] == pytest.approx(
+            rec["cost_analysis"]["compulsory bytes"] / 3.35e12)
+        assert rec["hardware"]["hbm_bytes_per_s"] == 3.35e12
+    taper = json.loads((tmp_path / "taper_paper__refine_step__single.json").read_text())
+    # the step gathers its sharded edge and vertex arrays whole on every chip
+    assert taper["collectives"]["count_by_op"]["all-gather"] >= 4
+
+
+def test_dtensor_product_collectives():
+    out = subprocess.run([sys.executable, "-c", PRODUCT], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    block = 256 * 9728 * 4
+    assert got["local"] == [256, 9728]
+    assert got["flops"] == {"float32": 2.0 * 256 * 160 * 9728}      # the local product
+    assert got["count"] == {"all-reduce": 1}
+    assert got["bytes"] == {"all-reduce": float(block)}
+    assert math.isclose(got["wire"], 2.0 * block)
+
+
+def test_slice_imports_without_jax_or_reference():
+    """The four launch modules of this slice load neither JAX nor the
+    reference package."""
+    probe = ("import sys, repro_torch.launch.specs, repro_torch.launch.dryrun, "
+             "repro_torch.launch.hlo_analysis, repro_torch.launch.roofline; "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
