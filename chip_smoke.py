@@ -352,6 +352,22 @@ SHARDED_MAPS = ("stripe", "partition", "bfs")
 SHARDED_EXCHANGES = ("sliced", "psum")
 SHARDED_FULL = ("partition", "sliced")
 SHARDED_FULL_EVALS = 2
+# threaded sharded serving on the sharded path's graph (path 5a): the
+# serving path's workload in rounds of SHARDED_SERVE_MICRO_BATCH requests
+# (a micro-batch each: the batched enumeration's sweeps, not the requests,
+# set a micro-batch's time, ~6.5-12 s on provgen 1M, and the trigger polls
+# once a served micro-batch); SHARDED_SERVE_BATCHES mutation batches of the
+# mixed stream, n / SHARDED_SERVE_MUTATION new vertices and m /
+# SHARDED_SERVE_MUTATION churned edges each (a fifth of the serving path's:
+# the swap's candidates are the dirty frontier), each ingested, then a
+# round after which the topology trigger starts its invocation (at most
+# SHARDED_SERVE_ITERS swap iterations) and a round served while it runs;
+# under SHARDED_SERVE_CAP_S
+SHARDED_SERVE_MICRO_BATCH = 64
+SHARDED_SERVE_BATCHES = 2
+SHARDED_SERVE_MUTATION = 10_000
+SHARDED_SERVE_ITERS = 1
+SHARDED_SERVE_CAP_S = 150.0
 FIELD_NAMES = ("alpha", "pr", "edge_mass", "extro_mass", "extroversion", "ext_to")
 #: serving at N=2000 (phase 4d): rounds of requests through the inline
 #: GraphQueryEngine (MQ1-3, the mix flipping half way), the rounds before
@@ -382,6 +398,12 @@ SERVE_LOOP_WARMUP = 32
 #: many in the same time), and 64 more complete between a commit and the
 #: next batch (400 would take minutes after the first batch)
 SERVE_FULL_BATCHES = 1
+# the serving path's arrivals: n / SERVE_FULL_MUTATION new vertices and m /
+# SERVE_FULL_MUTATION churned edges a batch (2,000 before path 5a served
+# threaded across its ranks; cut for the time that takes: after those
+# arrivals a micro-batch took up to 27 s), the topology trigger at 0.1%
+# dirty
+SERVE_FULL_MUTATION = 10_000
 SERVE_FULL_EVERY = 64
 SERVE_FULL_IN_FLIGHT = 64
 SERVE_FULL_MICRO_BATCH = 64
@@ -2374,6 +2396,242 @@ def _sharded_evals(torch, g, arrays, parts, pre, reps=1, **kw):
     return evals, timer.last_args
 
 
+def _sharded_serve_policy():
+    # the topology trigger only, at a tenth of the serving path's dirty
+    # fraction for batches a fifth of its size
+    from repro_torch.core.online import OnlinePolicy
+
+    return OnlinePolicy(dirty_fraction=0.001, cadence=10 ** 9, drift_l1=2.0,
+                        ipt_regression=float("inf"))
+
+
+def _sharded_serve_config():
+    from repro_torch.core.taper import TaperConfig
+
+    return TaperConfig(max_iterations=SHARDED_SERVE_ITERS, seed=0,
+                       field_backend="cuda_sharded", shard_map_source=SHARDED_FULL[0],
+                       halo_exchange=SHARDED_FULL[1])
+
+
+def _sharded_serve(torch, rank, n_ranks, g, part, pre):
+    """Threaded ``cuda_sharded`` serving on ``g`` from ``part``: rank 0 runs
+    the ServingLoop (overlapped invocations, one worker) and feeds it
+    rounds of the serving path's requests and SHARDED_SERVE_BATCHES
+    mutation batches (SHARDED_SERVE_MICRO_BATCH's comment), the other ranks
+    run a ShardFollower; every rank starts from the field
+    timings' precompute ``pre`` (group, packing, uploads).  Across ranks
+    (``n_ranks > 1``), rank 0 then replays its schedule through the
+    ``cuda`` field in this process on a copy of the starting graph (once
+    in the path: the S = 1 run's schedule is the same kind).  Returns this
+    rank's record."""
+    import numpy as np
+    import repro_torch.core.visitor as visitor
+    from repro_torch.core.online import OnlineTaper
+    from repro_torch.core.rpq import parse_rpq
+    from repro_torch.kernels.vm_step.ops import vm_step
+    from repro_torch.serve import ServeLoopConfig, ServingLoop
+    from repro_torch.serve.sharded import ShardFollower, replay_schedule
+    from repro_torch.workload.stream import GraphMutationStream, WorkloadStream
+
+    cfg = ServeLoopConfig(n_workers=1, overlap_invocations=True,
+                          micro_batch=SHARDED_SERVE_MICRO_BATCH, stop_timeout_s=SERVE_WAIT_S,
+                          record_schedule=True)
+    g0 = g.copy() if rank == 0 and n_ranks > 1 else None
+    timer = _KernelTimer(torch, vm_step)
+    visitor.vm_step = timer
+    t0 = time.perf_counter()
+    try:
+        vm_step.launches = 0                        # the path starts here
+        if rank:
+            f = ShardFollower(g, 8, part=part, taper_config=_sharded_serve_config(),
+                              policy=_sharded_serve_policy(), config=cfg, device="cuda")
+            f.ot.taper._pre.update(pre)
+            stats = f.run()
+            launches = vm_step.launches             # ... and ends here
+            torch.cuda.synchronize()
+            return dict(rank=rank, stats=stats, commits=f.commits, launches=launches,
+                        ms=[a.elapsed_time(b) for a, b in timer.events],
+                        wall=time.perf_counter() - t0, part=f.ot.part.copy())
+        loop = ServingLoop(g, 8, part=part, taper_config=_sharded_serve_config(),
+                           policy=_sharded_serve_policy(), config=cfg, device="cuda")
+        loop.ot.taper._pre.update(pre)
+        windows, batches = [], []
+        begin, commit = loop.ot.begin_invocation, loop.ot.commit_invocation
+        enumerate_many = loop.executor.enumerate_paths_many
+
+        def begin_timed(reason="manual"):
+            pending = begin(reason)
+            if pending is not None:
+                windows.append(dict(t0=time.perf_counter(), reason=reason))
+            return pending
+
+        def commit_timed(pending):
+            r = commit(pending)
+            windows[-1].update(t1=time.perf_counter(), field_s=sum(r.field_seconds),
+                               swap_s=sum(r.swap_seconds), moves=r.total_moves,
+                               iterations=r.iterations)
+            return r
+
+        def batch_timed(queries, *args, **kwargs):
+            b0 = time.perf_counter()
+            out = enumerate_many(queries, *args, **kwargs)
+            batches.append((b0, time.perf_counter(), len(queries)))
+            return out
+
+        # the worker's trigger polls, counted once each is through
+        polls, maybe_trigger = [0], loop._maybe_trigger
+
+        def trigger_counted():
+            maybe_trigger()
+            polls[0] += 1
+
+        loop.ot.begin_invocation, loop.ot.commit_invocation = begin_timed, commit_timed
+        loop.executor.enumerate_paths_many = batch_timed
+        loop._maybe_trigger = trigger_counted
+        ws = WorkloadStream([parse_rpq(q) for q in PQ], mode="static",
+                            static_freqs=PQ_FREQ, seed=3)
+        muts = GraphMutationStream("mixed", seed=7,
+                                   vertices_per_tick=g.n // SHARDED_SERVE_MUTATION,
+                                   edges_per_tick=g.m // SHARDED_SERVE_MUTATION)
+        t_cap = time.perf_counter() + SHARDED_SERVE_CAP_S
+        tag = f"sharded serve S={n_ranks}"
+        tickets = []
+
+        def wait(cond, what):
+            while not cond():
+                check(time.perf_counter() < t_cap,
+                      f"{tag}: {what} not within {SHARDED_SERVE_CAP_S:.0f} s "
+                      f"({loop.ot.invocations} commits, {loop.metrics.completed} requests)")
+                time.sleep(0.002)
+
+        def round_():
+            # a micro-batch of requests, answered, and the trigger's poll after it
+            p0 = polls[0]
+            ts = [loop.submit(q) for q in ws.sample(SHARDED_SERVE_MICRO_BATCH)]
+            check(all(t.accepted for t in ts), f"{tag}: a request was rejected")
+            tickets.extend(ts)
+            wait(lambda: all(t.done.is_set() for t in ts) and polls[0] > p0,
+                 "a round of requests")
+
+        loop.start()
+        try:
+            for i in range(SHARDED_SERVE_BATCHES):
+                v0 = g.version
+                check(loop.submit_mutations(muts.next_batch(g)) is True,
+                      f"{tag}: ingest rejected a batch")
+                wait(lambda: g.version != v0, f"ingest {i + 1}")
+                while not (loop.invocation_in_flight or loop.ot.invocations > i):
+                    round_()        # the trigger polls after it
+                round_()            # served while the invocation runs
+                wait(lambda: loop.ot.invocations > i, f"commit {i + 1}")
+        finally:
+            stats = loop.stop(drain=True)
+        launches = vm_step.launches                 # ... and ends here
+        torch.cuda.synchronize()
+        t_served = time.perf_counter() - t0
+    finally:
+        visitor.vm_step = vm_step
+    lead, sched = loop.rank_leader, loop.schedule
+    rec = dict(rank=0, stats=stats, launches=launches, wall=t_served,
+               ms=[a.elapsed_time(b) for a, b in timer.events], windows=windows,
+               batches=batches, tickets=len(tickets),
+               answered=sum(t.done.is_set() and t.paths is not None for t in tickets),
+               lat=np.asarray([t.latency_s for t in tickets]), part=loop.part.copy(),
+               messages=(lead.messages, lead.bytes, lead.agree.collectives) if lead else None,
+               args=(tuple(int(x) for x in (timer.last_args[0].shape[0],
+                                            timer.last_args[3].row_ptr.shape[0] - 1))
+                     if timer.last_args else None))
+    rec["commits"] = [m["part"] for m in sched if m["kind"] == "commit"]
+    rec["kinds"] = [m["kind"] for m in sched]
+    if g0 is not None:
+        # the schedule replayed inline through the cuda field, in this process
+        t1 = time.perf_counter()
+        ot = OnlineTaper(g0, 8, part=part, config=_sharded_serve_config(),
+                         policy=_sharded_serve_policy(), device="cuda")
+        rec["replayed"] = replay_schedule(ot, sched, backend="cuda")
+        rec["replay_s"] = time.perf_counter() - t1
+        del ot, g0
+    return rec
+
+
+def _sharded_serve_report(torch, n_ranks, recs):
+    """Checks and prints the threaded sharded serving of ``recs`` (one
+    record a rank, rank 0 first)."""
+    import numpy as np
+
+    r0 = recs[0]
+    tag = f"[sharded-serve S={n_ranks}]"
+    st = r0["stats"]
+    n_commits = len(r0["commits"])
+    check(r0["answered"] == r0["tickets"] and st["completed"] == r0["tickets"],
+          f"{tag} {r0['answered']} of {r0['tickets']} requests answered")
+    check(len(r0["windows"]) >= SHARDED_SERVE_BATCHES
+          and all("t1" in w for w in r0["windows"]) and n_commits >= SHARDED_SERVE_BATCHES,
+          f"{tag} {n_commits} commits, want {SHARDED_SERVE_BATCHES}")
+    check(st["field_backend"] == "cuda_sharded" and st["invocation_failures"] == 0
+          and not st["invocation_error"] and st["backend_fallbacks"] == 0,
+          f"{tag} left the cuda_sharded rung or failed ({st['invocation_error']})")
+    for r in recs:
+        check(r["launches"] > 0, f"{tag} rank {r['rank']} launched no vm_step")
+    check(n_commits == st["invocations"] and np.array_equal(r0["commits"][-1], r0["part"]),
+          f"{tag} rank 0's schedule is not its commits")
+    if "replayed" in r0:
+        same = (len(r0["replayed"]) == n_commits
+                and all(np.array_equal(a, b) for a, b in zip(r0["replayed"], r0["commits"])))
+        check(same, f"{tag} the inline cuda replay of rank 0's schedule differs")
+    if n_ranks > 1:
+        for r in recs[1:]:
+            same = (len(r["commits"]) == len(r0["commits"])
+                    and all(np.array_equal(a, b) for a, b in zip(r["commits"], r0["commits"])))
+            check(same and np.array_equal(r["part"], r0["part"]),
+                  f"{tag} rank {r['rank']}'s partitions differ from rank 0's")
+            check(r["stats"]["commits"] == len(r0["commits"]),
+                  f"{tag} rank {r['rank']} committed {r['stats']['commits']}")
+    lat = np.sort(r0["lat"])
+    p50, p99 = lat[len(lat) // 2], lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+    busy = win = done_in = 0.0
+    for w in r0["windows"]:
+        span = w["t1"] - w["t0"]
+        win += span
+        for b0, b1, n in r0["batches"]:
+            busy += max(0.0, min(b1, w["t1"]) - max(b0, w["t0"]))
+            done_in += n * (w["t0"] <= b1 <= w["t1"])
+    ms0 = sorted(r0["ms"])
+    log(f"{tag} {r0['tickets']} requests (PQ1-4 at {PQ_FREQ}, rounds of "
+        f"{SHARDED_SERVE_MICRO_BATCH}), {SHARDED_SERVE_BATCHES} mutation "
+        f"batches; served in {r0['wall']:.2f} s, latency p50 {p50:.3f} s p99 {p99:.3f} s; "
+        f"{device_line()}")
+    for i, w in enumerate(r0["windows"]):
+        log(f"{tag} invocation {i} ({w['reason']}): window {w['t1'] - w['t0']:.3f} s, field "
+            f"{w.get('field_s', float('nan')):.3f} s, swap {w.get('swap_s', float('nan')):.3f} "
+            f"s, {w.get('iterations')} iterations, {w.get('moves')} moves")
+    log(f"{tag} inside the invocation windows ({win:.3f} s): the worker busy "
+        f"{busy / max(win, 1e-9):.4f} of the time, {int(done_in)} requests completed")
+    for r in recs:
+        ms = sorted(r["ms"])
+        med = ms[len(ms) // 2] if ms else float("nan")
+        inv = r["stats"]["invocations"] if r["rank"] == 0 else r["stats"]["starts"]
+        com = n_commits if r["rank"] == 0 else r["stats"]["commits"]
+        log(f"{tag} rank {r['rank']}: {inv} invocations, {com} commits, vm_step "
+            f"{r['launches']} launches, median {med:.4f} ms a launch (CUDA events); "
+            f"{device_line()}")
+    if r0["messages"] is not None:
+        msgs, nbytes, agreements = r0["messages"]
+        log(f"{tag} control: {msgs} messages, {nbytes} bytes down from rank 0, "
+            f"{agreements} agreement collectives; followers received "
+            f"{[r['stats']['messages'] for r in recs[1:]]}; every commit's partition "
+            f"bitwise on every rank")
+    replay = ("the inline cuda replay of rank 0's schedule commits the same "
+              f"{len(r0['replayed'])} partitions ({r0['replay_s']:.2f} s)" if "replayed" in r0
+              else "not replayed (the replay runs once, across the ranks)")
+    log(f"{tag} schedule {r0['kinds']}; {replay}")
+    if r0["args"] is not None:
+        log(f"{tag} vm_step at shard 0's shapes: alpha rows {r0['args'][0]}, output rows "
+            f"{r0['args'][1]}; {len(ms0)} launches on rank 0, median "
+            f"{ms0[len(ms0) // 2]:.4f} ms; {device_line()}")
+    return sum(r["launches"] for r in recs)
+
+
 def _sharded_full_rank(rank, n_ranks, g, part, arrays):
     """One gloo rank of the full-size path on the card: SHARDED_FULL_EVALS
     evaluations at path 1's final partition; rank 0 then times the kernel
@@ -2400,10 +2658,13 @@ def _sharded_full_rank(rank, n_ranks, g, part, arrays):
     kernel = (_vm_at_path_shapes(torch, f"sharded{n_ranks}", args) if rank == 0
               else None)
     dist.barrier()
-    return dict(evals=evals, launches=launches, wall=wall, mem=(mem0, mem1),
-                halo=pre["_halo_stats"], uploads=pre["_shard_uploads"],
-                transport=pre["_shard_exchange"]["transport"], kernel=kernel,
-                shapes=(int(args[0].shape[0]), int(args[3].row_ptr.shape[0] - 1)))
+    out = dict(evals=evals, launches=launches, wall=wall, mem=(mem0, mem1),
+               halo=dict(pre["_halo_stats"]), uploads=dict(pre["_shard_uploads"]),
+               transport=pre["_shard_exchange"]["transport"], kernel=kernel,
+               shapes=(int(args[0].shape[0]), int(args[3].row_ptr.shape[0] - 1)))
+    del args
+    # then threaded sharded serving across the ranks, from the same packing
+    return dict(out, serve=_sharded_serve(torch, rank, n_ranks, g, part, pre))
 
 
 def _eval_text(e):
@@ -2453,8 +2714,13 @@ def sharded_full(torch, device, g, part):
         f"{hs['halo_ratio']:.6f}; device memory {mem0} B before, {mem1} B after")
     shard = pre["_shard_dev"]["shard"]
     shard_bytes, _ = _live_bytes(torch, shard)
-    del shard
-    del pre, args1
+    del shard, args1
+    # threaded cuda_sharded serving on this one-rank NCCL group, on the
+    # evaluations' graph and packing (the ranks take a copy made before)
+    g_ranks = g.copy()
+    serve1 = _sharded_serve(torch, 0, 1, g, part, pre)
+    serve_launches = _sharded_serve_report(torch, 1, [serve1])
+    del pre, serve1
     dist.destroy_process_group()
     torch.cuda.empty_cache()
 
@@ -2462,7 +2728,7 @@ def sharded_full(torch, device, g, part):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
         results = run_ranks(_sharded_full_rank, SHARDED_RANKS, work,
-                            args=(g.copy(), part, arrays))
+                            args=(g_ranks, part, arrays))
     t_ranks = time.perf_counter() - t0
     r0 = results[0]
     for rank, r in enumerate(results):
@@ -2481,13 +2747,15 @@ def sharded_full(torch, device, g, part):
         f"({hs['hot_rows']} hot rows, {hs['sliced_rows']} sliced rows, "
         f"{hs['n_frontier']} frontier rows), full field "
         f"{hs['full_field_bytes_per_depth']} B, ratio {hs['halo_ratio']:.6f}; "
-        f"ranks {t_ranks:.2f} s (spawn, graph, packing, evaluations)")
-    launches = counts["vm_step"] + sum(r["launches"] for r in results)
+        f"ranks {t_ranks:.2f} s (spawn, graph, packing, evaluations, threaded serving)")
+    serve_launches += _sharded_serve_report(torch, SHARDED_RANKS,
+                                            [r.pop("serve") for r in results])
+    launches = counts["vm_step"] + sum(r["launches"] for r in results) + serve_launches
     check(all(r["launches"] > 0 for r in results), "a sharded rank launched no vm_step")
     log(f"[sharded] vm_step launches: S=1 {counts['vm_step']}, S={SHARDED_RANKS} "
         f"{[r['launches'] for r in results]}; the S=1 shard's device inputs "
         f"{shard_bytes} B; path {time.perf_counter() - t_path:.1f} s")
-    del g
+    del g, g_ranks
     return dict(launches=launches, **r0["kernel"])
 
 
@@ -2799,12 +3067,13 @@ def serving_full(torch, device, g, part):
     t_path = time.perf_counter()
     queries = [parse_rpq(q) for q in PQ]
     ws = WorkloadStream(queries, mode="static", static_freqs=PQ_FREQ, seed=3)
-    muts = GraphMutationStream("mixed", seed=7, vertices_per_tick=g.n // 2000,
-                               edges_per_tick=g.m // 2000)
+    muts = GraphMutationStream("mixed", seed=7, vertices_per_tick=g.n // SERVE_FULL_MUTATION,
+                               edges_per_tick=g.m // SERVE_FULL_MUTATION)
 
     def policy():
-        # the online path's: the topology trigger only
-        return OnlinePolicy(dirty_fraction=0.01, cadence=10 ** 9, drift_l1=2.0,
+        # the topology trigger only (the online path's at a tenth of its
+        # dirty fraction, for batches a fifth of its size)
+        return OnlinePolicy(dirty_fraction=0.001, cadence=10 ** 9, drift_l1=2.0,
                             ipt_regression=float("inf"))
 
     def taper_config():
@@ -3244,7 +3513,7 @@ def cluster_full(torch, device, g, part):
 
         before = read("fixed PQ1-4 batch", fixed)
         check(len(before) == len(fixed), "cluster: the fixed batch went unanswered")
-        for i in (1, 2):
+        for i in range(1, CLUSTER_FULL_BATCHES + 1):
             run_batch(i)
 
         # the primary crashes with a batch submitted but never applied
@@ -3277,7 +3546,7 @@ def cluster_full(torch, device, g, part):
               "cluster: the promoted node is not on the cuda rung")
         check(len(first) == 1 and len(first[0][0]) > 0, "cluster: empty first answer")
 
-        r = run_batch(3)
+        r = run_batch(CLUSTER_FULL_BATCHES + 1)
         pst = promoted.stats()
         on = _device_names(torch, promoted.ot.taper._pre["_dev"])
         check(r["cold"] and pst["field_backend"] == "cuda"
@@ -4726,10 +4995,47 @@ def olmoe_serving(torch, device):
         records[name] = dict(launches=served[name]["launches"],
                              **_attn_at_path_shape(torch, timer.args_by_shape[key],
                                                    3 if S > 8192 else 10, tag="olmoe"))
+    records["mesh"] = _moe_mesh_route(torch, cfg, params, rec.inputs[0][1])
     del timer, rec, params, requests
     torch.cuda.empty_cache()
     records["gate"] = _olmoe_f32_gate(torch, device, cfg)
     return records, (routing, E)
+
+
+def _moe_mesh_route(torch, cfg, params, x):
+    """Layer 0's FFN on ``x`` (its MoE input of the first prefilled tokens)
+    through the MoE mesh route: ``moe.apply_auto`` under
+    ``activation_sharding`` of a 1 x 1 ``DeviceMesh`` over an NCCL group of
+    one (``moe.apply_mesh``), bitwise ``moe.apply`` on the same tokens;
+    both timed by CUDA events."""
+    import repro_torch.models.transformer as tf
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import activation_sharding, constrain
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import moe
+
+    fp = tf._layer_params(params, 0)["ffn"]
+    own_group = not dist.is_initialized()
+    mesh = make_smoke_mesh(1, device="cuda")
+
+    def via_mesh():
+        with activation_sharding(mesh):
+            return moe.apply_auto(fp, constrain(x, "batch", None), cfg.moe)
+
+    out, aux = via_mesh()
+    want, want_aux = moe.apply(fp, x, cfg.moe)
+    same = torch.equal(out.full_tensor(), want) and all(
+        torch.equal(aux[k].full_tensor(), want_aux[k]) for k in want_aux)
+    check(same, "olmoe: the MoE mesh route differs from moe.apply")
+    ms_mesh = _time_ms(torch, via_mesh, 10)
+    ms_plain = _time_ms(torch, lambda: moe.apply(fp, x, cfg.moe), 10)
+    log(f"[olmoe] the MoE mesh route (apply_mesh on a 1 x 1 mesh, NCCL group of one) on layer "
+        f"0's {x.shape[0]} tokens: bitwise moe.apply (output and the three aux values); "
+        f"{ms_mesh:.3f} ms a call against apply's {ms_plain:.3f} ms (CUDA events, 10 calls); "
+        f"{device_line()}")
+    if own_group:
+        dist.destroy_process_group()
+    return dict(ms=ms_mesh, plain_ms=ms_plain)
 
 
 def _olmoe_f32_gate(torch, device, cfg):
@@ -6129,6 +6435,16 @@ def main() -> int:
         olmoe, routing = olmoe_serving(torch, device)
         expert_placement_on_card(torch, device, routing)
         log(f"[done] the MoE phases passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--only", "sharded"]:
+        # the sharded path alone, with threaded sharded serving, from a hash
+        # start: no result lines
+        from repro_torch.graphs.generators import provgen_like
+        from repro_torch.graphs.partition import hash_partition
+
+        g = provgen_like(FULL_N, avg_degree=6.0, seed=11)
+        sharded_full(torch, device, g, hash_partition(g.n, 8, seed=TAPER_SEED))
+        log(f"[done] the sharded path passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     if sys.argv[1:] == ["--only", "gnn"]:
         # the GNN slice's phases alone: no result lines

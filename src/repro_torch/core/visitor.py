@@ -571,6 +571,8 @@ def _sharded_field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray,
     transport = pre.get("_transport")
     if transport is None or transport.group is not group or transport.device != device:
         transport = pre["_transport"] = Transport(group, device)
+    # a caller's poll before each collective (serve/sharded.py::run_agreed)
+    transport.before = pre.get("_before_collective")
     S, rank = transport.size, transport.rank
 
     n, m, N = g.n, g.m, trie.n_nodes

@@ -164,7 +164,9 @@ class Transport:
     NCCL moves CUDA tensors directly.  Gloo moves CPU tensors: a CUDA tensor
     is copied to a pinned host buffer, moved, and copied back (each copy
     synchronous, so a buffer is reused only after its last copy ends); the
-    buffers are kept per shape for the next call.  ``name`` says which."""
+    buffers are kept per shape for the next call.  ``name`` says which.
+    ``before``, when set, is called before each collective (a caller's
+    poll, as threaded sharded serving's agreement)."""
 
     def __init__(self, group, device: torch.device):
         self.group = group
@@ -177,6 +179,7 @@ class Transport:
         self.staged = backend == "gloo" and device.type == "cuda"
         self.name = backend + (" through pinned host buffers" if self.staged else "")
         self._buffers: Dict[Tuple, torch.Tensor] = {}
+        self.before: Optional[Callable[[], None]] = None
 
     def _buffer(self, key, shape, dtype) -> torch.Tensor:
         buf = self._buffers.get((key, tuple(shape), dtype))
@@ -201,12 +204,16 @@ class Transport:
 
     def all_reduce(self, t: torch.Tensor, key: str = "reduce") -> torch.Tensor:
         """The sum of ``t`` over the group's ranks."""
+        if self.before is not None:
+            self.before()
         buf = self._out(key, t)
         dist.all_reduce(buf, group=self.group)
         return self._in(buf)
 
     def all_gather(self, t: torch.Tensor, key: str = "gather") -> torch.Tensor:
         """Every rank's ``t`` (of one shape), stacked in rank order."""
+        if self.before is not None:
+            self.before()
         buf = self._out(key, t)
         if self.staged:
             parts = [self._buffer((key, r), t.shape, t.dtype) for r in range(self.size)]
@@ -222,6 +229,8 @@ class Transport:
         ``batch_isend_irecv``."""
         if not payloads:
             return []
+        if self.before is not None:
+            self.before()
         ops, recvs = [], []
         for r, p in enumerate(payloads, start=1):
             send = self._out(("send", r), p)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -137,7 +137,75 @@ def scatter_sum_csr(values: torch.Tensor, index: torch.Tensor, n: int,
         raise ValueError(f"scatter_sum_csr: a plan of {plan.w.shape[0]} edges into {plan.n} "
                          f"rows, for {E} values into {n}")
     out = segment_spmm_csr(values.reshape(E, math.prod(tail)).contiguous(), plan.csr, plan.w)
-    return out[:n].reshape((n,) + tail)
+    return unflatten_cols(out[:n], tail)
+
+
+def unflatten_cols(out: torch.Tensor, tail: Tuple[int, ...]) -> torch.Tensor:
+    """``out`` (n, F) as ``(n,) + tail``.  A DTensor whose F columns are
+    split over chips in blocks that are not whole ``tail[0]`` slices is
+    gathered over those chips first (a view cannot split them)."""
+    placements = getattr(out, "placements", None)
+    if placements is not None and len(tail) > 1:
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = out.device_mesh
+        cols = [i for i, p in enumerate(placements)
+                if isinstance(p, Shard) and p.dim == 1]
+        if tail[0] % math.prod(mesh.size(i) for i in cols):
+            out = out.redistribute(mesh, [Replicate() if i in cols else p
+                                          for i, p in enumerate(placements)])
+    return out.reshape((out.shape[0],) + tail)
+
+
+def row_local(fn: Callable, rows: torch.Tensor, *row_args, shared=()):
+    """``fn(*row_args, *shared)`` for a computation that is independent row
+    by row over the edges (or nodes) of ``rows`` (a tensor over them, such
+    as an index): ``row_args`` have those rows as their first dim,
+    ``shared`` (trees of tensors: weights) are read whole by every row.
+
+    On tensors, just the call.  On DTensors, each chip runs ``fn`` on its
+    own rows: the row arguments are laid out as ``rows`` is (their rows
+    split where ``rows``' are, replicated elsewhere; a tensor among them
+    is the whole, on every chip), the shared ones replicated, ``fn`` runs
+    on the local tensors, and its output tensors are DTensors of the row
+    layout.  A chip's gradient of a shared tensor
+    is a partial sum along the mesh dims that split the rows.  (DTensor's
+    propagation cannot carry the per-edge products' views and their
+    gradients over split rows; the JAX package's GSPMD plan splits these
+    products by the same rows.)"""
+    placements = getattr(rows, "placements", None)
+    if placements is None:
+        return fn(*row_args, *shared)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.utils._pytree import tree_map
+
+    mesh = rows.device_mesh
+    split = [isinstance(p, Shard) and p.dim == 0 for p in placements]
+    fwd = [Shard(0) if s else Replicate() for s in split]
+    whole = [Replicate()] * len(split)
+    partial = [Partial() if s else Replicate() for s in split]
+
+    def local(lay, grad):
+        def go(a):
+            if not isinstance(a, torch.Tensor):
+                return a
+            if not isinstance(a, DTensor):          # the whole, on every chip
+                a = DTensor.from_local(a, mesh, whole, run_check=False)
+            return a.redistribute(mesh, lay).to_local(grad_placements=grad)
+        return go
+
+    out = fn(*(local(fwd, fwd)(a) for a in row_args),
+             *tree_map(local(whole, partial), tuple(shared)))
+
+    def wrap(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        shape = (rows.shape[0],) + tuple(t.shape[1:])
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        return DTensor.from_local(t, mesh, fwd, run_check=False,
+                                  shape=shape, stride=stride)
+
+    return tree_map(wrap, out)
 
 
 def segment_max(values: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:

@@ -38,7 +38,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn import so3
 from repro_torch.models.gnn.common import (bessel_rbf, edge_geometry, gather, message_plans,
-                                           mlp_apply, mlp_init, scatter_sum,
+                                           mlp_apply, mlp_init, row_local, scatter_sum,
                                            segment_softmax)
 
 
@@ -133,6 +133,41 @@ def _equiv_norm(x, l_max: int, eps: float = 1e-6):
     return torch.cat(outs, dim=-1)
 
 
+def _edge_logits(lp, x_src, h_dst, rbf, Ds, cfg: GNNConfig):
+    """Per edge: the source features rotated into the edge frame, the SO(2)
+    conv ``y`` and the attention logits ``(E, H)``."""
+    L = cfg.l_max
+    x_rot = so3.rotate_coeffs(x_src, Ds, L)            # into edge frame
+    gates = mlp_apply(lp["radial"], rbf)               # (E, 2M+1)
+    y = _so2_conv(lp, x_rot, gates, cfg)
+    # attention logits from the rotated scalar block + destination scalars
+    inv = y[:, :, 0] + h_dst
+    return y, mlp_apply(lp["attn"], inv)               # (E, H)
+
+
+def _edge_messages(y, alpha, Ds, cfg: GNNConfig):
+    """Heads gate channel groups; the messages rotated back to the global
+    frame."""
+    y = y * torch.repeat_interleave(alpha, cfg.d_hidden // cfg.n_heads, dim=1)[:, :, None]
+    return so3.rotate_coeffs(y, Ds, cfg.l_max, transpose=True)
+
+
+def _node_update(lp, h, agg, nmask, cfg: GNNConfig):
+    """The aggregated messages' channel mix, the residual and the
+    equivariant norm, then the gated FFN on the scalar block."""
+    n, C, L = h.shape[0], cfg.d_hidden, cfg.l_max
+    agg = torch.einsum("cd,nds->ncs", lp["out"], agg)
+    h = h + agg
+    h = _equiv_norm(h, L) * nmask[:, None, None]
+    s = h[:, :, 0]
+    f = F.silu(s @ lp["ffn1"]) @ lp["ffn2"]
+    gates_l = torch.sigmoid(s @ lp["ffn_gate"]).reshape(n, L, C)
+    h = torch.cat([h[:, :, :1] + f[:, :, None]]
+                  + [h[:, :, l * l:(l + 1) ** 2] * gates_l[:, l - 1, :, None]
+                     for l in range(1, L + 1)], dim=-1)
+    return h * nmask[:, None, None]
+
+
 def forward(params, batch: Dict, cfg: GNNConfig, n_graphs: int,
             plans: Optional[Dict] = None) -> torch.Tensor:
     """Per-graph energies (per-node without graph_id); ``plans`` is the
@@ -153,33 +188,22 @@ def forward(params, batch: Dict, cfg: GNNConfig, n_graphs: int,
     a, b, g = so3.align_to_z_angles(r)
     Ds = so3.rotation_block_diag(a, b, g, L)
 
-    n_heads = cfg.n_heads
     for lp in params["layers"]:
-        # -- eSCN attention block --
+        # -- eSCN attention block: per edge, then a softmax over each
+        # destination's edges, then per edge again; on DTensors each chip
+        # runs the per-edge and per-node parts on its own rows
+        # (``common.row_local``)
         x_src = gather(h, src)
-        x_rot = so3.rotate_coeffs(x_src, Ds, L)            # into edge frame
-        gates = mlp_apply(lp["radial"], rbf)               # (E, 2M+1)
-        y = _so2_conv(lp, x_rot, gates, cfg)
-        # attention logits from the rotated scalar block + destination scalars
-        inv = y[:, :, 0] + gather(h[:, :, 0], dst)
-        logits = mlp_apply(lp["attn"], inv)                # (E, H)
+        h_dst = gather(h[:, :, 0], dst)
+        y, logits = row_local(
+            lambda xs, hd, rb, *D_lp: _edge_logits(D_lp[-1], xs, hd, rb, D_lp[:-1], cfg),
+            dst, x_src, h_dst, rbf, *Ds, shared=(lp,))
         alpha = segment_softmax(logits, dst, n, emask, plans["messages"])  # (E, H)
-        # heads gate channel groups
-        y = y * torch.repeat_interleave(alpha, C // n_heads, dim=1)[:, :, None]
-        msg = so3.rotate_coeffs(y, Ds, L, transpose=True)  # back to global
+        msg = row_local(lambda yy, al, *D: _edge_messages(yy, al, D, cfg),
+                        dst, y, alpha, *Ds)
         agg = scatter_sum(msg, dst, n, emask, plans["messages"])
-        agg = torch.einsum("cd,nds->ncs", lp["out"], agg)
-        h = h + agg
-        h = _equiv_norm(h, L) * nmask[:, None, None]
-
-        # -- gated FFN on the scalar block --
-        s = h[:, :, 0]
-        f = F.silu(s @ lp["ffn1"]) @ lp["ffn2"]
-        gates_l = torch.sigmoid(s @ lp["ffn_gate"]).reshape(n, L, C)
-        h = torch.cat([h[:, :, :1] + f[:, :, None]]
-                      + [h[:, :, l * l:(l + 1) ** 2] * gates_l[:, l - 1, :, None]
-                         for l in range(1, L + 1)], dim=-1)
-        h = h * nmask[:, None, None]
+        h = row_local(lambda hh, a, nm, lay: _node_update(lay, hh, a, nm, cfg),
+                      nmask, h, agg, nmask, shared=(lp,))
 
     atom_e = mlp_apply(params["readout"], h[:, :, 0])[:, 0] * nmask
     gid = batch.get("graph_id")

@@ -78,7 +78,15 @@ def loss_fn(params, batch: Dict, cfg: GNNConfig, csr: Optional[EdgeCSR] = None):
     logits = forward(params, batch, cfg, csr).to(torch.float32)
     labels = batch["targets"].long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    # the gold logit as a masked sum over the classes (exact: one term and
+    # zeros), which a DTensor splits over class-sharded logits
+    from torch.distributed.tensor import DTensor, Replicate
+
+    classes = torch.arange(logits.shape[-1], device=labels.device)
+    if isinstance(labels, DTensor):
+        mesh = labels.device_mesh
+        classes = DTensor.from_local(classes, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    gold = torch.where(labels[:, None] == classes, logits, 0.0).sum(-1)
     mask = batch["node_mask"].to(torch.float32)
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = torch.sum((logz - gold) * mask) / denom

@@ -31,7 +31,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn import so3
 from repro_torch.models.gnn.common import (bessel_rbf, edge_geometry, gather, message_plans,
-                                           mlp_apply, mlp_init, scatter_sum)
+                                           mlp_apply, mlp_init, row_local, scatter_sum)
 
 
 @lru_cache(maxsize=None)
@@ -74,33 +74,48 @@ def _cg(l1: int, l2: int, l3: int, device) -> torch.Tensor:
     return torch.as_tensor(so3.clebsch_gordan_real(l1, l2, l3), device=device).to(torch.float32)
 
 
-def _interaction(lp, h, Y, rbf_w, src, dst, emask, cfg: GNNConfig, plan=None):
-    """One tensor-product message-passing layer."""
-    n, C, _ = h.shape
-    L = cfg.l_max
+def _messages(radial, h_src, Y, rbf_w, L: int) -> torch.Tensor:
+    """Each edge's tensor-product message ``(E, C, (L+1)²)``: each l3 block
+    sums its paths' terms in path order, from the first."""
+    C = h_src.shape[1]
     paths = _paths(L)
-    w = mlp_apply(lp["radial"], rbf_w).reshape(-1, len(paths), C)  # (E, P, C)
-    h_src = gather(h, src)                                          # (E, C, S)
-    # each l3 block sums its paths' terms in path order, from the first
+    w = mlp_apply(radial, rbf_w).reshape(-1, len(paths), C)        # (E, P, C)
     blocks: List = [None] * (L + 1)
     for pi, (l1, l2, l3) in enumerate(paths):
         a = h_src[:, :, l1 * l1:(l1 + 1) ** 2]                      # (E, C, 2l1+1)
         b = Y[:, l2 * l2:(l2 + 1) ** 2]                             # (E, 2l2+1)
-        out = torch.einsum("ijk,eci,ej->eck", _cg(l1, l2, l3, h.device), a, b)
+        out = torch.einsum("ijk,eci,ej->eck", _cg(l1, l2, l3, h_src.device), a, b)
         term = out * w[:, pi, :, None]
         blocks[l3] = term if blocks[l3] is None else blocks[l3] + term
-    msg = torch.cat(blocks, dim=-1)
-    agg = scatter_sum(msg, dst, n, emask, plan)
+    return torch.cat(blocks, dim=-1)
 
-    # self-interaction per l + gate nonlinearity
-    mixed = [torch.einsum("cd,ncs->nds", lp["lin"][f"l{l}"], agg[:, :, l * l:(l + 1) ** 2])
+
+def _node_update(h, agg, lin, gate, L: int) -> torch.Tensor:
+    """Self-interaction per l, the gate nonlinearity and the residual."""
+    n, C, _ = h.shape
+    mixed = [torch.einsum("cd,ncs->nds", lin[f"l{l}"], agg[:, :, l * l:(l + 1) ** 2])
              for l in range(L + 1)]
     scal = F.silu(mixed[0][:, :, 0])
     out = [scal[:, :, None]]
     if L:
-        gates = torch.sigmoid(scal @ lp["gate"]).reshape(n, L, C)   # (N, L, C)
+        gates = torch.sigmoid(scal @ gate).reshape(n, L, C)        # (N, L, C)
         out += [mixed[l] * gates[:, l - 1, :, None] for l in range(1, L + 1)]
     return h + torch.cat(out, dim=-1)  # residual
+
+
+def _interaction(lp, h, Y, rbf_w, src, dst, emask, cfg: GNNConfig, plan=None, nodes=None):
+    """One tensor-product message-passing layer; on DTensors the messages
+    run on each chip's edges and the update on its nodes (``nodes``: a
+    tensor over them, ``h`` when omitted; ``common.row_local``)."""
+    n = h.shape[0]
+    L = cfg.l_max
+    h_src = gather(h, src)                                          # (E, C, S)
+    msg = row_local(lambda hs, y, rb, radial: _messages(radial, hs, y, rb, L),
+                    dst, h_src, Y, rbf_w, shared=(lp["radial"],))
+    agg = scatter_sum(msg, dst, n, emask, plan)
+    return row_local(lambda hh, a, lin, gate: _node_update(hh, a, lin, gate, L),
+                     h if nodes is None else nodes, h, agg,
+                     shared=(lp["lin"], lp.get("gate")))
 
 
 def forward(params, batch: Dict, cfg: GNNConfig, n_graphs: int,
@@ -125,7 +140,7 @@ def forward(params, batch: Dict, cfg: GNNConfig, n_graphs: int,
         plans = message_plans(batch, emask, n_graphs)
 
     for lp in params["layers"]:
-        h = _interaction(lp, h, Y, rbf, src, dst, emask, cfg, plans["messages"])
+        h = _interaction(lp, h, Y, rbf, src, dst, emask, cfg, plans["messages"], nmask)
         h = h * nmask[:, None, None]
 
     atom_e = mlp_apply(params["readout"], h[:, :, 0])[:, 0] * nmask

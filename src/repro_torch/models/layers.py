@@ -112,7 +112,14 @@ def attention(
     keys padded to whole chunks, each chunk's mask built in its step, masked
     scores -1e30 (so, as there, a row with no valid key averages V over the
     padded chunks rather than giving 0; decode never makes such a row).
-    Scores take O(S_q * chunk) memory per step."""
+    Scores take O(S_q * chunk) memory per step.
+
+    On DTensors whose heads are sharded (a decode step on a mesh), each
+    rank runs this on its own batch rows and heads (:func:`_attention_local`)."""
+    if _heads_sharded(q):
+        return _attention_local(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset, chunk=chunk, kv_len=kv_len,
+                                window_dynamic=window_dynamic)
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     G = H // KV
@@ -154,6 +161,41 @@ def attention(
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _heads_sharded(q) -> bool:
+    """True for a DTensor ``q`` (B, S, H, D) sharded on its head dim."""
+    placements = getattr(q, "placements", None)
+    return placements is not None and any(
+        getattr(p, "dim", None) == 2 for p in placements)
+
+
+def _attention_local(q, k, v, *, kv_len=None, **kw):
+    """:func:`attention` of DTensors, each rank on its own shard.
+
+    The einsums' batch dims are the batch and the KV heads; merged into
+    one, a batch sharded over the data axes and heads sharded over
+    ``model`` make a strided shard that DTensor's ``bmm`` cannot take.
+    Instead ``k`` and ``v`` are laid out as ``q`` is (batch rows over the
+    data axes, KV heads over the axis that splits the query heads, which
+    ``q``'s constraint keeps to whole KV groups: a cache sharded over its
+    sequence moves by one all-to-all), each rank runs the plain attention
+    on its rows and heads, and the outputs keep ``q``'s layout."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, pl = q.device_mesh, q.placements
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in pl]
+    kl = k.redistribute(mesh, pl).to_local()
+    vl = v.redistribute(mesh, pl).to_local()
+    if kv_len is not None:
+        if not isinstance(kv_len, DTensor):
+            kv_len = DTensor.from_local(kv_len, mesh, [Replicate()] * len(pl),
+                                        run_check=False)
+        kv_len = kv_len.redistribute(mesh, rows).to_local()
+    out = attention(q.to_local(), kl, vl, kv_len=kv_len, **kw)
+    return DTensor.from_local(out, mesh, pl, run_check=False,
+                              shape=q.shape, stride=q.stride())
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

@@ -19,24 +19,34 @@ Repeatability on the card:
   contributions left to right in expert-id order, the order the JAX
   package's scatter-add takes on the CPU, with no atomics.
 
-Two execution paths, as in the JAX package:
+Three execution paths:
 
 * :func:`apply` — the plain path on one device;
-* :func:`apply_sharded` — expert parallelism over the ranks of a process
-  group (``launch/mesh.py::Transport``): every rank holds all tokens and
-  ``E / n_ranks`` experts, routes against the whole router, runs its own
-  experts on the assignments that hit them and contributes a partial
-  ``(T, d)`` output; one ``all_reduce`` completes the combine (the JAX
-  package's ``psum`` over ``model``).
+* :func:`apply_mesh` — the JAX package's ``apply_sharded``: expert
+  parallelism over a ``DeviceMesh``'s ``model`` axis, on DTensors.  Tokens
+  are sharded over the rules' ``batch`` axes and replicated over
+  ``model``, expert weights sharded over ``model`` on their first
+  dimension; each model shard routes its data row's tokens against the
+  whole router, runs its own experts on the assignments that hit them at
+  the row's capacity ``C(T_loc)``, and one all-reduce over ``model``
+  completes the combine (the JAX package's ``psum``); the router losses
+  and the dropped fraction are taken per data row and averaged;
+* :func:`apply_sharded` — the same expert parallelism over the ranks of a
+  process group (``launch/mesh.py::Transport``): every rank holds all
+  tokens and ``E / n_ranks`` experts, capacity counted over all T.
 
-:func:`apply_auto` takes the sharded path when it is given a transport and
-the experts divide over its ranks (the JAX package reads a mesh context).
+:func:`apply_auto` takes :func:`apply_sharded` when it is given a
+transport whose ranks divide the experts, else :func:`apply_mesh` inside
+``distributed/sharding.py::activation_sharding`` when the mesh has a
+``model`` axis that divides them (as the JAX package's), else
+:func:`apply`.
 
 Entry points:
   init(d_model, cfg, dtype, seed, device)       -> params
   route(params, x, cfg)                         -> Routing
   kept(experts, cfg, capacity)                  -> (T, K) bool
   apply(params, x, cfg, capacity)               -> (out, aux)
+  apply_mesh(params, x, cfg, mesh, rules, ...)  -> (out, aux)
   apply_sharded(params, x, cfg, transport, ...) -> (out, aux)
   apply_auto(params, x, cfg, transport)         -> (out, aux)
 """
@@ -49,6 +59,7 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import _ACT_CTX, mesh_axis_sizes
 from repro_torch.models.layers import swiglu
 
 
@@ -247,10 +258,145 @@ def apply_sharded(params: Dict, x: torch.Tensor, cfg: MoEConfig, transport,
                  "moe_dropped_frac": 1.0 - kept[0] / (T * cfg.top_k)}
 
 
+def _mesh_locals(mesh, rules, x: torch.Tensor):
+    """``(batch_axes, layouts)`` of the mesh route: ``batch_axes`` the
+    rules' ``batch`` axes that divide ``x``'s rows (the divisibility
+    fallback of ``constrain``); ``layouts`` the placements of ``x``, the
+    experts and the router (each with its gradient's), of the partial
+    outputs and of the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    batch = rules.spec(("batch", None), shape=tuple(x.shape), mesh=mesh)
+    batch_axes = () if not batch or batch[0] is None else (
+        (batch[0],) if isinstance(batch[0], str) else tuple(batch[0]))
+    names = list(mesh_axis_sizes(mesh))
+
+    def pl(shard_batch, shard_model, partial_rest):
+        out = []
+        for a in names:
+            if a in batch_axes and shard_batch is not None:
+                out.append(shard_batch)
+            elif a == "model" and shard_model is not None:
+                out.append(shard_model)
+            else:
+                out.append(Partial() if partial_rest else Replicate())
+        return out
+
+    return batch_axes, dict(
+        # forward layouts, then the layouts of their gradients: what a
+        # rank computes from its own rows or experts is a partial sum
+        # along the mesh dims it is replicated over
+        x=(pl(Shard(0), None, False), pl(Shard(0), Partial(), False)),
+        experts=(pl(None, Shard(0), False), pl(Partial(), Shard(0), True)),
+        router=(pl(None, None, False), pl(None, None, True)),
+        partial=pl(Shard(0), Partial(), False),
+        rows=pl(Shard(0), None, False))
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity forward; the gradient times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, t, scale):
+        ctx.scale = scale
+        return t.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def apply_mesh(params: Dict, x: torch.Tensor, cfg: MoEConfig, mesh, rules,
+               capacity: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+    """Expert-parallel :func:`apply` over ``mesh``'s ``model`` axis (module
+    doc), the JAX package's ``apply_sharded(params, x, cfg, mesh, rules)``.
+
+    ``x`` (T, d) and the weights are DTensors on ``mesh`` (redistributed to
+    the route's layouts) or tensors, each rank's copy of the whole (the
+    output is then gathered whole).
+    Capacity is ``max(1, ceil(T_loc·K/E·capacity_factor))`` for a data
+    row's ``T_loc`` tokens.  The output keeps ``x``'s rows sharded over the
+    batch axes; the three aux scalars are the data rows' mean."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    sizes = mesh_axis_sizes(mesh)
+    E, K = cfg.n_experts, cfg.top_k
+    n_model = sizes["model"]
+    if E % n_model:
+        raise ValueError(f"{E} experts do not divide over {n_model} model shards")
+    E_loc = E // n_model
+    batch_axes, pl = _mesh_locals(mesh, rules, x)
+    n_batch = math.prod(sizes[a] for a in batch_axes)
+    T = x.shape[0]
+    T_loc = T // n_batch
+    C = capacity_of(T_loc, cfg, capacity)
+    plain_in = not isinstance(x, DTensor)
+
+    rep = [Replicate()] * len(sizes)
+
+    def local(t, layout):
+        fwd, grad = layout
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, rep, run_check=False)
+        return t.redistribute(mesh, fwd).to_local(grad_placements=grad)
+
+    xl = local(x, pl["x"])
+    gate, up, down = (local(params[k], pl["experts"]) for k in ("gate", "up", "down"))
+    router = {"router": {"w": local(params["router"]["w"], pl["router"])}}
+    me = mesh.get_local_rank("model")
+
+    r = route(router, xl, cfg)
+    lid = r.experts - me * E_loc
+    lid = torch.where((lid >= 0) & (lid < E_loc), lid, E_loc)
+    partial, keep = _experts(xl, lid, r.weights, E_loc, C, gate, up, down)
+    aux, z = _router_losses(r, cfg)
+
+    # the combine: one all-reduce over model
+    out = DTensor.from_local(partial, mesh, pl["partial"], run_check=False,
+                             shape=(T, partial.shape[1]),
+                             stride=(partial.shape[1], 1))
+    out = out.redistribute(mesh, pl["rows"])
+    # per data row: its aux and z, its kept count summed over model.  The
+    # losses are the same on every model shard of a row, and each shard
+    # gets their whole gradient; the router's and x's gradients are summed
+    # over model, so each shard passes back 1 / n_model of it (the JAX
+    # package's shard_map divides an unmapped output's cotangent alike)
+    losses = _GradScale.apply(torch.stack([aux, z]), 1.0 / n_model)
+    rows = DTensor.from_local(losses[None], mesh, pl["rows"],
+                              run_check=False, shape=(n_batch, 2), stride=(2, 1))
+    kept = DTensor.from_local(keep.sum().float().reshape(1), mesh, pl["partial"],
+                              run_check=False, shape=(n_batch,), stride=(1,))
+    mean = rows.mean(dim=0).redistribute(mesh, rep)
+    dropped = (1.0 - kept.redistribute(mesh, pl["rows"]) / (T_loc * K)).mean()
+    dropped = dropped.redistribute(mesh, rep)
+    if plain_in:
+        out = out.full_tensor()
+        mean, dropped = mean.full_tensor(), dropped.full_tensor()
+    sp = params.get("shared")
+    if sp is not None and not plain_in:
+        # weights given whole on every chip, beside DTensor tokens
+        sp = {k: w if isinstance(w, DTensor) else DTensor.from_local(w, mesh, rep, run_check=False)
+              for k, w in sp.items()}
+    out = _shared({"shared": sp}, x, out)
+    return out, {"moe_aux_loss": mean[0], "moe_z_loss": mean[1],
+                 "moe_dropped_frac": dropped}
+
+
 def apply_auto(params: Dict, x: torch.Tensor, cfg: MoEConfig,
                transport=None) -> Tuple[torch.Tensor, Dict]:
     """:func:`apply_sharded` over ``transport`` when one is given and the
-    experts divide over its ranks, else :func:`apply`."""
-    if transport is not None and cfg.n_experts % transport.size == 0:
-        return apply_sharded(params, x, cfg, transport)
+    experts divide over its ranks; else :func:`apply_mesh` when an
+    ``activation_sharding`` mesh with a ``model`` axis that divides the
+    experts is active; else :func:`apply`."""
+    if transport is not None:
+        if cfg.n_experts % transport.size == 0:
+            return apply_sharded(params, x, cfg, transport)
+        return apply(params, x, cfg)
+    ctx = _ACT_CTX.get()
+    if ctx is not None:
+        mesh, rules = ctx
+        sizes = mesh_axis_sizes(mesh)
+        if ("model" in sizes and cfg.n_experts % sizes["model"] == 0
+                and hasattr(mesh, "mesh_dim_names")):
+            return apply_mesh(params, x, cfg, mesh, rules)
     return apply(params, x, cfg)

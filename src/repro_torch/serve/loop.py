@@ -77,14 +77,19 @@ pass ``"cpu"``).  ``TaperConfig.field_backend=None`` resolves to the rung
 of that device when the loop is built (``cuda`` on a CUDA device,
 ``torch`` on the CPU), so the ladder always starts from a named rung.
 
-Sharded serving: under ``cuda_sharded``/``torch_sharded`` every rank of the
-field's process group (``launch/mesh.py``) drives the same loop over the
-same request and mutation stream (SPMD), and every rank runs each
-invocation in full.  That holds only under inline drive
-(``overlap_invocations=False`` and :meth:`ServingLoop.pump`), where the
-stream alone decides every step; threaded sharded serving across ranks,
-where the ranks' invocation boundaries would have to be agreed, comes with
-the cluster slice.
+Sharded serving across the S ranks of the field's process group
+(``launch/mesh.py``, under ``cuda_sharded``/``torch_sharded``) runs two
+ways.  Threaded (:meth:`ServingLoop.start`, ``overlap_invocations=True``):
+one loop serves, on rank 0, and ranks 1..S-1 run
+:class:`~repro_torch.serve.sharded.ShardFollower`, which applies rank 0's
+ingest groups, invocation starts and commits in rank 0's order while every
+rank carries its shard of each invocation's field; the ranks agree on how
+each run starts and ends, a follower's ``KernelError`` or failed upload
+reaches rank 0, which decides for all, and each commit's partition is rank
+0's bit for bit (``serve/sharded.py``).  Inline (``overlap_invocations=
+False`` and :meth:`ServingLoop.pump` on every rank): each rank drives the
+same loop over the same request and mutation stream (SPMD), the stream
+alone deciding every step.
 """
 from __future__ import annotations
 
@@ -124,6 +129,7 @@ from repro_torch.serve.ingest import IngestQueue
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.queueing import Rejection, RequestQueue, ServeTicket
 from repro_torch.serve.replication import FencedWrite, commit_payload
+from repro_torch.serve.sharded import RankLeader, digest, field_group, ranks_of
 from repro_torch.serve.snapshot import (
     MutationJournal,
     RestoreResult,
@@ -187,8 +193,15 @@ class ServeLoopConfig:
     faults: Optional[FaultInjector] = None
     #: how long stop() waits for the workers, an in-flight or abandoned
     #: invocation and the snapshot writer; past it the run is told to
-    #: abort and stop() raises TimeoutError
+    #: abort and stop() raises TimeoutError.  Across ranks, also how long a
+    #: follower waits to hear from rank 0, and every control collective
     stop_timeout_s: float = 300.0
+    #: keep the schedule of a threaded loop (``ServingLoop.schedule``: each
+    #: applied ingest drain, invocation start, commit with its partition,
+    #: and abandoned run, in order; what rank 0 sends its followers, and
+    #: what ``serve.sharded.replay_schedule`` replays); a follower keeps
+    #: each committed partition
+    record_schedule: bool = False
     # -- observability --------------------------------------------------------
     #: shared tracing/flight-recorder/registry bundle; None builds one from
     #: ``trace_sample_rate`` (or the shared disabled bundle at rate 0, the
@@ -309,6 +322,11 @@ class ServingLoop:
         self._abandoned: List[threading.Thread] = []
         #: set by restore(); None on a fresh loop
         self.restore_result: Optional[RestoreResult] = None
+        #: rank 0's side of threaded sharded serving across ranks (start())
+        self.rank_leader: Optional[RankLeader] = None
+        self._ranks: Optional[RankLeader] = None
+        #: with ``record_schedule``: the schedule (ServeLoopConfig)
+        self.schedule: Optional[List[Dict]] = [] if self.cfg.record_schedule else None
         # -- replication (None = single-node, zero behaviour change) -----------
         #: cluster hub this loop publishes to as primary (attach_replication)
         self._replication = None
@@ -615,6 +633,17 @@ class ServingLoop:
         loop inline — no threads — by calling :meth:`pump` directly."""
         if self._worker is not None:
             raise RuntimeError("serving loop already started")
+        if ranks_of(self.ot) > 1:
+            import torch.distributed as dist
+
+            rank = dist.get_rank(field_group(self.ot))
+            if not self.cfg.overlap_invocations:
+                raise ValueError("stop-the-world sharded serving across ranks runs "
+                                 "inline: pump() on every rank")
+            if rank != 0:
+                raise ValueError(f"rank {rank} of the field's group follows rank 0: "
+                                 "run serve.sharded.ShardFollower")
+            self._ranks = self.rank_leader = RankLeader(self.ot, self.cfg.stop_timeout_s)
         self._stop.clear()
         self._worker = threading.Thread(
             target=self._run, name="serve-worker", daemon=True)
@@ -638,18 +667,24 @@ class ServingLoop:
         is raised."""
         deadline = time.monotonic() + self.cfg.stop_timeout_s
         self._stop.set()
-        for t in self._secondaries:
-            self._join(t, deadline, "a serve worker")
-        self._secondaries = []
-        if self._worker is not None:
-            self._join(self._worker, deadline, "the serve worker")
-            self._worker = None
-        self._finish_inflight(deadline)
-        if drain:
-            while self._pump_once(wait_s=0.0, allow_trigger=False):
-                pass
-            if not self._zombies_active():
-                self._apply_ingest()
+        try:
+            for t in self._secondaries:
+                self._join(t, deadline, "a serve worker")
+            self._secondaries = []
+            if self._worker is not None:
+                self._join(self._worker, deadline, "the serve worker")
+                self._worker = None
+            self._finish_inflight(deadline)
+            if drain:
+                while self._pump_once(wait_s=0.0, allow_trigger=False):
+                    pass
+                if not self._zombies_active():
+                    self._apply_ingest()
+        finally:
+            if self._ranks is not None:
+                # every message is out, then the followers' stop
+                ranks, self._ranks = self._ranks, None
+                ranks.close(deadline)
         if self._snapshotter is not None:
             self._snapshotter.close(
                 timeout=max(0.0, deadline - time.monotonic()))
@@ -753,6 +788,8 @@ class ServingLoop:
         return served
 
     def _pump_once(self, wait_s: float, allow_trigger: bool) -> int:
+        if self._ranks is not None:
+            self._rank_reports()
         if self._replication is not None:
             # liveness beacon; silently lost from a stale epoch or across a
             # partition, which is what starts the coordinator's failover clock
@@ -894,6 +931,11 @@ class ServingLoop:
             return
         self._pending = pending
         if self.cfg.overlap_invocations:
+            if self._scheduled:
+                self._send("start", reason=pending.reason, tick=pending.tick,
+                           n_snapshot=pending.n_snapshot, part_snapshot=pending.part_snapshot,
+                           workload=pending.workload, frontier=pending.frontier,
+                           dirty_snapshot=pending.dirty_snapshot, version=int(self.g.version))
             self._invocation_done = threading.Event()
             self._abort_flag = threading.Event()
             self._invocation_error = None   # only the latest run's outcome
@@ -953,11 +995,20 @@ class ServingLoop:
                          abort: threading.Event,
                          done: threading.Event) -> None:
         try:
-            if self._faults is not None:
-                self._faults.fire(SITE_INVOCATION)
-            if abort.is_set():
-                raise InvocationAborted("aborted before start")
-            self.ot.run_invocation(pending, should_abort=abort.is_set)
+            pre = None
+            try:
+                if self._faults is not None:
+                    self._faults.fire(SITE_INVOCATION)
+                if abort.is_set():
+                    raise InvocationAborted("aborted before start")
+            except BaseException as exc:
+                if self._ranks is None:
+                    raise
+                pre = exc       # every rank hears of it before the run
+            if self._ranks is not None:
+                self._ranks.run_invocation(self.ot, pending, abort.is_set, pre)
+            else:
+                self.ot.run_invocation(pending, should_abort=abort.is_set)
         except InvocationAborted:
             # the watchdog already did the bookkeeping when it abandoned us;
             # exiting promptly is this thread's whole job now
@@ -985,14 +1036,17 @@ class ServingLoop:
         wall = time.perf_counter() - self._invocation_t0
         committed = False
         fenced = False
+        redealt = False
         if self._pending is not None and self._pending.report is not None:
             if self._fenced_commit_guard():
                 # quiesce only for the pointer swap: secondaries finish
                 # their in-flight batch, the commit rebinds ot.part (plus
                 # the shard re-deal bookkeeping), the gate reopens
+                deals = self.ot.taper._redeal_counter
                 with self._inv_span("invocation.commit"):
                     with self._quiesced():
                         self.ot.commit_invocation(self._pending)
+                redealt = self.ot.taper._redeal_counter != deals
                 self.metrics.record_invocation(wall, overlapped=True)
                 self._inv_wall_ewma = 0.7 * self._inv_wall_ewma + 0.3 * wall
                 committed = True
@@ -1002,12 +1056,18 @@ class ServingLoop:
         self._inflight = None
         self._requests_since_invocation = 0
         if committed:
+            backend = self.ot.taper.config.field_backend
             self._note_invocation_success()
+            then = self.ot.taper.config.field_backend
             # the commit may have re-dealt the shard map along the enhanced
             # partition (shard_map_source="partition"); re-pack and upload
             # now, on the worker between batches, so the next overlapped
             # invocation starts from a warm re-dealt layout
             self._warm_devices()
+            if self._scheduled:
+                # the followers commit under the run's rung, upload under the next
+                self._send("commit", backend=backend, digest=digest(self.ot.part),
+                           part=self.ot.part, then=then, redealt=redealt)
             self._publish_commit()
             self._invocation_span.end(committed=True, wall_s=wall)
             self._clear_invocation_trace()
@@ -1023,6 +1083,8 @@ class ServingLoop:
                 # a fenced commit is the fence working, not a device fault —
                 # it must not walk the backend ladder
                 self._note_invocation_failure()
+            if self._scheduled:
+                self._send("abort")
 
     def _check_watchdog(self) -> None:
         """Abort-and-abandon an overlapped run that blew its timeout.
@@ -1055,6 +1117,33 @@ class ServingLoop:
         # fresh event: the zombie holds (and will set) the old one
         self._invocation_done = threading.Event()
         self._note_invocation_failure()
+        if self._scheduled:
+            # the followers' runs end at the same abort poll as this one
+            self._send("abort")
+
+    # -- threaded sharded serving across ranks (rank 0) ------------------------
+    @property
+    def _scheduled(self) -> bool:
+        return self._ranks is not None or self.schedule is not None
+
+    def _send(self, kind: str, backend: Optional[str] = None, part=None, **body) -> None:
+        """One step of the schedule: kept (``record_schedule``, with a
+        commit's partition) and sent to the followers."""
+        msg = dict(kind=kind, backend=backend or self.ot.taper.config.field_backend, **body)
+        if self.schedule is not None:
+            self.schedule.append(dict(msg, part=None if part is None else part.copy()))
+        if self._ranks is not None:
+            self._ranks.send(msg)
+
+    def _rank_reports(self) -> None:
+        """What the followers sent back: a failed control broadcast is raised
+        here, and each follower upload failure rank 0 learned at an
+        invocation start counts as rank 0's own."""
+        if self._ranks.error is not None:
+            raise self._ranks.error
+        for _ in range(self._ranks.take_upload_failures()):
+            self.metrics.record_upload_failure()
+            self._note_invocation_failure()
 
     def _zombies_active(self) -> bool:
         if self._abandoned:
@@ -1153,6 +1242,7 @@ class ServingLoop:
 
     def _apply_ingest_locked(self) -> None:
         applied = 0
+        sent: List[Dict] = []
         for merged, members in self.ingest.drain_groups():
             ing_ctx = (self.obs.tracer.new_trace() if self._obs_on
                        else NOOP_TRACE)
@@ -1207,6 +1297,9 @@ class ServingLoop:
                     gseq, mode, flags if flags is not None
                     else [True] * len(members))
             self._applied_seq = gseq
+            sent.append(dict(mode=mode, merged=merged if mode == "merged" else None,
+                             members=members if mode != "merged" else None,
+                             flags=flags))
             if self._replication is not None:
                 try:
                     self._replication.publish_group(
@@ -1221,6 +1314,9 @@ class ServingLoop:
                     # journal tail, so only the push is skipped
                     self._note_fenced(exc)
             ing_span.end(seq=gseq, mode=mode)
+        if self._scheduled and sent:
+            # before this rank's upload: the followers apply beside it
+            self._send("ingest", groups=sent, version=int(self.g.version))
         if applied:
             self._warm_devices()
 
@@ -1246,23 +1342,26 @@ class ServingLoop:
     def _warm_devices_inner(self) -> None:
         if self._faults is not None:
             self._faults.fire(SITE_SHARD_UPLOAD)
-        import torch.distributed as dist
+        warm_shards(self.ot)
 
-        from repro_torch.core.visitor import _sharded_device_arrays
-        from repro_torch.launch.mesh import make_smoke_group
 
-        taper = self.ot.taper
-        pre = taper._pre
-        # the field's process group (the one-rank group when none is set,
-        # as the sharded field itself would make): S and this rank from it
-        group = pre.get("_group")
-        if group is None:
-            group = pre["_group"] = make_smoke_group(taper.device)
-        n_shards, rank = dist.get_world_size(group), dist.get_rank(group)
-        token, order = pre.get("_shard_order") or ("stripe", None)
-        sp = self.g.vm_packing_sharded(
-            n_shards, cnt=self.g.cached_neighbor_label_counts(),
-            order=order, order_token=token)
-        _sharded_device_arrays(
-            sp, pre, rank, taper.device, taper.config.halo_exchange,
-            plain=taper.config.field_backend != "cuda_sharded")
+def warm_shards(ot: OnlineTaper) -> None:
+    """Pack ``ot``'s graph for its sharded field and upload this rank's
+    shard (only its dirty slices when the packing was patched in place)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.visitor import _sharded_device_arrays
+
+    taper = ot.taper
+    pre = taper._pre
+    # the field's process group (the one-rank group when none is set, as
+    # the sharded field itself would make): S and this rank from it
+    group = field_group(ot)
+    n_shards, rank = dist.get_world_size(group), dist.get_rank(group)
+    token, order = pre.get("_shard_order") or ("stripe", None)
+    sp = ot.g.vm_packing_sharded(
+        n_shards, cnt=ot.g.cached_neighbor_label_counts(),
+        order=order, order_token=token)
+    _sharded_device_arrays(
+        sp, pre, rank, taper.device, taper.config.halo_exchange,
+        plain=taper.config.field_backend != "cuda_sharded")

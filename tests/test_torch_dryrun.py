@@ -3,9 +3,12 @@
 subprocess, so its fake process group never meets another test's group in
 an xdist worker: ``python -m repro_torch.launch.dryrun`` over the TAPER
 cell, a DLRM cell and a GNN cell, each record ``ok`` with its argument
-bytes the local shards' that the plan's placements give; and the
-collective accounting of one DTensor product, against bytes worked out by
-hand."""
+bytes the local shards' that the plan's placements give; one cell of each
+group that DTensor could not run before the MoE mesh route, the decode
+attention's per-shard route, the GNNs' per-row blocks and the GCN's
+masked gold logit, on the mesh where it failed (the multi-pod one, 2 x 16
+x 16, where that was the one); and the collective accounting of one
+DTensor product, against bytes worked out by hand."""
 import json
 import math
 import os
@@ -20,6 +23,12 @@ from repro_torch.utils import tree
 
 ROOT = Path(__file__).resolve().parents[1]
 CELLS = [("taper_paper", "refine_step"), ("dlrm-rm2", "serve_p99"), ("gin-tu", "ogb_products")]
+#: (arch, shape, mesh): a cell of each repaired group, on the mesh where it failed
+REPAIRED = [("olmoe-1b-7b", "train_4k", "single"), ("olmoe-1b-7b", "decode_32k", "single"),
+            ("nequip", "molecule", "single"), ("equiformer-v2", "full_graph_sm", "multi"),
+            ("gcn-cora", "ogb_products", "multi")]
+MESH_SIZES = {"single": {"data": 16, "model": 16},
+              "multi": {"pod": 2, "data": 16, "model": 16}}
 
 PRODUCT = r"""
 import json, torch, torch.distributed as dist
@@ -54,8 +63,7 @@ def _env():
     return env
 
 
-def _local_bytes(plan) -> int:
-    sizes = {"data": 16, "model": 16}
+def _local_bytes(plan, sizes=MESH_SIZES["single"]) -> int:
     total = 0
     for leaf, sh in zip(tree.leaves(plan.args), tree.leaves(plan.in_shardings)):
         split = 1
@@ -75,19 +83,56 @@ def test_dryrun_cells_single_pod(tmp_path):
     logs = [p.communicate(timeout=300)[0] for p in procs]
     for (arch, shape), p, log in zip(CELLS, procs, logs):
         assert p.returncode == 0, log[-3000:]
-        rec = json.loads((tmp_path / f"{arch}__{shape}__single.json").read_text())
-        assert rec["status"] == "ok" and rec["mesh"] == "single"
-        plan = build_cell(arch, shape, axis_mesh(data=16, model=16))
-        assert rec["meta"] == plan.meta
-        assert rec["memory_analysis"]["argument_size_in_bytes"] == _local_bytes(plan)
-        roof = rec["roofline"]
-        assert roof["n_chips"] == 256 and roof["step_time_s"] > 0
-        assert roof["memory_s"] == pytest.approx(
-            rec["cost_analysis"]["compulsory bytes"] / 3.35e12)
-        assert rec["hardware"]["hbm_bytes_per_s"] == 3.35e12
+        _check_record(tmp_path, arch, shape, "single")
     taper = json.loads((tmp_path / "taper_paper__refine_step__single.json").read_text())
     # the step gathers its sharded edge and vertex arrays whole on every chip
     assert taper["collectives"]["count_by_op"]["all-gather"] >= 4
+
+
+def _check_record(out_dir, arch, shape, mesh):
+    rec = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json").read_text())
+    assert rec["status"] == "ok" and rec["mesh"] == mesh, rec.get("error")
+    sizes = MESH_SIZES[mesh]
+    plan = build_cell(arch, shape, axis_mesh(**sizes))
+    assert rec["meta"] == plan.meta
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == _local_bytes(plan, sizes)
+    roof = rec["roofline"]
+    assert roof["n_chips"] == math.prod(sizes.values()) and roof["step_time_s"] > 0
+    assert roof["memory_s"] == pytest.approx(
+        rec["cost_analysis"]["compulsory bytes"] / 3.35e12)
+    assert rec["hardware"]["hbm_bytes_per_s"] == 3.35e12
+    return rec
+
+
+@pytest.fixture(scope="module")
+def repaired(tmp_path_factory):
+    """The repaired cells' dry-runs, all started at once: (out dir, logs)."""
+    out = tmp_path_factory.mktemp("dryrun_repaired")
+    procs = {(arch, shape, mesh): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", mesh, "--out", str(out)],
+        cwd=ROOT, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape, mesh in REPAIRED}
+    logs = {}
+    try:
+        for key, p in procs.items():
+            logs[key] = (p.communicate(timeout=600)[0], p.returncode)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    return out, logs
+
+
+@pytest.mark.parametrize("cell", REPAIRED, ids=["__".join(c) for c in REPAIRED])
+def test_repaired_cells(repaired, cell):
+    out, logs = repaired
+    log, rc = logs[cell]
+    assert rc == 0, log[-3000:]
+    rec = _check_record(out, *cell)
+    if cell[0] == "olmoe-1b-7b":
+        # experts over model: the combine's all-reduce; rows over data
+        assert rec["collectives"]["count_by_op"]["all-reduce"] >= 1
 
 
 def test_dtensor_product_collectives():
