@@ -176,7 +176,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``molecule``: a forward (a launch per segment sum), the energies bitwise
    the plain sorted scatter's and invariant under a random rotation +
    translation within 2e-4, three steps, peak memory, the kernel at the
-   message sum's shape; ``benchmarks/gnn_halo.py``'s setting (musicbrainz
+   message sum's shape and over its transposed CSR (F = 32 x 9 and
+   128 x 49: the wide route, each bitwise its plain version, beside the
+   bytes bound and ``torch.sparse.mm``); ``benchmarks/gnn_halo.py``'s setting (musicbrainz
    N=2000, k=8, TAPER on the ``cuda`` field): the four halo byte counts of
    ``BENCH_PR10.json`` exactly, and ``partitioned_gcn_forward`` (a launch a
    partition and layer) within 1e-5 of ``gcn.forward``; after path 1, its
@@ -4032,7 +4034,8 @@ def _spmm_at_shape(torch, tag, x, csr, w, plain_reps=2):
         f"{plain_ms:.4f} ms (bitwise {bitwise}), torch.sparse.mm {library_ms:.4f} ms "
         f"(max diff {lib_err:.3e}), bound {bound_ms:.4f} ms by {bound_by} "
         f"({bytes_moved} B, {2 * nnz * F} FLOP; the kernel at {bound_ms / ms:.3f}), "
-        f"{vec}-float loads; {yardstick}; {device_line()}")
+        f"{vec}-float loads, the {'wide' if F // vec > 32 else 'narrow'} route; {yardstick}; "
+        f"{device_line()}")
     check(bitwise, f"{tag}: segment_spmm differs from its plain version at F={F}")
     del A, k_out, plain
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
@@ -4309,7 +4312,13 @@ def equivariant_molecule(torch, device, arch):
     key = max(timer.args_by_shape, key=lambda k: k[0][1])
     x, c, w = timer.args_by_shape[key]
     stats = _spmm_at_shape(torch, tag, x, c, w)
-    del timer, x, c, w, energy, plain, energy_rot, rot
+    # the message sum's transposed CSR (x's gradient in training), on a
+    # random output gradient
+    t = c.transposed(x.shape[0])
+    g = torch.randn((c.row_ptr.shape[0] - 1, x.shape[1]), device=device,
+                    generator=torch.Generator(device=device).manual_seed(5))
+    bwd = _spmm_at_shape(torch, f"{tag} transposed", g, t, w[t.order].contiguous())
+    del timer, x, c, w, t, g, energy, plain, energy_rot, rot
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plans = api.batch_plan(cfg, batch, shape)
@@ -4321,9 +4330,11 @@ def equivariant_molecule(torch, device, arch):
                                       plans, lr=GNN_LR_EQUIVARIANT)
     check(train_counts["segment_spmm"] == sums * GNN_TRAIN_STEPS,
           f"train {tag}: one launch a segment sum a step")
+    check(train_counts["segment_spmm/bwd"] > 0, f"train {tag}: no backward launch")
     del params, batch, plans
     torch.cuda.empty_cache()
-    return dict(launches=counts["segment_spmm"] + train_counts["segment_spmm"], **stats)
+    return dict(launches=counts["segment_spmm"] + train_counts["segment_spmm"], **stats,
+                bwd=dict(bwd, launches=train_counts["segment_spmm/bwd"]))
 
 
 def _gnn_workload(g):
@@ -6617,7 +6628,10 @@ def main() -> int:
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for name, r in (("gin", gnns["gin"]), ("nequip", gnns["nequip"]),
-                        ("equiformer", gnns["equiformer"]), ("halo", halo))
+                        ("equiformer", gnns["equiformer"]), ("halo", halo),
+                        # the message sums' transposes in the training steps
+                        ("nequip_bwd", gnns["nequip"]["bwd"]),
+                        ("equiformer_bwd", gnns["equiformer"]["bwd"]))
     ] + [
         # the bf16 tensor-core kernel at the path's two prefill shapes:
         # 1 x 32,768 and 4 x 4,096

@@ -203,8 +203,176 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy in float32 (logits (..., V), labels (...))."""
+    """Mean token cross-entropy in float32 (logits (..., V), labels (...)).
+    DTensor logits take :class:`_ShardedCrossEntropy`, each rank on its own
+    rows and slice of the vocabulary."""
+    if getattr(logits, "placements", None) is not None:
+        return _ShardedCrossEntropy.apply(logits, labels)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+# ---------------------------------------------------------------------------
+# DTensor routes of the vocabulary's two ends: each rank on its own rows and
+# its slice of the vocabulary, as GSPMD keeps them in the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _contiguous_stride(shape):
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def _on_mesh(t, mesh, placements, shape):
+    """The DTensor of this rank's ``t`` (contiguous) with ``placements``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, mesh, placements, run_check=False, shape=tuple(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def _reduced(t, mesh, layout, dims, op, shape):
+    """This rank's ``t``, one part of a sum (or max, ``op``) over the mesh
+    dims ``dims``, reduced there: the local tensor of the result laid out
+    as ``layout`` (of global ``shape``)."""
+    if not dims:
+        return t
+    from torch.distributed.tensor import Partial
+
+    parts = [Partial(op) if i in dims else p for i, p in enumerate(layout)]
+    return _on_mesh(t, mesh, parts, shape).redistribute(mesh, layout).to_local()
+
+
+def _slice_offset(shape, mesh, placements, dim):
+    """Where this rank's slice of tensor dim ``dim`` starts: the mesh dims
+    that split it do so in turn, major first, in ``torch.chunk``'s pieces."""
+    coord = mesh.get_coordinate()
+    size, start = shape[dim], 0
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            chunk = -(-size // mesh.size(i))
+            lo = min(coord[i] * chunk, size)
+            size, start = min(size - lo, chunk), start + lo
+    return start
+
+
+def _rows_of(t, mesh, layout):
+    """This rank's part of ``t`` (a DTensor, or a tensor every rank holds
+    whole) laid out as ``layout``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t.redistribute(mesh, layout).to_local()
+
+
+class _ShardedCrossEntropy(torch.autograd.Function):
+    """:func:`cross_entropy` of DTensor logits (..., V) laid out by shards of
+    their rows and of V (as the LM head lays them out), each rank on its own: the log-sum-exp from a local
+    max and sum reduced over the mesh dims that split V, the gold logit
+    read from the rank's own slice (at the label less the slice's offset, 0
+    where the label lies in another slice) and summed over those dims (one
+    term and zeros: exact), the mean over the rows' mesh dims.  The
+    gradient is the local softmax less the local one-hot, times the loss's
+    gradient over the token count, on the local shard: no tensor of the
+    global batch's logits and none of the whole vocabulary is made."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        from torch.distributed.tensor import Replicate
+
+        mesh, pl, vd = logits.device_mesh, tuple(logits.placements), logits.ndim - 1
+        vocab = [i for i, p in enumerate(pl) if p.is_shard(vd)]
+        rows = [Replicate() if i in vocab else p for i, p in enumerate(pl)]
+        rshape = tuple(logits.shape[:-1])
+        x = logits.to_local()
+        xf = x.float()
+        lab = _rows_of(labels, mesh, rows).long()
+        m = _reduced(xf.amax(-1), mesh, rows, vocab, "max", rshape)
+        s = _reduced((xf - m[..., None]).exp_().sum(-1), mesh, rows, vocab, "sum", rshape)
+        logz = m + torch.log(s)
+        idx = lab - _slice_offset(logits.shape, mesh, pl, vd)
+        inside = (idx >= 0) & (idx < x.shape[-1])
+        idx = torch.where(inside, idx, 0)
+        gold = torch.where(inside, torch.gather(xf, -1, idx[..., None])[..., 0], 0.0)
+        gold = _reduced(gold, mesh, rows, vocab, "sum", rshape)
+        n = math.prod(rshape)
+        whole = [Replicate()] * mesh.ndim
+        batch = [i for i, p in enumerate(rows) if p.is_shard()]
+        loss = _reduced((logz - gold).sum(), mesh, whole, batch, "sum", ()) / n
+        ctx.save_for_backward(x, logz, idx, inside)
+        ctx.layout = (mesh, pl, logits.shape, n)
+        return _on_mesh(loss, mesh, whole, ())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+
+        mesh, pl, shape, n = ctx.layout
+        x, logz, idx, inside = ctx.saved_tensors
+        g = _rows_of(g, mesh, [Replicate()] * mesh.ndim)
+        p = x.to(torch.float32, copy=True)
+        p.sub_(logz[..., None]).exp_()
+        p.scatter_add_(-1, idx[..., None], -inside.to(p.dtype)[..., None])
+        p.mul_(g / n)
+        return _on_mesh(p.to(x.dtype), mesh, pl, shape), None
+
+
+class _EmbedRows(torch.autograd.Function):
+    """``table[tokens]`` of a DTensor table (V, d) split over V (and d), on
+    each rank's rows of ``tokens``: the table gathered over d (still split
+    over V), each row looked up in the rank's own slice (0 where its token
+    lies in another slice), and summed over the mesh dims that split V (one
+    term and zeros: exact).  The output is laid out as ``tokens`` (their
+    row shards; replicated over the mesh dims that split V).  The table's
+    gradient: each rank's rows added into its slice, summed over the mesh
+    dims that split the rows and laid out as the table.  No tensor of the
+    global batch's rows is made."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh, tpl = table.device_mesh, tuple(table.placements)
+        vocab = [i for i, p in enumerate(tpl) if p.is_shard(0)]
+        sliced = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+        tok_pl = ([Replicate()] * mesh.ndim if not isinstance(tokens, DTensor) else
+                  [Replicate() if i in vocab else p for i, p in enumerate(tokens.placements)])
+        tok = _rows_of(tokens, mesh, tok_pl).long()
+        local = table.redistribute(mesh, sliced).to_local()
+        idx = tok - _slice_offset(table.shape, mesh, sliced, 0)
+        inside = (idx >= 0) & (idx < local.shape[0])
+        idx = torch.where(inside, idx, 0)
+        shape = tuple(tokens.shape) + (table.shape[1],)
+        out = torch.where(inside[..., None], local[idx], 0.0)
+        out = _reduced(out, mesh, tok_pl, vocab, "sum", shape)
+        ctx.save_for_backward(idx, inside)
+        ctx.layout = (mesh, tpl, sliced, tok_pl, table.shape, tuple(local.shape))
+        return _on_mesh(out, mesh, tok_pl, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial
+
+        mesh, tpl, sliced, tok_pl, shape, local_shape = ctx.layout
+        idx, inside = ctx.saved_tensors
+        g = _rows_of(g, mesh, tok_pl)
+        d = g.shape[-1]
+        grad = torch.zeros(local_shape, dtype=g.dtype, device=g.device)
+        grad.index_add_(0, idx.reshape(-1),
+                        torch.where(inside[..., None], g, 0.0).reshape(-1, d))
+        parts = [Partial() if q.is_shard() else p for p, q in zip(sliced, tok_pl)]
+        return _on_mesh(grad, mesh, parts, shape).redistribute(mesh, tpl), None
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a DTensor table takes :class:`_EmbedRows`, each
+    rank on its own rows of ``tokens`` and its slice of the vocabulary."""
+    if getattr(table, "placements", None) is not None:
+        return _EmbedRows.apply(table, tokens)
+    return table[tokens.long()]

@@ -50,7 +50,7 @@ from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import is_dtensor
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (apply_rope, attention, cross_entropy,
+from repro_torch.models.layers import (apply_rope, attention, cross_entropy, embed_rows,
                                        rms_norm, rms_norm_nd, swiglu)
 from repro_torch.utils import tree
 
@@ -224,7 +224,10 @@ def _head(params: Dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 
 def _embed(params: Dict, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    x = constrain(params["embed"].to(_dtype(cfg))[tokens.long()], "batch", None, None)
+    table = params["embed"].to(_dtype(cfg))
+    if is_dtensor(table):   # each rank looks up its own rows
+        tokens = constrain(tokens, "batch", None)
+    x = constrain(embed_rows(table, tokens), "batch", None, None)
     if cfg.tie_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -386,9 +389,7 @@ def loss_fn(params, batch, cfg: LMConfig, remat: bool = False):
     and z losses when the model has them (``metrics``: ``loss`` and the aux
     values)."""
     logits, aux = forward(params, batch["tokens"], cfg, remat=remat)
-    # the gold logit's gather reads whole rows: on a dry-run's DTensors the
-    # vocabulary is gathered first (a no-op elsewhere)
-    loss = cross_entropy(constrain(logits, "batch", None, None), batch["labels"])
+    loss = cross_entropy(logits, batch["labels"])
     total = loss
     for k in ("moe_aux_loss", "moe_z_loss"):
         if k in aux:

@@ -106,21 +106,54 @@ def test_embedding_bag_kernel_matches_plain(card, d, H):
                                    rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("F", [8, 16, 100])
+def _message_sum_case(rng, F):
+    """A message sum's CSR, as the equivariant models launch it: sources
+    are edge ids (each x row read once), and rows hold one edge, ~2 edges
+    (1-3), none, or 300; 10% of the edges masked (weight 0)."""
+    deg = np.concatenate([np.ones(1500, np.int64), rng.integers(1, 4, 1500), [0, 300],
+                          rng.integers(1, 4, 40)])
+    row_ptr = np.zeros(deg.shape[0] + 1, np.int64)
+    np.cumsum(deg, out=row_ptr[1:])
+    E = int(row_ptr[-1])
+    src = rng.permutation(E)
+    w = np.ones(E, np.float32)
+    w[rng.random(E) < 0.1] = 0.0
+    x = rng.normal(size=(E, F)).astype(np.float32)
+    return row_ptr, src, w, x
+
+
+@pytest.mark.parametrize("F", [8, 16, 100, 130, 288, 6272])
 def test_segment_spmm_kernel_matches_plain(card, F):
-    from repro_torch.kernels.segment_spmm.ops import csr_from_edges, segment_spmm_csr
+    """The narrow route (F <= 128 in float4 loads) on a random graph with a
+    hub row; the wide route (F = 130 in scalar loads, 288 and Equiformer-v2's
+    6,272 in float4) on a message sum's rows of one, ~2, no and 300 edges:
+    within the raw edge list's sums, and bitwise the plain version over the
+    same CSR."""
+    from repro_torch.kernels.segment_spmm.ops import (csr_from_edges, segment_spmm_csr,
+                                                      vector_width)
     from repro_torch.kernels.segment_spmm.ref import segment_spmm_reference
 
     rng = np.random.default_rng(F)
-    n, e = 20_000, 200_000
-    dst = rng.integers(0, n // 2, e)                      # rows n/2.. stay empty
-    dst[:10_000] = 3                                      # hub row
-    src = rng.integers(0, n, e)
-    w = rng.normal(size=e).astype(np.float32)
-    w[rng.random(e) < 0.2] = 0.0                          # masked edges
     t = lambda a, dt: torch.as_tensor(a, device=card).to(dt)  # noqa: E731
-    x = t(rng.normal(size=(n, F)).astype(np.float32), torch.float32)
-    csr = csr_from_edges(t(src, torch.int32), t(dst, torch.int32), n)
+    if F <= 128:
+        n, e = 20_000, 200_000
+        dst = rng.integers(0, n // 2, e)                  # rows n/2.. stay empty
+        dst[:10_000] = 3                                  # hub row
+        src = rng.integers(0, n, e)
+        w = rng.normal(size=e).astype(np.float32)
+        w[rng.random(e) < 0.2] = 0.0                      # masked edges
+        x = t(rng.normal(size=(n, F)).astype(np.float32), torch.float32)
+        csr = csr_from_edges(t(src, torch.int32), t(dst, torch.int32), n)
+        empty = torch.arange(n // 2, n, device=card)
+    else:
+        row_ptr, src, w, xh = _message_sum_case(rng, F)
+        n = row_ptr.shape[0] - 1
+        dst = np.repeat(np.arange(n), np.diff(row_ptr))
+        x = t(xh, torch.float32)
+        csr = EdgeCSR(t(row_ptr, torch.int32), t(src, torch.int32),
+                      torch.arange(src.shape[0], device=card))
+        empty = torch.nonzero(t(np.diff(row_ptr) == 0, torch.bool)).squeeze(1)
+        assert (F // vector_width(x)) > 32                # the wide route
     wc = t(w, torch.float32)[csr.order].contiguous()
     before = segment_spmm_csr.launches
     out = segment_spmm_csr(x, csr, wc)
@@ -132,13 +165,13 @@ def test_segment_spmm_kernel_matches_plain(card, F):
     ref = segment_spmm_reference(x.cpu(), torch.as_tensor(src), torch.as_tensor(dst),
                                  torch.as_tensor(w), n)
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
-    assert bool((out[n // 2:] == 0).all())
+    assert bool((out[empty] == 0).all())
     # CSR order on both sides: the kernel sums as the CPU plain version does
     cpu_csr = EdgeCSR(csr.row_ptr.cpu(), csr.src.cpu(), csr.order.cpu())
     cpu = segment_spmm_csr(x.cpu(), cpu_csr, wc.cpu())
     assert torch.equal(out.cpu(), cpu)
     with pytest.raises(ValueError):                       # ids past x's rows
-        segment_spmm_csr(x, EdgeCSR(csr.row_ptr, csr.src + n, csr.order), wc)
+        segment_spmm_csr(x, EdgeCSR(csr.row_ptr, csr.src + x.shape[0], csr.order), wc)
 
 
 def test_vm_step_column_kernel_large_trie(card):

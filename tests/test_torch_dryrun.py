@@ -7,8 +7,12 @@ bytes the local shards' that the plan's placements give; one cell of each
 group that DTensor could not run before the MoE mesh route, the decode
 attention's per-shard route, the GNNs' per-row blocks and the GCN's
 masked gold logit, on the mesh where it failed (the multi-pod one, 2 x 16
-x 16, where that was the one); and the collective accounting of one
-DTensor product, against bytes worked out by hand."""
+x 16, where that was the one); the LM loss on each chip's rows and
+vocabulary slice (olmoe-1b-7b train_4k: its temporaries within the
+record's bound, and no storage at the peak of the global batch's logits or
+of the whole vocabulary's, ``tools/dryrun_peak.py::peak_storages``); and
+the collective accounting of one DTensor product, against bytes worked out
+by hand."""
 import json
 import math
 import os
@@ -27,6 +31,19 @@ CELLS = [("taper_paper", "refine_step"), ("dlrm-rm2", "serve_p99"), ("gin-tu", "
 REPAIRED = [("olmoe-1b-7b", "train_4k", "single"), ("olmoe-1b-7b", "decode_32k", "single"),
             ("nequip", "molecule", "single"), ("equiformer-v2", "full_graph_sm", "multi"),
             ("gcn-cora", "ogb_products", "multi")]
+#: olmoe-1b-7b train_4k on (16, 16): its temporaries before the loss kept
+#: each chip's rows and vocabulary slice (260.22 GB), less the whole batch's
+#: float32 logits buffer its backward made (210.99 GB)
+OLMOE_TRAIN_TEMP_MAX = 49.2e9
+PEAK = r"""
+import json, sys
+sys.path.insert(0, "tools")
+from dryrun_peak import peak_storages
+from repro_torch.configs.registry import get_config
+total, live = peak_storages("olmoe-1b-7b", "train_4k", False)
+print(json.dumps({"vocab": get_config("olmoe-1b-7b").vocab, "total": total,
+                  "shapes": [list(s[2]) for s in live]}))
+"""
 MESH_SIZES = {"single": {"data": 16, "model": 16},
               "multi": {"pod": 2, "data": 16, "model": 16}}
 
@@ -113,6 +130,8 @@ def repaired(tmp_path_factory):
          "--mesh", mesh, "--out", str(out)],
         cwd=ROOT, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for arch, shape, mesh in REPAIRED}
+    procs["peak"] = subprocess.Popen([sys.executable, "-c", PEAK], cwd=ROOT, env=_env(),
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     logs = {}
     try:
         for key, p in procs.items():
@@ -133,6 +152,23 @@ def test_repaired_cells(repaired, cell):
     if cell[0] == "olmoe-1b-7b":
         # experts over model: the combine's all-reduce; rows over data
         assert rec["collectives"]["count_by_op"]["all-reduce"] >= 1
+    if cell == ("olmoe-1b-7b", "train_4k", "single"):
+        assert rec["memory_analysis"]["temp_size_in_bytes"] <= OLMOE_TRAIN_TEMP_MAX
+
+
+def test_train_peak_holds_no_whole_batch_or_vocabulary_logits(repaired):
+    """At olmoe-1b-7b train_4k's peak on (16, 16) no storage has the global
+    batch's logits' shape (256, 4096, V), nor a whole vocabulary's logits
+    (any rows of 4,096 tokens by V): each chip keeps its 16 rows and its
+    slice of V (V / 16), so the peak lies elsewhere."""
+    _, logs = repaired
+    out, rc = logs["peak"]
+    assert rc == 0, out[-3000:]
+    got = json.loads(out.strip().splitlines()[-1])
+    V = got["vocab"]
+    assert [256, 4096, V] not in got["shapes"]
+    assert not [s for s in got["shapes"] if s[-2:] == [4096, V]]
+    assert got["total"] <= OLMOE_TRAIN_TEMP_MAX
 
 
 def test_dtensor_product_collectives():

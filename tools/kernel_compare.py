@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The embedding_bag, attention, attention backward, embedding_bag backward and
-vm_step kernels of this checkout against those of another checkout (for
+"""The embedding_bag, attention, attention backward, embedding_bag backward,
+vm_step and segment_spmm kernels of this checkout against those of another checkout (for
 example its parent commit), on the GPU, at the main path's shapes.
 
 Run from the root of a checkout, on the machine with the card:
@@ -12,7 +12,8 @@ DIR is the root of the other checkout (``git archive`` of a commit unpacked
 into a git-ignored directory such as ``archive/parent``).  Both checkouts'
 ``csrc/embedding_bag.cu``, ``csrc/flash_attention_f32.cu``,
 ``csrc/flash_attention_bf16.cu``, ``csrc/flash_attention_bwd.cu``,
-``csrc/embedding_bag_bwd.cu`` and ``csrc/vm_step.cu`` are built with nvcc
+``csrc/embedding_bag_bwd.cu``, ``csrc/vm_step.cu`` and ``csrc/segment_spmm.cu``
+are built with nvcc
 (``sm_90a``) into the git-ignored ``kernels/build/compare/``, and each
 kernel is timed in turns (other, this, this, other) with CUDA events over
 back-to-back launches and, for the bag kernel, also as device time per
@@ -50,7 +51,8 @@ host-bound):
 
 The two bag kernels, the two bag backwards (each also with the plain
 backward on the card) and the two vm_step kernels must agree bit for bit
-(vm_step also with its plain version), and so must the two float32 and the
+(vm_step also with its plain version), the two segment_spmm kernels and
+their plain version, and so must the two float32 and the
 two bf16 attention outputs; both float32 attention kernels within 2e-5 of
 the plain version.  Each checkout's attention backward must give dq, dk
 and dv within 2^-7 (bf16) or 1e-4 (float32) of the largest plain gradient
@@ -66,7 +68,7 @@ and checks that build in the same turns, for example
 ``--plan dv64:kRowsV=64 --plan k128:kRowsK=128``; a plan that does not
 build is reported and left out.  ``--only`` runs the named sections
 (``embedding_bag``, ``flash_attention``, ``flash_attention_bwd``,
-``embedding_bag_bwd``, ``vm_step``) and builds only their sources.  Prints
+``embedding_bag_bwd``, ``vm_step``, ``segment_spmm``) and builds only their sources.  Prints
 each build's ptxas registers,
 spills and wgmma serialisation notes (C7512), the card's name and power
 limit and one line per shape; exits non-zero without CUDA or nvcc.
@@ -86,13 +88,14 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/kernels/csrc")
 OUT = ROOT / "src" / "repro_torch" / "kernels" / "build" / "compare"
 KERNELS = ("embedding_bag", "flash_attention_f32", "flash_attention_bf16",
-           "flash_attention_bwd", "embedding_bag_bwd", "vm_step")
+           "flash_attention_bwd", "embedding_bag_bwd", "vm_step", "segment_spmm")
 #: --only's choices: each section and the sources it builds
 SECTIONS = {"embedding_bag": ("embedding_bag",),
             "flash_attention": ("flash_attention_f32", "flash_attention_bf16"),
             "flash_attention_bwd": ("flash_attention_bwd",),
             "embedding_bag_bwd": ("embedding_bag_bwd",),
-            "vm_step": ("vm_step",)}
+            "vm_step": ("vm_step",),
+            "segment_spmm": ("segment_spmm",)}
 
 
 def plan_sources(specs):
@@ -669,6 +672,98 @@ def vm_step_section(torch, np, c):
     return 0 if same and exact else 1
 
 
+def spmm_cases(torch, dev):
+    """[(label, x, csr, w)] of the segment_spmm section: Equiformer-v2's
+    message sum on molecule (F = 6,272), its transpose, NequIP's (F = 288),
+    and GIN's first layer at ogb_products (F = 100)."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.graphs import batch_to_device, random_graph_batch
+    from repro_torch.models.gnn import api, gcn
+
+    shapes = {s.name: s for s in GNN_SHAPES}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = []
+    for arch in ("equiformer-v2", "nequip"):
+        cfg = get_config(arch)
+        batch = batch_to_device(random_graph_batch(cfg, shapes["molecule"], seed=0), dev)
+        plan = api.batch_plan(cfg, batch, shapes["molecule"])["messages"]
+        E, F = plan.csr.src.shape[0], cfg.d_hidden * (cfg.l_max + 1) ** 2
+        cases.append((f"{arch} messages", torch.randn((E, F), generator=gen, device=dev),
+                      plan.csr, plan.w))
+        if arch == "equiformer-v2":
+            t = plan.csr.transposed(E)
+            n_rows = plan.csr.row_ptr.shape[0] - 1
+            cases.append((f"{arch} messages, transposed",
+                          torch.randn((n_rows, F), generator=gen, device=dev), t,
+                          plan.w[t.order].contiguous()))
+    cfg = get_config("gin-tu")
+    batch = batch_to_device(random_graph_batch(cfg, shapes["ogb_products"], seed=0), dev)
+    csr = gcn.graph_csr(batch)
+    w = batch["edge_mask"].to(torch.float32)[csr.order].contiguous()
+    cases.append(("gin-tu ogb_products", batch["node_feat"].contiguous(), csr, w))
+    return cases
+
+
+def spmm_section(torch, np, c):
+    """segment_spmm in turns at spmm_cases' shapes, beside torch.sparse.mm
+    and the bytes bound; both kernels bitwise the plain version."""
+    import warnings
+
+    from repro_torch.kernels.segment_spmm.ops import vector_width
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_reference
+
+    card, dev, stream = c.card, c.dev, c.stream
+    fns = {}
+    for tag in c.roots:
+        fns[tag] = ctypes.CDLL(str(c.libs[tag, "segment_spmm"])).segment_spmm_launch
+        fns[tag].argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fns[tag].restype = ctypes.c_int
+    ok = True
+    for label, x, csr, w in spmm_cases(torch, dev):
+        row_ptr, src = csr.row_ptr, csr.src
+        n_rows, (n_src, F), E = row_ptr.shape[0] - 1, x.shape, src.shape[0]
+        vec = vector_width(x)
+        outs = {tag: torch.empty((n_rows, F), device=dev) for tag in c.roots}
+
+        def launch(tag, x=x, row_ptr=row_ptr, src=src, w=w, n_rows=n_rows, F=F, vec=vec,
+                   outs=outs):
+            err = fns[tag](row_ptr.data_ptr(), src.data_ptr(), w.data_ptr(), x.data_ptr(),
+                           outs[tag].data_ptr(), n_rows, F, vec, stream)
+            if err:
+                raise SystemExit(f"segment_spmm ({tag}) launch failed: CUDA error {err}")
+
+        reps = 20 if n_rows * F < 100_000_000 else 5
+        calls = {tag: (lambda tag=tag: launch(tag)) for tag in c.roots}
+        ms = in_turns(torch, calls, reps)
+        dev_ms = in_turns(torch, calls, reps, device_ms)
+        with warnings.catch_warnings():                 # "beta state" notices
+            warnings.simplefilter("ignore", UserWarning)
+            A = torch.sparse_csr_tensor(row_ptr, src, w, size=(n_rows, n_src))
+        library_ms = [time_ms(torch, lambda: torch.sparse.mm(A, x), reps) for _ in range(2)]
+        plain = segment_spmm_csr_reference(x, row_ptr, src, w)
+        same = {tag: bool(torch.equal(outs[tag], plain)) for tag in c.roots}
+        live = w != 0
+        srcs, nnz = int(torch.unique(src[live]).numel()), int(live.sum())
+        bound = 4 * ((n_rows + 1) + 2 * E + srcs * F + n_rows * F) / 3.35e12 * 1e3
+        print(f"[spmm] {label}: F={F} ({vec}-float loads, {F // vec} a row: the "
+              f"{'wide' if F // vec > 32 else 'narrow'} route), {n_rows} rows, x {n_src} rows, "
+              f"E={E}, live {nnz}, distinct live sources {srcs}: ms per launch other "
+              f"{ms['other'][0]:.4f} / {ms['other'][1]:.4f}, this {ms['this'][0]:.4f} / "
+              f"{ms['this'][1]:.4f}; device ms per launch (profiler) other "
+              f"{dev_ms['other'][0]:.4f} / {dev_ms['other'][1]:.4f}, this "
+              f"{dev_ms['this'][0]:.4f} / {dev_ms['this'][1]:.4f}; torch.sparse.mm "
+              f"{library_ms[0]:.4f} / {library_ms[1]:.4f} (device "
+              f"{device_ms(torch, lambda: torch.sparse.mm(A, x), reps):.4f}); bound {bound:.4f} ms by bytes (this at "
+              f"{bound / min(ms['this']):.3f}, other at {bound / min(ms['other']):.3f}); "
+              f"bitwise the plain version: this {same['this']}, other {same['other']}; {card}",
+              flush=True)
+        ok = ok and all(same.values())
+        del outs, A, plain
+    torch.cuda.empty_cache()
+    return 0 if ok else 1
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", type=Path, required=True,
@@ -702,7 +797,7 @@ def main() -> int:
                               stream=torch.cuda.current_stream().cuda_stream)
     run = {"embedding_bag": bag_section, "flash_attention": attention_section,
            "flash_attention_bwd": attention_bwd_section, "embedding_bag_bwd": bag_bwd_section,
-           "vm_step": vm_step_section}
+           "vm_step": vm_step_section, "segment_spmm": spmm_section}
     for name in sections:
         if run[name](torch, np, c):
             return 1
