@@ -271,9 +271,9 @@ The gather yardstick of a ``segment_spmm`` or ``vm_step`` launch counts
 the 32-byte sectors its live edges' gathered rows touch, once per edge,
 beside every other input read once and the output written once; beside the
 bound (each input byte once) it shows how much of a kernel's gap is the
-graph's randomness.  Each path runs with every kernel's launch count set to
-0 just before it and read just after; a path that launched none of its
-kernels fails.  The line
+graph's randomness.  Each path reads every kernel's launch count just
+before it and just after (``launch_count``: ``vm_step``'s from the process
+registry); a path that launched none of its kernels fails.  The line
 before the last is the ``kernels`` JSON record (``vm_step`` on eight
 paths: the provgen invocation, the sharded field, the online path, the
 serving path, the cluster path, the paper's cell, the row placement and
@@ -594,20 +594,34 @@ def _launch_lock():
     return LAUNCH_LOCK
 
 
+def launch_count(name):
+    """A kernel's launches so far in this process: ``vm_step``'s in the
+    process registry (``vm_step_launches_total``), the others' on their
+    wrapper (``launches``)."""
+    if name == "vm_step":
+        from repro_torch.obs import default_registry
+
+        return int(default_registry().counter("vm_step_launches_total").value)
+    return _wrapper(name).launches
+
+
+#: every kernel's launches when the running path started (``reset_counts``)
+_PATH_START = {}
+
+
 def reset_counts():
-    """Every kernel's launch count to 0: a path starts here.  The counts
-    are read and written under the wrappers' lock: the serving path
+    """A path starts here: ``read_counts`` gives the launches made since.
+    The counts are read under the wrappers' lock: the serving path
     launches from its invocation thread."""
     with _launch_lock():
-        for name in KERNELS:
-            _wrapper(name).launches = 0
+        _PATH_START.update((name, launch_count(name)) for name in KERNELS)
 
 
 def read_counts(path, needs):
-    """The launch counts just after a path; fails if it launched none of
-    the kernels in ``needs``."""
+    """The launch counts of a path, read just after it; fails if it
+    launched none of the kernels in ``needs``."""
     with _launch_lock():
-        counts = {name: _wrapper(name).launches for name in KERNELS}
+        counts = {name: launch_count(name) - _PATH_START.get(name, 0) for name in KERNELS}
     log(f"[{path}] kernel launches on the path: {counts}")
     for name in needs:
         check(counts[name] > 0, f"{path}: the path launched no {name} kernel")
@@ -1290,9 +1304,8 @@ def _sharded_2000_rank(rank, n_ranks, cases):
     import torch
     from repro_torch.core.taper import Taper, TaperConfig
     from repro_torch.core.visitor import extroversion_field
-    from repro_torch.kernels.vm_step.ops import vm_step
 
-    vm_step.launches = 0
+    l0 = launch_count("vm_step")
     out = {}
     for name, g, start, arrays in cases:
         rep = Taper(g, 8, TaperConfig(max_iterations=8, seed=0,
@@ -1311,7 +1324,7 @@ def _sharded_2000_rank(rank, n_ranks, cases):
         out[name] = dict(parts=rep.parts, halo=rep.halo_stats[-1], fields=fields,
                          transport=transport)
     torch.cuda.synchronize()
-    return out, vm_step.launches
+    return out, launch_count("vm_step") - l0
 
 
 def sharded_2000(torch, device):
@@ -1492,7 +1505,6 @@ def ladder_on_card(torch, device):
     from repro_torch.core.rpq import parse_rpq
     from repro_torch.core.taper import TaperConfig
     from repro_torch.graphs.generators import musicbrainz_like
-    from repro_torch.kernels.vm_step.ops import vm_step
     from repro_torch.serve import ServeLoopConfig, ServingLoop
     from repro_torch.serve.faults import SITE_INVOCATION, FaultInjector, InjectedFault
 
@@ -1549,11 +1561,11 @@ def ladder_on_card(torch, device):
         check(s["field_backend"] == "cuda" and s["degraded"] == 0,
               "ladder: the probe did not climb back to cuda")
         with _launch_lock():
-            l0 = vm_step.launches
+            l0 = launch_count("vm_step")
         inv0, n_fields = loop.ot.invocations, len(fields)
         pump_until("one more commit on cuda", lambda: loop.ot.invocations > inv0)
         with _launch_lock():
-            l1 = vm_step.launches
+            l1 = launch_count("vm_step")
         on_cuda = fields[n_fields:]
         s = loop.stop()
     finally:
@@ -1897,7 +1909,7 @@ def cluster_failover_setting(torch, device):
                   "cluster_failover: the promoted node is not on the cuda rung")
             # the promoted node's next invocation: reads and the tail's
             # batches until it runs
-            inv0, ev0 = promoted.ot.invocations, _wrapper("vm_step").launches
+            inv0, ev0 = promoted.ot.invocations, launch_count("vm_step")
             t1, seed = time.perf_counter(), 20
             for b in _cf_tail(coord, 100):
                 if promoted.ot.invocations > inv0:
@@ -1908,7 +1920,7 @@ def cluster_failover_setting(torch, device):
                 _cf_reads(coord, 8, seed=seed)
                 coord.pump()
                 seed += 1
-            promoted_launches = _wrapper("vm_step").launches - ev0
+            promoted_launches = launch_count("vm_step") - ev0
             pst = promoted.stats()
             log(f"[cluster_failover] failover: heartbeat timeout {CLUSTER_HB_S} s, "
                 f"detect + promote {detect_promote_s:.3f} s, first answer "
@@ -2443,15 +2455,15 @@ def _sharded_serve(torch, rank, n_ranks, g, part, pre):
     visitor.vm_step = timer
     t0 = time.perf_counter()
     try:
-        vm_step.launches = 0                        # the path starts here
+        l0 = launch_count("vm_step")                # the path starts here
         if rank:
             f = ShardFollower(g, 8, part=part, taper_config=_sharded_serve_config(),
                               policy=_sharded_serve_policy(), config=cfg, device="cuda")
             f.ot.taper._pre.update(pre)
             stats = f.run()
-            launches = vm_step.launches             # ... and ends here
+            n_launched = launch_count("vm_step") - l0  # ... and ends here
             torch.cuda.synchronize()
-            return dict(rank=rank, stats=stats, commits=f.commits, launches=launches,
+            return dict(rank=rank, stats=stats, commits=f.commits, launches=n_launched,
                         ms=[a.elapsed_time(b) for a, b in timer.events],
                         wall=time.perf_counter() - t0, part=f.ot.part.copy())
         loop = ServingLoop(g, 8, part=part, taper_config=_sharded_serve_config(),
@@ -2528,13 +2540,13 @@ def _sharded_serve(torch, rank, n_ranks, g, part, pre):
                 wait(lambda: loop.ot.invocations > i, f"commit {i + 1}")
         finally:
             stats = loop.stop(drain=True)
-        launches = vm_step.launches                 # ... and ends here
+        n_launched = launch_count("vm_step") - l0   # ... and ends here
         torch.cuda.synchronize()
         t_served = time.perf_counter() - t0
     finally:
         visitor.vm_step = vm_step
     lead, sched = loop.rank_leader, loop.schedule
-    rec = dict(rank=0, stats=stats, launches=launches, wall=t_served,
+    rec = dict(rank=0, stats=stats, launches=n_launched, wall=t_served,
                ms=[a.elapsed_time(b) for a, b in timer.events], windows=windows,
                batches=batches, tickets=len(tickets),
                answered=sum(t.done.is_set() and t.paths is not None for t in tickets),
@@ -2640,17 +2652,16 @@ def _sharded_full_rank(rank, n_ranks, g, part, arrays):
     at its shard's shapes."""
     import torch
     import torch.distributed as dist
-    from repro_torch.kernels.vm_step.ops import vm_step
 
     source, exchange = SHARDED_FULL
     pre = {}
     mem0 = torch.cuda.memory_allocated()
-    vm_step.launches = 0
+    l0 = launch_count("vm_step")
     t0 = time.perf_counter()
     evals, args = _sharded_evals(torch, g, arrays, [part], pre,
                                  reps=SHARDED_FULL_EVALS,
                                  shard_map_source=source, halo_exchange=exchange)
-    launches = vm_step.launches
+    launches = launch_count("vm_step") - l0
     wall = time.perf_counter() - t0
     mem1 = torch.cuda.memory_allocated()
     # rank 0 times the kernel alone on the card: the others have finished
@@ -5396,7 +5407,7 @@ class _Recorder:
                               for a in args)
         return self.fn(*args, **kwargs)
 
-    # the wrapper's launch count, read and reset through the stand-in
+    # the wrapper's launch count, read and counted through the stand-in
     @property
     def launches(self):
         return self.fn.launches

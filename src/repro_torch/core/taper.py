@@ -25,6 +25,7 @@ from repro_torch.core.visitor import (SHARDED_BACKENDS, ExtroversionResult,
                                       extroversion_field)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import LabelledGraph
+from repro_torch.obs.trace import event, span
 from repro_torch.utils import get_logger
 
 log = get_logger("core.taper")
@@ -168,18 +169,16 @@ class Taper:
         # observability (optional; wired by the serving loop): when a
         # tracer is attached and ``trace_ctx`` is a sampled invocation
         # trace, field evaluations / swap iterations / shard re-deals emit
-        # spans under it.  Both default to off — a bare Taper pays nothing.
+        # spans under it.  Both default to off.  Every span is also a
+        # ``torch.profiler`` range while the profiler records
+        # (``obs.trace.span``); with neither, a span is one flag check.
         self.tracer = None
         self.trace_ctx = None
 
     def _span(self, name: str, **attrs):
-        """Open a span on the attached invocation trace (no-op span when
-        no tracer/context is wired)."""
-        if self.tracer is None or self.trace_ctx is None:
-            from repro_torch.obs.trace import NOOP_SPAN
-
-            return NOOP_SPAN
-        return self.tracer.start(name, self.trace_ctx, **attrs)
+        """Open a span on the attached invocation trace and the profiler's
+        (``obs.trace.span``: a no-op span when neither is on)."""
+        return span(name, self.tracer, self.trace_ctx, **attrs)
 
     def __del__(self):
         # release this instance's snapshot slot on a shared, long-lived trie
@@ -293,10 +292,8 @@ class Taper:
         self._pre["_shard_order"] = (
             f"partition:{self._redeal_counter}", new_pos)
         self._field_memo = None     # memoed field keyed on the old layout
-        if self.tracer is not None and self.trace_ctx is not None:
-            self.tracer.event("invocation.redeal", self.trace_ctx,
-                              redeal_epoch=self._redeal_counter,
-                              n_shards=int(n_shards))
+        event("invocation.redeal", self.tracer, self.trace_ctx,
+              redeal_epoch=self._redeal_counter, n_shards=int(n_shards))
         log.info("re-dealt shard map along partition (epoch %d)",
                  self._redeal_counter)
         return True
@@ -328,26 +325,36 @@ class Taper:
     def field(
         self, part: np.ndarray, trie: Union[TPSTry, TrieArrays]
     ) -> ExtroversionResult:
-        self._sync_graph()
-        arrays = (
-            trie if isinstance(trie, TrieArrays) else trie.compile(self.g.label_names)
-        )
+        """The extroversion field of ``part`` under the workload ``trie``.
+
+        Spans go to the wired trace and to the profiler: ``field.key`` (the
+        graph's sync, the trie's compile, the memo key), then, unless the
+        memo answers, the evaluation's ``invocation.field`` with its
+        children ``core/visitor.py``'s ``field.inputs``, ``field.depth`` (one
+        a DP depth step), ``field.aggregates`` and ``field.readback``, and
+        ``field.store``."""
         cfg = self.config
-        # resolve the sticky shard map before keying the memo, so the first
-        # sharded evaluation doesn't memoize under a pre-install key
-        self._seed_shard_order(np.asarray(part))
-        # §4.2 lazy re-evaluation: if neither the trie probabilities nor the
-        # partition changed since the last evaluation, the field is reused
-        # verbatim instead of recomputed
-        memo_key = (
-            arrays.topology_signature(),
-            arrays.p.tobytes(),
-            arrays.cond_p.tobytes(),
-            np.asarray(part, dtype=np.int32).tobytes(),
-            cfg.depth_cap, cfg.dense_ext_to, cfg.field_backend,
-            cfg.halo_exchange, self._pre.get("_shard_order", (None,))[0],
-            self.k, self.g.version,
-        )
+        with self._span("field.key"):
+            self._sync_graph()
+            arrays = (
+                trie if isinstance(trie, TrieArrays)
+                else trie.compile(self.g.label_names)
+            )
+            # resolve the sticky shard map before keying the memo, so the
+            # first sharded evaluation doesn't memoize under a pre-install key
+            self._seed_shard_order(np.asarray(part))
+            # §4.2 lazy re-evaluation: if neither the trie probabilities nor
+            # the partition changed since the last evaluation, the field is
+            # reused verbatim instead of recomputed
+            memo_key = (
+                arrays.topology_signature(),
+                arrays.p.tobytes(),
+                arrays.cond_p.tobytes(),
+                np.asarray(part, dtype=np.int32).tobytes(),
+                cfg.depth_cap, cfg.dense_ext_to, cfg.field_backend,
+                cfg.halo_exchange, self._pre.get("_shard_order", (None,))[0],
+                self.k, self.g.version,
+            )
         if self._field_memo is not None and self._field_memo[0] == memo_key:
             return self._field_memo[1]
         with self._span("invocation.field",
@@ -364,6 +371,7 @@ class Taper:
                 device=self.device,
                 shard_map_source=cfg.shard_map_source,
                 halo_exchange=cfg.halo_exchange,
+                span=sp,
             )
             hs = self._pre.get("_halo_stats")
             if hs:
@@ -371,14 +379,9 @@ class Taper:
                        halo_ratio=hs.get("halo_ratio", 0.0),
                        depth_steps=hs.get("depth_steps", 0),
                        n_shards=hs.get("n_shards", 0))
-                if self.tracer is not None and self.trace_ctx is not None:
-                    # per-depth accounting: one instant marker per DP depth
-                    # step, each carrying the bytes its halo exchange moved
-                    for d in range(int(hs.get("depth_steps", 0))):
-                        self.tracer.event(
-                            "field.depth", self.trace_ctx, depth=d + 1,
-                            halo_bytes=hs.get("halo_bytes_per_depth", 0))
-        self._field_memo = (memo_key, fld)
+            with sp.child("field.store"):
+                # the previous call's result is released here
+                self._field_memo = (memo_key, fld)
         return fld
 
     def _timed_field(self, part, arrays, report: TaperReport):

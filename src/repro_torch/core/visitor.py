@@ -76,8 +76,14 @@ from repro_torch.kernels.segment_spmm.ops import EdgeCSR, csr_offsets
 from repro_torch.kernels.segment_spmm.ref import segment_sum
 from repro_torch.kernels.vm_step.ops import vm_step
 from repro_torch.kernels.vm_step.ref import transition_columns, vm_step_reference
+from repro_torch.obs.registry import default_registry
+from repro_torch.obs.trace import NOOP_SPAN
 
 _EPS = 1e-30
+
+#: fields computed and the bytes of their outputs read back to the host
+_EVALUATIONS = default_registry().counter("field_evaluations_total")
+_READBACK_BYTES = default_registry().counter("field_readback_bytes_total")
 
 #: the port's field backends: the CUDA kernel and the plain torch field on
 #: one device, and each of them per shard of a process group
@@ -302,54 +308,57 @@ def _depth_mass(contrib, alpha, nodes_d, trie, cond_p, src, dst_lab, inv_cnt):
 
 def _field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray, k: int,
            depth_cap: int, pre: Dict, dense_ext_to: bool, backend: str,
-           device: torch.device):
+           device: torch.device, span=NOOP_SPAN):
     n, m, N = g.n, g.m, trie.n_nodes
-    cnt = pre.get("cnt")
-    if cnt is None:
-        cnt = g.neighbor_label_counts()
-    lab_vcount = pre.get("lab_vcount")
-    if lab_vcount is None:
-        lab_vcount = g.label_counts()
-    dev = _device_inputs(g, pre, cnt, lab_vcount, device)
+    with span.child("field.inputs"):
+        cnt = pre.get("cnt")
+        if cnt is None:
+            cnt = g.neighbor_label_counts()
+        lab_vcount = pre.get("lab_vcount")
+        if lab_vcount is None:
+            lab_vcount = g.label_counts()
+        dev = _device_inputs(g, pre, cnt, lab_vcount, device)
 
-    part_dev = torch.as_tensor(np.asarray(part, np.int64), device=device)
-    local = (part_dev[dev["src"]] == part_dev[dev["dst"]]).to(torch.float32)
-    cond_p = torch.as_tensor(trie.cond_p, device=device)
-    alpha = _prior_columns(trie.depth, trie.label, N, dev["labels"],
-                           dev["lab_vcount"],
-                           torch.as_tensor(trie.p, device=device), n)
-    max_depth = min(trie.max_depth, depth_cap)
-    if backend == "cuda":
-        par, val = _transition_dev(trie, depth_cap, pre, device)
-        # local-edge weights in CSR order (local is 0/1, so exact)
-        w = dev["csr_inv_cnt"] * local[dev["csr"].order]
-        beta = alpha
+        part_dev = torch.as_tensor(np.asarray(part, np.int64), device=device)
+        local = (part_dev[dev["src"]] == part_dev[dev["dst"]]).to(torch.float32)
+        cond_p = torch.as_tensor(trie.cond_p, device=device)
+        alpha = _prior_columns(trie.depth, trie.label, N, dev["labels"],
+                               dev["lab_vcount"],
+                               torch.as_tensor(trie.p, device=device), n)
+        max_depth = min(trie.max_depth, depth_cap)
+        if backend == "cuda":
+            par, val = _transition_dev(trie, depth_cap, pre, device)
+            # local-edge weights in CSR order (local is 0/1, so exact)
+            w = dev["csr_inv_cnt"] * local[dev["csr"].order]
+            beta = alpha
 
-    mass = torch.zeros(m, dtype=torch.float32, device=device)
-    for nodes_d in _depth_nodes(trie, max_depth):
+        mass = torch.zeros(m, dtype=torch.float32, device=device)
+    for d, nodes_d in enumerate(_depth_nodes(trie, max_depth), start=1):
         if not nodes_d:
             break
-        contrib = _depth_contrib(alpha, nodes_d, trie, cond_p, dev["src"],
-                                 dev["dst_lab"], dev["inv_cnt"])
-        # per-edge mass of the depth step over ALL edges (cut + local)
-        mass = mass + _depth_mass(contrib, alpha, nodes_d, trie, cond_p, dev["src"],
-                                  dev["dst_lab"], dev["inv_cnt"])
-        if backend == "cuda":
-            # the DP itself advances over local edges only — vm_step kernel
-            beta = vm_step(beta, par, val, dev["csr"], w, dev["labels_i32"])
-            alpha = alpha + beta
-        else:
-            upd = segment_sum((contrib * local[:, None])[dev["csr"].order],
-                              dev["in_deg"])
-            cols = torch.as_tensor(np.asarray(nodes_d, np.int64), device=device)
-            alpha[:, cols] += upd
+        with span.child("field.depth", depth=d):
+            contrib = _depth_contrib(alpha, nodes_d, trie, cond_p, dev["src"],
+                                     dev["dst_lab"], dev["inv_cnt"])
+            # per-edge mass of the depth step over ALL edges (cut + local)
+            mass = mass + _depth_mass(contrib, alpha, nodes_d, trie, cond_p, dev["src"],
+                                      dev["dst_lab"], dev["inv_cnt"])
+            if backend == "cuda":
+                # the DP itself advances over local edges only — vm_step kernel
+                beta = vm_step(beta, par, val, dev["csr"], w, dev["labels_i32"])
+                alpha = alpha + beta
+            else:
+                upd = segment_sum((contrib * local[:, None])[dev["csr"].order],
+                                  dev["in_deg"])
+                cols = torch.as_tensor(np.asarray(nodes_d, np.int64), device=device)
+                alpha[:, cols] += upd
 
-    counted = [
-        i for i in range(N)
-        if 1 <= int(trie.depth[i]) < max_depth and not bool(trie.is_leaf[i])
-    ]
-    pr, extro_mass, extroversion, ext_to = _field_aggregates(
-        counted, k, dense_ext_to, alpha, mass, dev, part_dev, local, n)
+    with span.child("field.aggregates"):
+        counted = [
+            i for i in range(N)
+            if 1 <= int(trie.depth[i]) < max_depth and not bool(trie.is_leaf[i])
+        ]
+        pr, extro_mass, extroversion, ext_to = _field_aggregates(
+            counted, k, dense_ext_to, alpha, mass, dev, part_dev, local, n)
     return alpha, pr, mass, extro_mass, extroversion, ext_to
 
 
@@ -554,7 +563,7 @@ def _exchange(beta, sdev, transport, halo_exchange: str, round_cap):
 def _sharded_field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray,
                    k: int, depth_cap: int, pre: Dict, dense_ext_to: bool,
                    backend: str, device: torch.device,
-                   shard_map_source: str, halo_exchange: str):
+                   shard_map_source: str, halo_exchange: str, span=NOOP_SPAN):
     """The field over this rank's shard of the group; returns the whole
     field on every rank (module docstring).
 
@@ -565,116 +574,120 @@ def _sharded_field(g: LabelledGraph, trie: TrieArrays, part: np.ndarray,
     from repro_torch.graphs.sharded_packing import compute_shard_order
     from repro_torch.launch.mesh import Transport, make_smoke_group
 
-    group = pre.get("_group")
-    if group is None:
-        group = pre["_group"] = make_smoke_group(device)
-    transport = pre.get("_transport")
-    if transport is None or transport.group is not group or transport.device != device:
-        transport = pre["_transport"] = Transport(group, device)
-    # a caller's poll before each collective (serve/sharded.py::run_agreed)
-    transport.before = pre.get("_before_collective")
-    S, rank = transport.size, transport.rank
+    with span.child("field.inputs"):
+        group = pre.get("_group")
+        if group is None:
+            group = pre["_group"] = make_smoke_group(device)
+        transport = pre.get("_transport")
+        if transport is None or transport.group is not group or transport.device != device:
+            transport = pre["_transport"] = Transport(group, device)
+        # a caller's poll before each collective (serve/sharded.py::run_agreed)
+        transport.before = pre.get("_before_collective")
+        S, rank = transport.size, transport.rank
 
-    n, m, N = g.n, g.m, trie.n_nodes
-    cnt = pre.get("cnt")
-    if cnt is None:
-        # the graph's own (incrementally patched) matrix, so the cached
-        # sharded packing stays patchable across mutations
-        cnt = g.cached_neighbor_label_counts()
-    lab_vcount = pre.get("lab_vcount")
-    if lab_vcount is None:
-        lab_vcount = g.label_counts()
-    dev = _device_inputs(g, pre, cnt, lab_vcount, device, with_csr=False)
-    if S > 1:
-        _check_spmd(transport, g, trie, part)
+        n, m, N = g.n, g.m, trie.n_nodes
+        cnt = pre.get("cnt")
+        if cnt is None:
+            # the graph's own (incrementally patched) matrix, so the cached
+            # sharded packing stays patchable across mutations
+            cnt = g.cached_neighbor_label_counts()
+        lab_vcount = pre.get("lab_vcount")
+        if lab_vcount is None:
+            lab_vcount = g.label_counts()
+        dev = _device_inputs(g, pre, cnt, lab_vcount, device, with_csr=False)
+        if S > 1:
+            _check_spmd(transport, g, trie, part)
 
-    order_entry = pre.get("_shard_order")
-    if order_entry is None and shard_map_source != "stripe":
-        order_entry = (f"{shard_map_source}:0",
-                       compute_shard_order(g, shard_map_source, S, part=part))
-        pre["_shard_order"] = order_entry
-    token, order = order_entry if order_entry is not None else ("stripe", None)
-    sp = g.vm_packing_sharded(S, cnt=cnt, order=order, order_token=token)
-    sdev = _sharded_device_arrays(sp, pre, rank, device, halo_exchange,
-                                  plain=backend != "cuda_sharded")
-    shard = sdev["shard"]
-    csr = shard["csr"]
-    round_cap = [int(c) for c in sp.round_cap]
+        order_entry = pre.get("_shard_order")
+        if order_entry is None and shard_map_source != "stripe":
+            order_entry = (f"{shard_map_source}:0",
+                           compute_shard_order(g, shard_map_source, S, part=part))
+            pre["_shard_order"] = order_entry
+        token, order = order_entry if order_entry is not None else ("stripe", None)
+        sp = g.vm_packing_sharded(S, cnt=cnt, order=order, order_token=token)
+        sdev = _sharded_device_arrays(sp, pre, rank, device, halo_exchange,
+                                      plain=backend != "cuda_sharded")
+        shard = sdev["shard"]
+        csr = shard["csr"]
+        round_cap = [int(c) for c in sp.round_cap]
 
-    part_dev = torch.as_tensor(np.asarray(part, np.int64), device=device)
-    cond_p = torch.as_tensor(trie.cond_p, device=device)
-    par, val = _transition_dev(trie, depth_cap, pre, device)
-    # this shard's local-edge weights in CSR order (local is 0/1, so exact)
-    w = shard["inv_cnt"] * (part_dev[shard["src_global"]]
-                            == part_dev[shard["dst_global"]]).to(torch.float32)
-    alpha = _prior_columns(trie.depth, trie.label, N, shard["vlabels"],
-                           dev["lab_vcount"], torch.as_tensor(trie.p, device=device),
-                           sp.n_local_pad)
-    beta = alpha
-    slot_mass = torch.zeros(w.shape[0], dtype=torch.float32, device=device)
-    max_depth = min(trie.max_depth, depth_cap)
+        part_dev = torch.as_tensor(np.asarray(part, np.int64), device=device)
+        cond_p = torch.as_tensor(trie.cond_p, device=device)
+        par, val = _transition_dev(trie, depth_cap, pre, device)
+        # this shard's local-edge weights in CSR order (local is 0/1, so exact)
+        w = shard["inv_cnt"] * (part_dev[shard["src_global"]]
+                                == part_dev[shard["dst_global"]]).to(torch.float32)
+        alpha = _prior_columns(trie.depth, trie.label, N, shard["vlabels"],
+                               dev["lab_vcount"], torch.as_tensor(trie.p, device=device),
+                               sp.n_local_pad)
+        beta = alpha
+        slot_mass = torch.zeros(w.shape[0], dtype=torch.float32, device=device)
+        max_depth = min(trie.max_depth, depth_cap)
+        # bytes each shard receives a depth step (the halo exchange)
+        halo = sp.halo_bytes_per_depth(N, exchange=halo_exchange)
     exchange_s = 0.0
-    for nodes_d in _depth_nodes(trie, max_depth):
+    for d, nodes_d in enumerate(_depth_nodes(trie, max_depth), start=1):
         if not nodes_d:
             break
+        with span.child("field.depth", depth=d, halo_bytes=halo):
+            t0 = time.perf_counter()
+            a_in = torch.cat([beta, _exchange(beta, sdev, transport, halo_exchange,
+                                              round_cap)])
+            exchange_s += time.perf_counter() - t0
+            # per-slot mass of the depth step over ALL edges (cut + local)
+            src = csr.src.long()
+            contrib = _depth_contrib(a_in, nodes_d, trie, cond_p, src, shard["dst_label"],
+                                     shard["inv_cnt"])
+            slot_mass = slot_mass + _depth_mass(contrib, a_in, nodes_d, trie, cond_p, src,
+                                                shard["dst_label"], shard["inv_cnt"])
+            del contrib
+            # the DP advances over local edges only: the kernel, or the plain step
+            if backend == "cuda_sharded":
+                beta = vm_step(a_in, par, val, csr, w, shard["row_label"])
+            else:
+                beta = vm_step_reference(a_in, par, val, csr.src, shard["rows"], w,
+                                         shard["row_label"][shard["rows"]],
+                                         sp.n_local_pad)
+            alpha = alpha + beta
+
+    with span.child("field.aggregates"):
+        # every shard's rows and slot masses on every rank; positions back
+        # to vertex order (a slice under the identity stripe map)
         t0 = time.perf_counter()
-        a_in = torch.cat([beta, _exchange(beta, sdev, transport, halo_exchange,
-                                          round_cap)])
+        alpha_pos = transport.all_gather(alpha, key="alpha").reshape(-1, N)
+        slots = torch.zeros(sp.e_pad, dtype=torch.float32, device=device)
+        slots[shard["slots"]] = slot_mass
+        slot_all = transport.all_gather(slots, key="mass").cpu().numpy()
         exchange_s += time.perf_counter() - t0
-        # per-slot mass of the depth step over ALL edges (cut + local)
-        src = csr.src.long()
-        contrib = _depth_contrib(a_in, nodes_d, trie, cond_p, src, shard["dst_label"],
-                                 shard["inv_cnt"])
-        slot_mass = slot_mass + _depth_mass(contrib, a_in, nodes_d, trie, cond_p, src,
-                                            shard["dst_label"], shard["inv_cnt"])
-        del contrib
-        # the DP advances over local edges only: the kernel, or the plain step
-        if backend == "cuda_sharded":
-            beta = vm_step(a_in, par, val, csr, w, shard["row_label"])
-        else:
-            beta = vm_step_reference(a_in, par, val, csr.src, shard["rows"], w,
-                                     shard["row_label"][shard["rows"]],
-                                     sp.n_local_pad)
-        alpha = alpha + beta
+        alpha = alpha_pos[:n] if sdev["pos"] is None else alpha_pos[sdev["pos"]]
+        mass = torch.as_tensor(sp.scatter_slot_values(slot_all, m), device=device)
+        local = (part_dev[dev["src"]] == part_dev[dev["dst"]]).to(torch.float32)
 
-    # every shard's rows and slot masses on every rank; positions back to
-    # vertex order (a slice under the identity stripe map)
-    t0 = time.perf_counter()
-    alpha_pos = transport.all_gather(alpha, key="alpha").reshape(-1, N)
-    slots = torch.zeros(sp.e_pad, dtype=torch.float32, device=device)
-    slots[shard["slots"]] = slot_mass
-    slot_all = transport.all_gather(slots, key="mass").cpu().numpy()
-    exchange_s += time.perf_counter() - t0
-    alpha = alpha_pos[:n] if sdev["pos"] is None else alpha_pos[sdev["pos"]]
-    mass = torch.as_tensor(sp.scatter_slot_values(slot_all, m), device=device)
-    local = (part_dev[dev["src"]] == part_dev[dev["dst"]]).to(torch.float32)
+        full = sp.full_field_bytes_per_depth(n, N)
+        pre["_halo_stats"] = {
+            "halo_bytes_per_depth": halo,
+            "full_field_bytes_per_depth": full,
+            "halo_ratio": halo / max(full, 1),
+            "shard_map_source": token.split(":")[0],
+            "halo_exchange": halo_exchange,
+            "n_shards": S,
+            "n_frontier": sp.n_frontier,
+            "hot_rows": sp.hot_pad,
+            "sliced_rows": sp.hot_pad + int(sp.round_cap[1:].sum()),
+            # DP depth steps (each one is a halo exchange)
+            "depth_steps": max(int(max_depth) - 1, 0),
+        }
+        # host seconds of the exchanges and the final gathers (gloo on CUDA
+        # waits for the device at each staging copy; NCCL is asynchronous,
+        # so there this is the time to enqueue)
+        pre["_shard_exchange"] = {"transport": transport.name, "seconds": exchange_s}
 
-    full = sp.full_field_bytes_per_depth(n, N)
-    halo = sp.halo_bytes_per_depth(N, exchange=halo_exchange)
-    pre["_halo_stats"] = {
-        "halo_bytes_per_depth": halo,
-        "full_field_bytes_per_depth": full,
-        "halo_ratio": halo / max(full, 1),
-        "shard_map_source": token.split(":")[0],
-        "halo_exchange": halo_exchange,
-        "n_shards": S,
-        "n_frontier": sp.n_frontier,
-        "hot_rows": sp.hot_pad,
-        "sliced_rows": sp.hot_pad + int(sp.round_cap[1:].sum()),
-        # DP depth steps (each one is a halo exchange)
-        "depth_steps": max(int(max_depth) - 1, 0),
-    }
-    # host seconds of the exchanges and the final gathers (gloo on CUDA
-    # waits for the device at each staging copy; NCCL is asynchronous, so
-    # there this is the time to enqueue)
-    pre["_shard_exchange"] = {"transport": transport.name, "seconds": exchange_s}
-
-    counted = [
-        i for i in range(N)
-        if 1 <= int(trie.depth[i]) < max_depth and not bool(trie.is_leaf[i])
-    ]
-    pr, extro_mass, extroversion, ext_to = _field_aggregates(
-        counted, k, dense_ext_to, alpha, mass, dev, part_dev, local, n)
+        counted = [
+            i for i in range(N)
+            if 1 <= int(trie.depth[i]) < max_depth and not bool(trie.is_leaf[i])
+        ]
+        pr, extro_mass, extroversion, ext_to = _field_aggregates(
+            counted, k, dense_ext_to, alpha, mass, dev, part_dev, local, n)
     return alpha, pr, mass, extro_mass, extroversion, ext_to
 
 
@@ -690,6 +703,7 @@ def extroversion_field(
     device: DeviceLike = None,
     shard_map_source: str = "stripe",
     halo_exchange: str = "sliced",
+    span=NOOP_SPAN,
 ) -> ExtroversionResult:
     """Compute the extroversion field of ``part`` under the workload trie.
 
@@ -714,6 +728,14 @@ def extroversion_field(
     dealt to shards (``"stripe"`` | ``"partition"`` | ``"bfs"``) and whether
     the exchange moves the hot union and per-shard-pair ring slices
     (``"sliced"``) or the union frontier (``"psum"``).
+
+    ``span`` (an ``obs.trace`` span; ``Taper.field`` passes its
+    ``invocation.field``) parents the evaluation's spans: ``field.inputs``,
+    ``field.depth`` (``depth=d`` for the d-th DP depth step; under the
+    sharded backends also its ``halo_bytes``, the exchange inside it),
+    ``field.aggregates`` and ``field.readback`` (``bytes=`` read back).
+    Each evaluation adds 1 to ``field_evaluations_total`` and its outputs'
+    bytes to ``field_readback_bytes_total`` (``obs.default_registry()``).
     """
     device = resolve_device(device)
     if backend is None:
@@ -728,21 +750,29 @@ def extroversion_field(
     pre = _precomputed if _precomputed is not None else {}
     if backend in SHARDED_BACKENDS:
         out = _sharded_field(g, trie, part, k, depth_cap, pre, dense_ext_to,
-                             backend, device, shard_map_source, halo_exchange)
+                             backend, device, shard_map_source, halo_exchange,
+                             span)
     else:
         out = _field(g, trie, part, k, depth_cap, pre, dense_ext_to, backend,
-                     device)
+                     device, span)
     alpha, pr, mass, extro_mass, extroversion, ext_to = out
-    extro_mass = extro_mass.cpu().numpy()
-    return ExtroversionResult(
-        alpha=alpha.cpu().numpy(),
-        pr=pr.cpu().numpy(),
-        edge_mass=mass.cpu().numpy(),
-        extro_mass=extro_mass,
-        extroversion=extroversion.cpu().numpy(),
-        ext_to=None if ext_to is None else ext_to.cpu().numpy(),
-        total_extroversion=float(extro_mass.sum()),
-    )
+    with span.child("field.readback") as rb:
+        extro_mass = extro_mass.cpu().numpy()
+        fld = ExtroversionResult(
+            alpha=alpha.cpu().numpy(),
+            pr=pr.cpu().numpy(),
+            edge_mass=mass.cpu().numpy(),
+            extro_mass=extro_mass,
+            extroversion=extroversion.cpu().numpy(),
+            ext_to=None if ext_to is None else ext_to.cpu().numpy(),
+            total_extroversion=float(extro_mass.sum()),
+        )
+        nbytes = sum(a.nbytes for a in (fld.alpha, fld.pr, fld.edge_mass, fld.extro_mass,
+                                        fld.extroversion, fld.ext_to) if a is not None)
+        rb.set(bytes=nbytes)
+    _EVALUATIONS.inc()
+    _READBACK_BYTES.inc(nbytes)
+    return fld
 
 
 # ---------------------------------------------------------------------------

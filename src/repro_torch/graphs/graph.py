@@ -22,10 +22,19 @@ patch their own state incrementally.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.obs.registry import BUILD_BUCKETS, default_registry
+
+#: host seconds of the graph build's stages (``from_undirected_edges``; a
+#: ``vm_csr`` that builds, its packing and row plan included)
+_EDGES_BUILD, _CSR_BUILD = (
+    default_registry().histogram("graph_build_seconds", buckets=BUILD_BUCKETS, stage=stage)
+    for stage in ("edges", "csr"))
 
 
 @dataclass
@@ -303,7 +312,9 @@ class LabelledGraph:
         label_names: Optional[List[str]] = None,
         dedup: bool = True,
     ) -> "LabelledGraph":
-        """Build from an ``(e, 2)`` array of undirected edges (no self loops)."""
+        """Build from an ``(e, 2)`` array of undirected edges (no self loops);
+        its host seconds go to ``graph_build_seconds{stage="edges"}``."""
+        t0 = time.perf_counter()
         edges = np.asarray(edges, dtype=np.int64)
         if edges.size == 0:
             edges = edges.reshape(0, 2)
@@ -324,18 +335,21 @@ class LabelledGraph:
                 key = key[np.concatenate([[True], key[1:] != key[:-1]])]
             src = key // np.int64(max(n, 1))
             counts = np.bincount(src, minlength=n)
-            return LabelledGraph(
+            g = LabelledGraph(
                 n=n, labels=labels, label_names=list(label_names),
                 src=src.astype(np.int32), dst=(key - src * n).astype(np.int32),
                 row_ptr=np.concatenate([[0], np.cumsum(counts)]).astype(np.int64))
-        sym = np.concatenate([edges, edges[:, ::-1]], axis=0)
-        return LabelledGraph(
-            n=n,
-            labels=labels,
-            label_names=list(label_names),
-            src=sym[:, 0].astype(np.int32),
-            dst=sym[:, 1].astype(np.int32),
-        )
+        else:
+            sym = np.concatenate([edges, edges[:, ::-1]], axis=0)
+            g = LabelledGraph(
+                n=n,
+                labels=labels,
+                label_names=list(label_names),
+                src=sym[:, 0].astype(np.int32),
+                dst=sym[:, 1].astype(np.int32),
+            )
+        _EDGES_BUILD.observe(time.perf_counter() - t0)
+        return g
 
     def copy(self) -> "LabelledGraph":
         """Independent copy with fresh (empty) caches and version 0."""
@@ -459,14 +473,17 @@ class LabelledGraph:
         ids and the edge-list index of each slot, with its row plan); it
         depends only on the graph, so it is built once per graph version:
         :meth:`apply_mutations` drops it, and the next call derives it from
-        the patched packing, equal to a fresh graph's."""
+        the patched packing, equal to a fresh graph's.  A build's host
+        seconds go to ``graph_build_seconds{stage="csr"}``."""
         entry = self._vm_pack_cache.get("csr")
         if entry is None:
             from repro_torch.kernels.segment_spmm.ops import csr_from_packing
 
+            t0 = time.perf_counter()
             packed, _, _, dst_global = self.vm_packing()
             entry = csr_from_packing(packed, dst_global, self.n)
             self._vm_pack_cache["csr"] = entry
+            _CSR_BUILD.observe(time.perf_counter() - t0)
         return entry
 
     def vm_packing_sharded(self, n_shards: int,

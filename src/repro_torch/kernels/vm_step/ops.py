@@ -28,6 +28,11 @@ from repro_torch.kernels import GATHERED_INPUTS, LAUNCH_LOCK, KernelError, shard
 from repro_torch.kernels.segment_spmm.ops import (  # noqa: F401
     EdgeCSR, RowPlan, csr_from_packing, pack_edges)
 from repro_torch.kernels.vm_step.ref import vm_step_reference
+from repro_torch.obs.registry import default_registry
+
+#: CUDA launches of the kernel in this process (the plain version's calls
+#: on the CPU do not count)
+_LAUNCHES = default_registry().counter("vm_step_launches_total")
 
 
 def pack_vm_inputs(edge_src, edge_dst, labels, cnt, n: int,
@@ -130,12 +135,8 @@ def _launch(alpha, par, val, row_ptr, src, w, row_label, runs, long_rows):
 
     out = vm_step_cuda(alpha, par, val, row_ptr, src, w, row_label, runs, long_rows)
     with LAUNCH_LOCK:
-        vm_step.launches += 1
+        _LAUNCHES.inc()
     return out
-
-
-#: kernel launches since the last reset (CPU calls do not count)
-vm_step.launches = 0
 
 
 @torch.library.custom_op("repro_torch::vm_step", mutates_args=())

@@ -19,22 +19,27 @@ in one causally ordered place.  :meth:`Observability.disabled` returns a
 shared all-off bundle whose members short-circuit after one attribute
 check — the default when no one asked for observability, keeping the
 hot path free.
+
+Below any loop, the program opens its spans through :func:`span` (mirrored
+into ``torch.profiler`` while it records) and counts into
+:func:`default_registry`.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from .recorder import FLIGHT_DIR_ENV, FlightRecorder
-from .registry import (DEFAULT_BUCKETS, Counter, Gauge, Histogram, Registry,
-                       flatten_numeric, parse_prometheus_text)
-from .trace import NOOP_SPAN, NOOP_TRACE, Span, TraceContext, Tracer
+from .registry import (BUILD_BUCKETS, DEFAULT_BUCKETS, Counter, Gauge, Histogram,
+                       Registry, default_registry, flatten_numeric,
+                       parse_prometheus_text)
+from .trace import NOOP_SPAN, NOOP_TRACE, Span, TraceContext, Tracer, event, span
 
 __all__ = [
     "Observability",
-    "Tracer", "Span", "TraceContext", "NOOP_SPAN", "NOOP_TRACE",
+    "Tracer", "Span", "TraceContext", "NOOP_SPAN", "NOOP_TRACE", "span", "event",
     "FlightRecorder", "FLIGHT_DIR_ENV",
     "Registry", "Counter", "Gauge", "Histogram", "DEFAULT_BUCKETS",
-    "flatten_numeric", "parse_prometheus_text",
+    "BUILD_BUCKETS", "default_registry", "flatten_numeric", "parse_prometheus_text",
 ]
 
 

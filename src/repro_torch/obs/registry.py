@@ -1,10 +1,9 @@
 """Unified metrics registry: counters, gauges, histograms, exporters.
 
 One :class:`Registry` replaces the repo's scattered metric surfaces —
-``serve/metrics.ServeMetrics``'s flat dict, ``utils/timing.Timer``'s
-bespoke totals, and the ``pre["_halo_stats"]`` / ``pre["_shard_uploads"]``
-side channels — behind three typed instruments plus a pull-based
-**collector protocol**:
+``serve/metrics.ServeMetrics``'s flat dict and the
+``pre["_halo_stats"]`` / ``pre["_shard_uploads"]`` side channels — behind
+three typed instruments plus a pull-based **collector protocol**:
 
 * :class:`Counter` — monotonic float (``inc``);
 * :class:`Gauge` — last-write-wins float (``set``);
@@ -25,6 +24,13 @@ for dashboards that want one flat dict.
 Instruments are lock-free on the hot path (float add / bucket increment
 under the GIL); creation is locked and get-or-create, keyed on
 ``(name, sorted labels)``.
+
+:func:`default_registry` is the process's own registry, where the program
+counts what it does below any serving loop: field evaluations and the
+bytes they read back (``core/visitor.py``), ``vm_step`` launches
+(``kernels/vm_step/ops.py``) and the graph build's host seconds by stage
+(``graph_build_seconds{stage=edges|csr}``, ``graphs/graph.py``).  A
+serving loop keeps its own :class:`Registry`.
 """
 from __future__ import annotations
 
@@ -35,13 +41,15 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "Registry",
-    "flatten_numeric", "parse_prometheus_text",
+    "BUILD_BUCKETS", "Counter", "Gauge", "Histogram", "Registry",
+    "default_registry", "flatten_numeric", "parse_prometheus_text",
 ]
 
 #: default latency buckets (seconds): micro-batch serving spans ~0.1ms-5s
 DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                    0.1, 0.25, 0.5, 1.0, 2.5, 5.0)
+#: graph-build buckets (seconds): a small graph's CSR to a 10M-vertex build
+BUILD_BUCKETS = (0.001, 0.01, 0.1, 1.0, 10.0, 100.0)
 
 LabelsKey = Tuple[Tuple[str, str], ...]
 
@@ -273,6 +281,20 @@ class Registry:
                 fh.write(json.dumps({"metric": k, "value": snap[k]},
                                     default=json_default) + "\n")
         return len(snap)
+
+
+_DEFAULT: Optional[Registry] = None
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_registry() -> Registry:
+    """The process's own registry (module doc), made at first use."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        with _DEFAULT_LOCK:
+            if _DEFAULT is None:
+                _DEFAULT = Registry()
+    return _DEFAULT
 
 
 # ---------------------------------------------------------------------------

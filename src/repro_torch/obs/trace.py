@@ -26,6 +26,31 @@ The hot-path contract is *pay nothing when off*:
 
 Finished spans land in a bounded ring (oldest evicted) and export as
 dicts (:meth:`Tracer.spans`) or JSONL (:meth:`Tracer.export_jsonl`).
+
+The program opens its spans through one entry point, :func:`span` (and
+each span's :meth:`~Span.child`; :func:`event` for instants), which also
+mirrors every span into ``torch.profiler``:
+
+* when the torch profiler is recording (``torch._C._autograd.
+  _profiler_enabled()``, checked once per span), the span opens a host
+  range of the same name (``torch._C._profiler._RecordFunctionFast``, a
+  ``RecordFunction`` of function scope, as an op's), so the program's
+  spans land in the device trace, on its clock, around the device work
+  they enqueue.  Not ``torch.profiler.record_function``: a user
+  annotation is also drawn on the device's timeline, as a
+  ``gpu_user_annotation`` range over the kernels it encloses, which a
+  reader that counts the device's operations would take for busy time;
+* when a sampled trace is wired (a tracer and a sampled context), the
+  span is also a :class:`Span` of that trace; its exported ``wall`` is
+  ``time.time`` based, as Kineto's host timestamps are (Unix-epoch
+  nanoseconds), so an exported span JSONL and a device trace line up;
+* with both off, a span costs the profiler check (~0.15 us) and the
+  tracer / context test, and returns :data:`NOOP_SPAN`: no range is
+  entered (a ``record_function`` with no profiler running costs
+  ~7-10 us).
+
+A span only marks where code runs: it adds no synchronisation and moves
+no work.
 """
 from __future__ import annotations
 
@@ -36,7 +61,11 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
-__all__ = ["NOOP_SPAN", "NOOP_TRACE", "Span", "TraceContext", "Tracer"]
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+__all__ = ["NOOP_SPAN", "NOOP_TRACE", "Span", "TraceContext", "Tracer",
+           "event", "span"]
 
 
 class TraceContext:
@@ -94,6 +123,10 @@ class Span:
         """A child context: same trace, this span as the parent."""
         return TraceContext(self.trace_id, self.span_id, True)
 
+    def child(self, name: str, **attrs):
+        """Open a span under this one (:func:`span`)."""
+        return span(name, self._tracer, self.context(), **attrs)
+
     def end(self, **attrs) -> None:
         """Close the span (idempotent) and hand it to the tracer's ring."""
         if self.t1 is not None:
@@ -135,6 +168,9 @@ class _NoopSpan:
     def context(self) -> TraceContext:
         return NOOP_TRACE
 
+    def child(self, name: str, **attrs):
+        return span(name, **attrs)
+
     def end(self, **attrs) -> None:
         pass
 
@@ -146,6 +182,69 @@ class _NoopSpan:
 
 
 NOOP_SPAN = _NoopSpan()
+
+
+class _ProfiledSpan:
+    """A span mirrored into ``torch.profiler``: a host range of the span's
+    name (module doc), entered when the span opens and left when it ends,
+    around ``inner`` (a :class:`Span` or :data:`NOOP_SPAN`)."""
+
+    __slots__ = ("_range", "_inner")
+
+    def __init__(self, name: str, inner):
+        self._inner = inner
+        self._range = _RecordFunctionFast(name)
+        self._range.__enter__()
+
+    def set(self, **attrs) -> "_ProfiledSpan":
+        self._inner.set(**attrs)
+        return self
+
+    def context(self) -> TraceContext:
+        return self._inner.context()
+
+    def child(self, name: str, **attrs):
+        return self._inner.child(name, **attrs)
+
+    def end(self, **attrs) -> None:
+        """Close the inner span, then the range (idempotent)."""
+        rng, self._range = self._range, None
+        if rng is None:
+            return
+        self._inner.end(**attrs)
+        rng.__exit__(None, None, None)
+
+    def __enter__(self) -> "_ProfiledSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end()
+        return False
+
+
+def span(name: str, tracer: Optional["Tracer"] = None,
+         ctx: Optional[TraceContext] = None, **attrs):
+    """The program's span entry point (module doc): a :class:`Span` of
+    ``ctx``'s trace when ``tracer`` and a sampled ``ctx`` are given, inside
+    a profiler range when the torch profiler is recording, else
+    :data:`NOOP_SPAN`.  Use it as a context manager or close it with
+    ``end()``; open children with its ``child()``."""
+    inner = (NOOP_SPAN if tracer is None or ctx is None
+             else tracer.start(name, ctx, **attrs))
+    if _profiler_enabled():
+        return _ProfiledSpan(name, inner)
+    return inner
+
+
+def event(name: str, tracer: Optional["Tracer"] = None,
+          ctx: Optional[TraceContext] = None, **attrs) -> None:
+    """An instant of the program: :meth:`Tracer.event` on a wired trace,
+    and an empty profiler range when the profiler records."""
+    if tracer is not None and ctx is not None:
+        tracer.event(name, ctx, **attrs)
+    if _profiler_enabled():
+        with _RecordFunctionFast(name):
+            pass
 
 
 class Tracer:

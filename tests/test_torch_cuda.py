@@ -17,8 +17,12 @@ from repro_torch.graphs.generators import provgen_like
 from repro_torch.graphs.partition import hash_partition
 from repro_torch.kernels.segment_spmm.ops import EdgeCSR
 from repro_torch.kernels.vm_step.ops import vm_step
+from repro_torch.obs import default_registry
 
 pytestmark = pytest.mark.cuda
+
+#: the kernel's launches in this process (counted at each launch)
+_LAUNCHES = default_registry().counter("vm_step_launches_total")
 
 
 @pytest.fixture
@@ -63,10 +67,10 @@ def test_vm_step_kernel_matches_plain(card):
                                         ("Entity.Activity.(Agent)*", 0.6))],
         ["Entity", "Activity", "Agent"])
     args = _vm_step_args(np.random.default_rng(1), par, val, 5000, 40000, hub=12000)
-    before = vm_step.launches
+    before = _LAUNCHES.value
     out = vm_step(*(a.to(card) for a in args))
     torch.cuda.synchronize()
-    assert vm_step.launches == before + 1
+    assert _LAUNCHES.value == before + 1
     torch.testing.assert_close(out.cpu(), vm_step(*args), rtol=1e-5, atol=1e-6)
 
 
@@ -76,9 +80,9 @@ def test_kernel_field_equals_plain_field_bitwise(card):
          (parse_rpq("Entity.Activity.(Agent)*"), 0.4)]
     arrays = TPSTry.from_workload(w).compile(g.label_names)
     part = hash_partition(g.n, 8, seed=1)
-    before = vm_step.launches
+    before = _LAUNCHES.value
     fc = extroversion_field(g, arrays, part, 8, device=card)
-    assert vm_step.launches > before                      # default backend: the kernel
+    assert _LAUNCHES.value > before                      # default backend: the kernel
     fp = extroversion_field(g, arrays, part, 8, device="cpu")
     for name in ("alpha", "pr", "edge_mass", "extro_mass", "extroversion", "ext_to"):
         assert np.array_equal(getattr(fc, name), getattr(fp, name)), name
@@ -423,12 +427,12 @@ def test_vm_step_long_rows_bitwise_vs_cpu(card, workload):
     assert args[3].plan.long_rows.shape[0] == 3
     want = vm_step(*args)
     on_card = [a.to(card) for a in args]
-    before = vm_step.launches
+    before = _LAUNCHES.value
     for _ in range(3):
         got = vm_step(*on_card)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
-    assert vm_step.launches == before + 3
+    assert _LAUNCHES.value == before + 3
 
 
 def test_vm_step_reads_alpha_the_kernel_before_it_wrote(card):
@@ -625,10 +629,10 @@ def test_vm_step_on_a_patched_csr_bitwise_vs_cpu(card):
             torch.as_tensor(par), torch.as_tensor(val), csr.to("cpu"),
             torch.as_tensor(w), torch.as_tensor(g.labels, dtype=torch.int32)]
     want = vm_step(*args)
-    before = vm_step.launches
+    before = _LAUNCHES.value
     got = vm_step(*(a.to(card) for a in args))
     torch.cuda.synchronize()
-    assert vm_step.launches == before + 1
+    assert _LAUNCHES.value == before + 1
     assert torch.equal(got.cpu(), want)
 
 
@@ -698,10 +702,10 @@ def test_vm_step_kernel_reads_a_halo_extended_input(card):
                     torch.as_tensor(np.maximum(sp.vlabels[s], 0).astype(np.int32))]
             assert n_in > sp.n_local_pad
             want = vm_step(*args)
-            before = vm_step.launches
+            before = _LAUNCHES.value
             got = vm_step(*(a.to(card) for a in args))
             torch.cuda.synchronize()
-            assert vm_step.launches == before + 1
+            assert _LAUNCHES.value == before + 1
             assert got.shape == (sp.n_local_pad, par.shape[1])
             assert torch.equal(got.cpu(), want)
 
@@ -725,12 +729,12 @@ def test_cuda_sharded_one_rank_equals_cuda(card):
         for source in ("stripe", "partition", "bfs"):
             for exchange in ("sliced", "psum"):
                 pre = {"_group": group}
-                before = vm_step.launches
+                before = _LAUNCHES.value
                 fs = extroversion_field(g, arrays, part, 8, _precomputed=pre,
                                         backend="cuda_sharded", device=card,
                                         shard_map_source=source,
                                         halo_exchange=exchange)
-                assert vm_step.launches - before == arrays.max_depth - 1
+                assert _LAUNCHES.value - before == arrays.max_depth - 1
                 assert ("pinned" in pre["_shard_exchange"]["transport"]) == (
                     str(dist.get_backend(group)) == "gloo")
                 for f in ("alpha", "pr", "edge_mass", "extro_mass", "extroversion",
@@ -804,9 +808,9 @@ def test_backend_fallback_and_probe_recovery_on_the_card(card):
         assert seen[n:] and all(s == ("torch", "cuda") for s in seen[n:])
         s = loop.stats()
         assert s["field_backend"] == "cuda" and s["degraded"] == 0 and s["healthy"] == 1
-        before, inv = vm_step.launches, loop.ot.invocations
+        before, inv = _LAUNCHES.value, loop.ot.invocations
         pump_until(lambda: loop.ot.invocations > inv)
-        assert vm_step.launches > before
+        assert _LAUNCHES.value > before
     finally:
         visitor._field = field
     loop.stop()
@@ -869,7 +873,7 @@ def test_overlapped_serving_on_the_card_equals_the_cpu(card):
             g, 4, taper_config=TaperConfig(max_iterations=2, field_backend=backend),
             policy=_serve_policy(cadence=10 ** 9, dirty_fraction=1e-9),
             config=ServeLoopConfig(micro_batch=8, overlap_invocations=True), device=device)
-        before = vm_step.launches
+        before = _LAUNCHES.value
         out = []
         for step in range(3):
             for i in range(8):
@@ -885,7 +889,7 @@ def test_overlapped_serving_on_the_card_equals_the_cpu(card):
         stats = loop.stop()
         assert stats["invocation_error"] == "" and stats["backend_fallbacks"] == 0
         assert stats["field_backend"] == backend
-        parts[name] = (out, vm_step.launches - before)
+        parts[name] = (out, _LAUNCHES.value - before)
     assert parts["card"][1] > 0 and parts["cpu"][1] == 0
     assert all(np.array_equal(a, b) for a, b in zip(parts["card"][0], parts["cpu"][0]))
 
@@ -902,11 +906,11 @@ def test_chaos_scenario_on_the_card_equals_the_cpu(card, tmp_path):
 
     digests = {}
     for name, device in (("card", card), ("cpu", "cpu")):
-        before = vm_step.launches
+        before = _LAUNCHES.value
         r = run_scenario(tmp_path / name, "crash_storm", device=device)
         assert r.ok, (r.invariant_errors, r.staleness_violations)
         assert r.stats["backend_fallbacks"] == 0
-        digests[name] = (r.digest, vm_step.launches - before)
+        digests[name] = (r.digest, _LAUNCHES.value - before)
     assert digests["card"][1] > 0 and digests["cpu"][1] == 0
     assert digests["card"][0] == digests["cpu"][0] == CRASH_STORM_DIGEST
 
@@ -970,11 +974,11 @@ def test_failover_drill_on_the_card_equals_the_cpu(card, tmp_path):
             assert coord.primary.ot.taper.device.type == kind
             promoted = state(coord.primary.ot)
             routed = coord.serve([mq1, mq3], cls="hot")
-            before = vm_step.launches
+            before = _LAUNCHES.value
             inv0 = coord.primary.ot.invocations
             drive(coord, 12, seed=4)
             assert coord.primary.ot.invocations > inv0
-            launches = vm_step.launches - before
+            launches = _LAUNCHES.value - before
             f = coord.rejoin_demoted(slot=old_slot, reuse_state=False)
             assert f.ot.taper.device.type == kind
             f.catch_up()
@@ -1105,9 +1109,9 @@ def test_expert_placement_on_the_card_equals_the_cpu(card):
     from repro_torch.core.expert_placement import plan_expert_placement
 
     ids = np.random.default_rng(3).integers(0, 32, (512, 6, 4))
-    before = vm_step.launches
+    before = _LAUNCHES.value
     on_card = plan_expert_placement(ids, 32, 4, device=card)
-    assert vm_step.launches > before
+    assert _LAUNCHES.value > before
     on_cpu = plan_expert_placement(ids, 32, 4, device="cpu")
     assert np.array_equal(on_card["placement"], on_cpu["placement"])
     for k in ("cross_mass_before", "cross_mass_after", "moves", "iterations"):
@@ -1555,10 +1559,10 @@ def test_taper_paper_refine_step_on_the_card(card, start):
     for trie in (synthetic_trie(cfg.n_labels, cfg.trie_depth, branching=2),
                  TPSTry.from_workload(mq).compile(g.label_names)):
         pre = {}
-        before = vm_step.launches
+        before = _LAUNCHES.value
         fc = extroversion_field(g, trie, part, k, device=card, dense_ext_to=False,
                                 _precomputed=pre)
-        assert vm_step.launches - before == trie.max_depth - 1
+        assert _LAUNCHES.value - before == trie.max_depth - 1
         fp = extroversion_field(g, trie, part, k, device=card, backend="torch",
                                 dense_ext_to=False, _precomputed=pre)
         fcpu = extroversion_field(g, trie, part, k, device="cpu", dense_ext_to=False)

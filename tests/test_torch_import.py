@@ -56,7 +56,7 @@ def test_serving_slice_imports_without_jax_or_reference():
              "repro_torch.serve.snapshot, repro_torch.serve.replication, "
              "repro_torch.serve.control, repro_torch.serve.faults, repro_torch.obs, "
              "repro_torch.train.checkpoint, repro_torch.train.elastic, "
-             "repro_torch.utils.timing, repro_torch.workload.executor; "
+             "repro_torch.workload.executor; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", probe], env=env,

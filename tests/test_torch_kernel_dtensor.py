@@ -16,6 +16,10 @@ from repro_torch.kernels.segment_spmm.ops import EdgeCSR, segment_spmm_csr
 from repro_torch.kernels.vm_step.ops import vm_step
 from repro_torch.kernels.vm_step.ref import transition_columns
 from repro_torch.launch.mesh import make_smoke_mesh
+from repro_torch.obs import default_registry
+
+#: the kernel's launches in this process (counted at each launch)
+_LAUNCHES = default_registry().counter("vm_step_launches_total")
 
 
 def _inputs(n=600, e=5000, N=9, L=3, seed=0):
@@ -63,11 +67,11 @@ def _dtensor_kernels_equal_plain(device, x_placements):
         assert torch.equal(got.to_local(), want)
     assert csr.plan.long_rows.numel() == 1               # the long row's own path runs too
 
-    before = vm_step.launches
+    before = _LAUNCHES.value
     out = vm_step(d["alpha"], d["par"], d["val"], dcsr, d["w"], d["row_label"])
     plain = vm_step(a["alpha"], a["par"], a["val"], csr, a["w"], a["row_label"])
     assert isinstance(out, DTensor) and torch.equal(out.full_tensor(), plain)
-    assert vm_step.launches - before == (2 if device == "cuda" else 0)
+    assert _LAUNCHES.value - before == (2 if device == "cuda" else 0)
     spmm = segment_spmm_csr(d["alpha"], dcsr, d["w"])
     assert torch.equal(spmm.full_tensor(), segment_spmm_csr(a["alpha"], csr, a["w"]))
     return out.full_tensor(), spmm.full_tensor(), a

@@ -11,7 +11,8 @@ flight dumps and the registry's Prometheus text must be the reference's
 with their time fields left out."""
 import time
 
-from test_torch_replication import _both, _cluster, _drive  # same-directory sibling
+from test_torch_obs import shared_spans  # same-directory siblings
+from test_torch_replication import _both, _cluster, _drive
 
 #: span / event / dump keys that hold clock readings
 TIME_KEYS = {"t", "t0", "t1", "wall", "duration_s"}
@@ -85,9 +86,8 @@ def _single_trace(P, tmp):
     coord.serve([P.MQ1], cls="hot")
     assert len(obs.tracer.spans(tid, name="failover.first-answer")) == 1
     coord.stop()
-    return {"trace": sorted((_timeless(s) for s in spans), key=lambda s: s["span_id"]),
-            "all": sorted((_timeless(s) for s in obs.tracer.spans()),
-                          key=lambda s: s["span_id"])}
+    return {"trace": [_timeless(s) for s in shared_spans(spans)],
+            "all": [_timeless(s) for s in shared_spans(obs.tracer.spans())]}
 
 
 def test_failover_drill_single_cross_node_trace(tmp_path):

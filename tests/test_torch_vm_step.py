@@ -24,6 +24,10 @@ from repro_torch.kernels.segment_spmm.ops import (LONG_ROW_EDGES, RUN_EDGES,
 from repro_torch.kernels.vm_step.ops import (csr_from_packing, pack_vm_inputs,
                                              vm_step)
 from repro_torch.kernels.vm_step.ref import transition_columns
+from repro_torch.obs import default_registry
+
+#: the kernel's launches in this process (counted at each launch)
+_LAUNCHES = default_registry().counter("vm_step_launches_total")
 
 _rng = np.random.default_rng(20261017)
 SWEEP = [(int(_rng.integers(10, 301)), int(_rng.integers(5, 1201)), L,
@@ -122,7 +126,7 @@ def _small_args():
 
 
 def test_vm_step_plain_on_cpu_counts_no_launch():
-    before = vm_step.launches
+    before = _LAUNCHES.value
     args = _small_args()
     out = _vm(args)
     alpha, par, val = args[:3]
@@ -131,7 +135,7 @@ def test_vm_step_plain_on_cpu_counts_no_launch():
     want[0] = (alpha[2] @ T[0]) * 0.5
     want[2] = (alpha[0] @ T[1]) * 1.0
     torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-7)
-    assert vm_step.launches == before
+    assert _LAUNCHES.value == before
 
 
 @pytest.mark.parametrize("bad", [
